@@ -1,0 +1,71 @@
+"""Move state between the JAX package and the port as numpy arrays.
+
+The JAX side hands over ``np.asarray`` of its arrays; these functions
+build the port's tensors from them on ``device``, the GPU unless the
+caller names another (and :func:`to_numpy` goes back), so a test or a tool can start the port from the reference's
+exact state and compare the two.  Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import device as devices
+from repro_torch.core.tm import TMParams
+from repro_torch.data.partition import ClientData
+from repro_torch.fl.runtime.engine import EngineState
+from repro_torch.fl.runtime.strategy import ServerState
+
+
+def _t(a, dtype=None, device=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, dtype=dtype),
+                           device=devices.resolve(device))
+
+
+def key_from_numpy(key, device=None) -> torch.Tensor:
+    """A raw uint32 key (..., 2) as the port's int64 word tensor."""
+    return _t(np.asarray(key, np.uint32).astype(np.int64), device=device)
+
+
+def tm_params_from_numpy(ta_state, weights, device=None) -> TMParams:
+    return TMParams(ta_state=_t(ta_state, np.int32, device),
+                    weights=_t(weights, np.int32, device))
+
+
+def client_data_from_numpy(fields: Mapping[str, Any],
+                           device=None) -> ClientData:
+    """``fields`` maps ClientData's field names to arrays (``sizes`` may
+    be missing or None)."""
+    dtypes = {"x_train": np.uint8, "x_test": np.uint8, "x_conf": np.uint8,
+              "y_train": np.int32, "y_test": np.int32, "y_conf": np.int32,
+              "mixtures": np.float32, "sizes": np.int32}
+    out = {}
+    for name in ClientData._fields:
+        a = fields.get(name)
+        out[name] = None if a is None else _t(a, dtypes[name], device)
+    return ClientData(**out)
+
+
+def engine_state_from_numpy(round_idx, ta_state, weights, server_slots,
+                            device=None) -> EngineState:
+    """The sync engine state: round index, the clients' TM parameters
+    and the server slot matrix."""
+    return EngineState(
+        round_idx=_t(round_idx, np.int32, device),
+        client_state=tm_params_from_numpy(ta_state, weights, device),
+        server=ServerState(_t(server_slots, np.float32, device)))
+
+
+def to_numpy(tree):
+    """Tensors → numpy arrays, through tuples, lists and dicts."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(v) for v in tree)
+    return tree

@@ -1,0 +1,13 @@
+"""Federated runtime: scheduler, TPFL strategy, wire codec, round engine.
+
+Counterpart of ``repro/fl/runtime``: ``scheduler`` (who takes part),
+``strategy`` (what a round means), ``codec`` (the bytes on the wire),
+``executors`` (where the compute runs) and ``engine`` (the round).  This
+slice runs TPFL, sync, full participation, float32 wire, in process.
+"""
+from repro_torch.fl.runtime.engine import (                   # noqa: F401
+    Engine, EngineState, RoundReport, RuntimeConfig)
+from repro_torch.fl.runtime.scheduler import (                # noqa: F401
+    Participation, Scheduler)
+from repro_torch.fl.runtime.strategy import (                 # noqa: F401
+    ServerState, TPFLStrategy, Upload, default_server_update)

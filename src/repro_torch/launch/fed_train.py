@@ -1,0 +1,123 @@
+"""Run a TPFL federation on the port: the scenario runner's CLI.
+
+Counterpart of ``repro/launch/fed_train.py``'s CLI for the configuration
+this slice of the port supports: TPFL, sync, full participation, the
+float32 wire, in process (the reference's other knobs come with later
+slices, ROADMAP.md):
+
+  PYTHONPATH=src python -m repro_torch.launch.fed_train \\
+      --dataset mnist --clauses 300 --clients 20 --rounds 2
+
+runs on the GPU; ``--device cpu`` runs the kernels' plain versions.  It
+prints the same per-round ``acc= … up= … down_bc= … down_pc=`` lines and
+totals line as the reference CLI.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch import device as devices
+from repro_torch import random as rnd
+from repro_torch.core import federation, tm
+from repro_torch.data import partition, synthetic
+from repro_torch.fl.runtime import Engine, RuntimeConfig
+
+
+def accuracy_deciles(per_client_accuracy) -> list[float]:
+    """The 11 decile quantiles (worst client … best) of the accuracies."""
+    acc = np.asarray(per_client_accuracy, np.float64).ravel()
+    return [float(q) for q in np.quantile(acc, np.linspace(0.0, 1.0, 11))]
+
+
+def worst_decile_mean(per_client_accuracy) -> float:
+    """Mean accuracy of the worst 10 % of clients (at least one)."""
+    acc = np.sort(np.asarray(per_client_accuracy, np.float64).ravel())
+    return float(acc[:max(1, int(np.ceil(acc.size / 10)))].mean())
+
+
+def build_scenario(*, dataset: str, clients: int = 20, clauses: int = 48,
+                   seed: int = 0, experiment: int = 5, rounds: int = 5,
+                   local_epochs: int = 2, device=None):
+    """(partitioned client data, TM config, fed config, strategy), with
+    the reference scenario's settings: a 6000-sample pool, 80 / 40 / 40
+    train / test / confidence samples per client, n_states=63, s=5, T=40.
+    The data lies on ``device``, the GPU unless the caller names another.
+    """
+    x, y, dcfg = synthetic.make_pool(dataset, 6000, seed)
+    data = partition.partition(
+        x, y, dcfg.n_classes, n_clients=clients, experiment=experiment,
+        seed=seed + 1, n_train=80, n_test=40, n_conf=40, device=device)
+    tm_cfg = tm.TMConfig(n_classes=dcfg.n_classes, n_clauses=clauses,
+                         n_features=dcfg.n_features, n_states=63, s=5.0,
+                         T=40)
+    fed_cfg = federation.FedConfig(n_clients=clients, rounds=rounds,
+                                   local_epochs=local_epochs)
+    return data, tm_cfg, fed_cfg, federation.tpfl_strategy(tm_cfg, fed_cfg)
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser(
+        description="TPFL federation on PyTorch (GPU by default)")
+    ap.add_argument("--dataset", default="synthmnist",
+                    choices=synthetic.DATASETS,
+                    help="synthmnist = 12x12 pool, mnist = 28x28 pool")
+    ap.add_argument("--clients", type=int, default=20)
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--local-epochs", type=int, default=2)
+    ap.add_argument("--clauses", type=int, default=48)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--experiment", type=int, default=5,
+                    help="paper setup 1..5 (fraction of non-IID clients)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (kernels) or cpu (plain versions)")
+    args = ap.parse_args(argv)
+
+    rt_cfg = RuntimeConfig(rounds=args.rounds)
+    device = (devices.default_device() if args.device == "cuda"
+              else devices.resolve(args.device))
+    data, tm_cfg, fed_cfg, strategy = build_scenario(
+        dataset=args.dataset, clients=args.clients, clauses=args.clauses,
+        seed=args.seed, experiment=args.experiment, rounds=args.rounds,
+        local_epochs=args.local_epochs, device=device)
+    engine = Engine(strategy, data, rt_cfg)
+    print(f"tpfl on {args.dataset} "
+          f"[{tm_cfg.n_features}f, m={tm_cfg.n_clauses}] "
+          f"exp{args.experiment}: {args.clients} clients, "
+          f"K={engine.scheduler.k}/round, codec=float32, mode=sync, "
+          f"device={device}", flush=True)
+    state, reports = engine.run(rnd.PRNGKey(args.seed, device))
+
+    up = down_bc = down_pc = 0
+    for rep in reports:
+        up += rep.upload_bytes
+        down_bc += rep.download_bytes_broadcast
+        down_pc += rep.download_bytes_per_client
+        acc = rep.per_client_accuracy.cpu().numpy()
+        print(f"round {rep.round_idx:3d}: "
+              f"acc={float(rep.mean_accuracy):.4f} "
+              f"w10%={worst_decile_mean(acc):.4f} "
+              f"up={rep.upload_bytes}B "
+              f"down_bc={rep.download_bytes_broadcast}B "
+              f"down_pc={rep.download_bytes_per_client}B "
+              f"active={rep.participation.idx.numel()}"
+              f"/{engine.scheduler.k}", flush=True)
+    print(f"totals: upload={up}B ({up/1e6:.4f}MB) "
+          f"download_broadcast={down_bc}B ({down_bc/1e6:.4f}MB) "
+          f"download_per_client={down_pc}B ({down_pc/1e6:.4f}MB)",
+          flush=True)
+    deciles = accuracy_deciles(reports[-1].per_client_accuracy.cpu())
+    print("final per-client accuracy deciles: "
+          + " ".join(f"p{10 * i}={d:.3f}" for i, d in enumerate(deciles)),
+          flush=True)
+    return {"final_accuracy": float(reports[-1].mean_accuracy),
+            "acc_per_round": [float(r.mean_accuracy) for r in reports],
+            "final_accuracy_deciles": deciles,
+            "upload_bytes": up, "download_bytes_broadcast": down_bc,
+            "download_bytes_per_client": down_pc,
+            "reports": reports, "state": state}
+
+
+if __name__ == "__main__":
+    main()

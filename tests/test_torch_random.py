@@ -1,0 +1,84 @@
+"""repro_torch.random is bit-equal to jax.random (threefry, partitionable
+mode) over several seeds and shapes, including batched keys."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import random as tr
+from test_torch_gpu import one_torch_thread  # noqa: F401
+
+SEEDS = [0, 42, 2**31 - 1]
+SHAPES = [(), (1,), (7,), (5, 13), (33, 130)]
+
+
+def _key(seed):
+    return jax.random.PRNGKey(seed), tr.PRNGKey(seed, "cpu")
+
+
+def _eq(a, b):
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    b = b.numpy()
+    assert a.shape == b.shape, (a.shape, b.shape)
+    if a.dtype == np.float32:
+        a, b = a.view(np.int32), b.view(np.int32)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prngkey_split_fold_in(seed):
+    jk, tk = _key(seed)
+    _eq(jk, tk)
+    for n in (1, 2, 3, 17):
+        _eq(jax.random.split(jk, n), tr.split(tk, n))
+    for data in (0, 1, 0x5C4ED, 2**32 - 1):
+        _eq(jax.random.fold_in(jk, data), tr.fold_in(tk, data))
+    # batched keys = vmap over keys
+    jks = jax.random.split(jk, 4)
+    _eq(jax.vmap(lambda k: jax.random.split(k, 3))(jks),
+        tr.split(tr.split(tk, 4), 3))
+    _eq(jax.vmap(lambda k: jax.random.fold_in(k, 9))(jks),
+        tr.fold_in(tr.split(tk, 4), 9))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bits_uniform_bernoulli(seed, shape):
+    jk, tk = _key(seed)
+    _eq(jax.random.bits(jk, shape, jnp.uint32), tr.bits(tk, shape))
+    _eq(jax.random.uniform(jk, shape), tr.uniform(tk, shape))
+    for p in (0.5, 0.1, 2.0 / 3.0):
+        _eq(jax.random.bernoulli(jk, p, shape), tr.bernoulli(tk, p, shape))
+    _eq(jax.random.bits(jk, shape, jnp.uint32) >> 9,
+        tr.mantissa_bits(tk, shape))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lo,hi", [(1, 10), (1, 3), (0, 7), (-5, 1000), (4, 4)])
+def test_randint(seed, lo, hi):
+    jk, tk = _key(seed)
+    for shape in ((), (6,), (3, 11)):
+        _eq(jax.random.randint(jk, shape, lo, hi),
+            tr.randint(tk, shape, lo, hi))
+
+
+def test_batched_keys_match_vmap():
+    jks = jax.random.split(jax.random.PRNGKey(5), 6)
+    tks = tr.split(tr.PRNGKey(5, "cpu"), 6)
+    _eq(jax.vmap(lambda k: jax.random.uniform(k, (4, 9)))(jks),
+        tr.uniform(tks, (4, 9)))
+    _eq(jax.vmap(lambda k: jax.random.randint(k, (), 1, 10))(jks),
+        tr.randint(tks, (), 1, 10))
+    _eq(jax.vmap(lambda k: jax.random.bernoulli(k, 0.5, (3, 5, 7)))(jks),
+        tr.bernoulli(tks, 0.5, (3, 5, 7)))
+
+
+def test_chunked_hash_matches_one_pass(monkeypatch):
+    """Hashing in chunks of counters changes nothing."""
+    tk = tr.split(tr.PRNGKey(3, "cpu"), 3)
+    whole = tr.bits(tk, (41, 37))
+    monkeypatch.setitem(tr._CHUNK, "cpu", 50)
+    torch.testing.assert_close(tr.bits(tk, (41, 37)), whole, rtol=0, atol=0)

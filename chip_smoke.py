@@ -7,19 +7,34 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together), timed;
-3. hold each kernel against its plain PyTorch version on the card,
-   exactly, at the paper's TM width (20 clients, C = 10, m = 300,
-   L = 1568: fused votes at B = 40, one fused epoch at S = 80) and at one
-   tile-unaligned shape each;
-4. run the port's ``fed_train`` at full width (mnist 28x28, 300 clauses,
-   20 clients, 2 rounds of 2 local epochs) with the launch counters set
-   to 0 just before, printing its round lines, and check its output;
-5. require every kernel of that path to have launched, and check a small
-   federation on the card against the same federation on the CPU;
-6. time each kernel at the main path's shapes with CUDA events, beside
-   its plain version, a one-call PyTorch yardstick where one exists, and
-   the bound from bytes and operations;
-7. profile one more full-width round (device busy share, top ops), then
+3. hold each of the five kernels against its plain PyTorch version on
+   the card, exactly, at the paper's TM width (20 clients, C = 10,
+   m = 300, L = 1568: batched fused votes at B = 40, one fused epoch at
+   S = 80, clause outputs at B = 1 for all 20 clients, single-model fused
+   votes at B = 1 and B = 40, the TA transition of 20 x 2 banks) and at
+   one tile-unaligned shape each;
+4. the training path: the port's ``fed_train`` at full width (mnist
+   28x28, 300 clauses, 20 clients, 2 rounds of 2 local epochs, a
+   checkpoint after each round) with the launch counters set to 0 just
+   before, printing its round lines, and check its output;
+5. require every kernel of that path to have launched;
+6. path (A), serving: ``fed_serve`` publishes the newest checkpoint,
+   serves 8 mixed-cluster batches of 32 and checks all 20 clients
+   against ``tm.predict`` (counters zeroed just before: 8 + 1 batched
+   fused-votes launches, 20 single-model ones, 0 mismatches);
+7. path (B), the unit-weight TM: one round of one local epoch of a
+   20-client ``weighted=False`` federation through the per-sample scan
+   (clause outputs once and the TA transition twice per sample step),
+   then single-model ``tm.train`` / ``accuracy`` / ``confidence_scores``
+   on one client;
+8. small federations (Alg. 1, the §7 variant, the unit-weight TM) and a
+   small checkpoint + serve on the card against the same on the CPU,
+   bit for bit;
+9. time each kernel at its path's shapes with CUDA events, beside its
+   plain version, a one-call PyTorch yardstick where one exists, and the
+   bound from bytes and operations; print each kernel's device time
+   alone (profiler), without its wrapper's host work;
+10. profile one more full-width round (device busy share, top ops), then
    print the kernel times as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -28,7 +43,9 @@ before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -45,8 +62,14 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12          # tensor-core int8, for 8-bit {0,1} work
 FP32_OPS_PER_S = 67e12            # 32-bit work outside the tensor cores
 
-MAIN_ARGS = ["--dataset", "mnist", "--clauses", "300", "--clients", "20",
-             "--rounds", "2", "--local-epochs", "2", "--device", "cuda"]
+RUN_DIR = ROOT / "build" / "chip_smoke"          # checkpoints, registry
+SCENARIO = ["--dataset", "mnist", "--clauses", "300", "--clients", "20",
+            "--local-epochs", "2", "--device", "cuda"]
+MAIN_ARGS = SCENARIO + ["--rounds", "2", "--ckpt-dir", str(RUN_DIR / "ckpt"),
+                        "--ckpt-every", "1"]
+SERVE_ARGS = SCENARIO + ["--ckpt-dir", str(RUN_DIR / "ckpt"), "--batch",
+                         "32", "--requests", "8", "--verify-offline"]
+TA_P = (0.9, 0.7)   # float32(p) < p: a float64 compare would differ
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -64,6 +87,42 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device milliseconds per call of the CUDA kernels whose name
+    contains ``kernel``, from a ``torch.profiler`` trace of ``reps``
+    calls of ``fn()``: the kernel alone, without the wrapper's host work
+    and small torch ops that ``cuda_ms`` also sees when the device waits
+    for the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type != DeviceType.CPU and kernel in e.key)
+    return us / reps / 1e3
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                 library_ms, n_bytes, n_ops, ops_per_s) -> dict:
+    """One kernel's record for the ``kernels`` JSON line.  Its bound is
+    the larger of its bytes over the memory rate and its operations over
+    the peak rate for their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
 
 
 def vote_inputs(gen, N, C, m, L, B, device):
@@ -100,6 +159,58 @@ def epoch_inputs(gen, N, S, C, m, L, n_states, device):
     offs, u_act, coin = draws.epoch_draws(keys, S, m, L, C, 0.8, 0.2)
     cls2 = torch.stack([ys, (ys + offs) % C], -1).contiguous()
     return ta, w, lits, cls2, u_act, coin
+
+
+def ta_inputs(gen, NB, m, L, n_states, device):
+    """Banks near the include boundary, 0/1 flags, and uniforms with a
+    third of the rows exactly at float32(p_inc) / float32(p_dec)."""
+    import torch
+    ta = torch.randint(n_states - 2, n_states + 3, (NB, m, L), generator=gen,
+                       device=device, dtype=torch.int32)
+    ta[:, 0, :2] = torch.tensor([1, 2 * n_states], dtype=torch.int32)
+
+    def bits(*shape):
+        return torch.randint(0, 2, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    u = [torch.rand((NB, m, L), generator=gen, device=device)
+         for _ in range(2)]
+    for a, p in zip(u, TA_P):
+        a[:, ::3] = float(np.float32(p))
+    return [ta, bits(NB, 1, L), bits(NB, m, 1), bits(NB, m, 1),
+            bits(NB, m, 1), *u]
+
+
+def exact(name, got, want, what: str, err: dict) -> None:
+    """Require ``got == want`` bit for bit; record the max |difference|."""
+    import torch
+    diff = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if want.numel() else 0
+    err[name] = max(err.get(name, 0), diff)
+    print(f"check {name} {what}: max_abs_err={diff}", flush=True)
+    if diff != 0 or not torch.equal(got, want):
+        raise SystemExit(f"{name} disagrees with its plain version at "
+                         f"{what}")
+
+
+class Capture:
+    """Record the arguments of the last call of ``ops.<fn>`` while a path
+    runs, so a kernel is timed on the inputs that path gave it."""
+
+    def __init__(self, ops, fn: str):
+        self.ops, self.fn, self.orig = ops, fn, getattr(ops, fn)
+        self.args = None
+
+    def __enter__(self):
+        def call(*a, **kw):
+            self.args = (a, kw)
+            return self.orig(*a, **kw)
+        setattr(self.ops, self.fn, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.fn, self.orig)
+        return False
 
 
 def profile_round(engine, state, key) -> None:
@@ -142,8 +253,9 @@ def main() -> int:
     from repro_torch.data import partition, synthetic
     from repro_torch.fl.runtime import (Engine, RuntimeConfig,
                                         TPFLStrategy)
+    from repro_torch.fl.serve import ModelRegistry, ServingPlane
     from repro_torch.kernels import _build, draws, ops, ref
-    from repro_torch.launch import fed_train
+    from repro_torch.launch import fed_serve, fed_train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -171,37 +283,55 @@ def main() -> int:
     # 3. kernels against their plain versions, exactly
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    err = {"fused_votes_batched": 0, "train_epoch_fused": 0}
+    err: dict = {}
     for shape in ((20, 10, 300, 1568, 40), (3, 3, 33, 130, 7)):
         args = vote_inputs(gen, *shape, dev)
         for predict in (True, False):
-            got = ops.fused_votes_batched(*args, predict)
-            want = ref.fused_votes_batched_ref(*args, predict)
-            torch.cuda.synchronize()
-            diff = int((got - want).abs().max())
-            err["fused_votes_batched"] = max(err["fused_votes_batched"], diff)
-            fired = int((want != 0).sum())
-            print(f"check fused_votes_batched {shape} predict={predict}: "
-                  f"max_abs_err={diff} nonzero_votes={fired}", flush=True)
-            if diff != 0 or not torch.equal(got, want):
-                raise SystemExit("fused_votes_batched disagrees with its "
-                                 "plain version")
+            exact("fused_votes_batched",
+                  ops.fused_votes_batched(*args, predict),
+                  ref.fused_votes_batched_ref(*args, predict),
+                  f"(N, C, m, L, B)={shape} predict={predict}", err)
     for N, S, C, m, L in ((20, 80, 10, 300, 1568), (4, 17, 3, 33, 130)):
         args = epoch_inputs(gen, N, S, C, m, L, 63, dev)
         got = ops.train_epoch_fused(*args, n_states=63, T=40)
         want = ref.train_epoch_ref(*args, n_states=63, T=40)
-        torch.cuda.synchronize()
-        diff = max(int((g - w).abs().max()) for g, w in zip(got, want))
-        err["train_epoch_fused"] = max(err["train_epoch_fused"], diff)
+        what = f"N={N} S={S} C={C} m={m} L={L}"
         moved = int((want[0] != args[0]).sum())
-        print(f"check train_epoch_fused N={N} S={S} C={C} m={m} L={L}: "
-              f"max_abs_err={diff} ta_changed={moved}", flush=True)
-        if diff != 0 or moved == 0:
-            raise SystemExit("train_epoch_fused disagrees with its plain "
-                             "version (or changed nothing)")
+        exact("train_epoch_fused", got[0], want[0],
+              f"{what} TA states ({moved} changed)", err)
+        exact("train_epoch_fused", got[1], want[1], f"{what} weights", err)
+        if moved == 0:
+            raise SystemExit("train_epoch_fused changed nothing")
         del args, got, want
 
-    # 4. the main path at full width, through the CLI entry point
+    for N, C, m, L, B in ((20, 10, 300, 1568, 1), (3, 3, 33, 130, 7)):
+        include, lits, _ = vote_inputs(gen, N, C, m, L, B, dev)
+        inc = include.reshape(N, C * m, L)
+        for predict in (True, False):
+            exact("clause_outputs", ops.clause_outputs(inc, lits, predict),
+                  ref.clause_outputs_ref(inc, lits, predict),
+                  f"N={N} B={B} CM={C * m} L={L} predict={predict}", err)
+    for C, m, L, B in ((10, 300, 1568, 1), (10, 300, 1568, 40),
+                       (3, 33, 130, 7)):
+        include, lits, wpol = (a[0] for a in vote_inputs(gen, 1, C, m, L, B,
+                                                         dev))
+        for predict in (True, False):
+            exact("fused_votes", ops.fused_votes(include, lits, wpol,
+                                                 predict),
+                  ref.fused_votes_ref(include, lits, wpol, predict),
+                  f"C={C} m={m} L={L} B={B} predict={predict}", err)
+    for NB, m, L in ((40, 300, 1568), (3, 33, 130)):
+        args = ta_inputs(gen, NB, m, L, 63, dev)
+        kw = dict(p_inc=TA_P[0], p_dec=TA_P[1], n_states=63)
+        want = ref.ta_update_ref(*args, **kw)
+        exact("ta_update", ops.ta_update(*args, **kw), want,
+              f"NB={NB} m={m} L={L} (moved "
+              f"{int((want != args[0]).sum())} states)", err)
+    torch.cuda.synchronize()
+    del include, lits, wpol, inc, args, want
+
+    # 4. the training path at full width, through the CLI entry point
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
     round_s = []
     run_round = Engine.run_round
 
@@ -230,10 +360,10 @@ def main() -> int:
           f"{[round(s, 3) for s in round_s]} s), peak device memory "
           f"{peak / 2**30:.2f} GiB, launches {launches}", flush=True)
 
-    # 5. the path went through every kernel, and its output is sane
-    for name, n in launches.items():
-        if n <= 0:
-            raise SystemExit(f"{name} never launched on the main path")
+    # 5. the path went through its kernels, and its output is sane
+    for name in ("fused_votes_batched", "train_epoch_fused"):
+        if launches[name] <= 0:
+            raise SystemExit(f"{name} never launched on the training path")
     state = result["state"]
     for rep in result["reports"]:
         acc = rep.per_client_accuracy
@@ -248,8 +378,8 @@ def main() -> int:
     # Alg. 1 as written, and the §7 multi-cluster, thresholded,
     # weighted-confidence variant
     x, y, _ = synthetic.make_pool("synthmnist", 400, seed=0)
-    cfg = tm.TMConfig(n_classes=10, n_clauses=16, n_features=144,
-                      n_states=63, s=5.0, T=40)
+    small_cfg = tm.TMConfig(n_classes=10, n_clauses=16, n_features=144,
+                            n_states=63, s=5.0, T=40)
     for kw in ({}, dict(top_classes=2, conf_threshold=2.0,
                         weighted_confidence=True)):
         small = []
@@ -257,8 +387,8 @@ def main() -> int:
             data = partition.partition(x, y, 10, n_clients=4, experiment=5,
                                        seed=1, n_train=16, n_test=8,
                                        n_conf=8, device=d)
-            eng = Engine(TPFLStrategy(cfg, local_epochs=2, **kw), data,
-                         RuntimeConfig(rounds=2))
+            eng = Engine(TPFLStrategy(small_cfg, local_epochs=2, **kw),
+                         data, RuntimeConfig(rounds=2))
             st, reps = eng.run(rnd.PRNGKey(5, d))
             small.append(convert.to_numpy(
                 [*st.client_state, st.server.slots,
@@ -271,7 +401,118 @@ def main() -> int:
         print(f"check small federation {kw}: GPU == CPU bit for bit",
               flush=True)
 
-    # 6. times at the main path's shapes
+    # 6. path (A): serve the training path's newest checkpoint
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with Capture(ops, "fused_votes") as cap4:
+        served = fed_serve.main(SERVE_ARGS)
+        torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    launches_a = dict(ops.LAUNCHES)
+    print(f"path (A) serving: {serve_wall:.2f}s wall, launches "
+          f"{launches_a}, result {served}", flush=True)
+    if launches_a["fused_votes_batched"] != 8 + 1 \
+            or launches_a["fused_votes"] != 20:
+        raise SystemExit("serving did not launch fused_votes_batched 8 + 1 "
+                         "times and fused_votes 20 times")
+    if served["mismatches"] != 0 or served["verified_clients"] != 20 \
+            or served["version"] != 2:
+        raise SystemExit(f"serving parity failed: {served}")
+
+    # 7. path (B): the unit-weight TM through the per-sample scan, then
+    # the single-model API on one client
+    data, cfg, _, _ = fed_train.build_scenario(
+        dataset="mnist", clients=20, clauses=300, device=dev)
+    unit = dataclasses.replace(cfg, weighted=False)
+    eng = Engine(TPFLStrategy(unit, local_epochs=1), data,
+                 RuntimeConfig(rounds=1))
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Capture(ops, "clause_outputs") as cap3, \
+            Capture(ops, "ta_update") as cap5:
+        st_b, (rep_b,) = eng.run(rnd.PRNGKey(3, dev))
+        torch.cuda.synchronize()
+    unit_s = time.perf_counter() - t0
+    launches_b = dict(ops.LAUNCHES)
+    S = data.x_train.shape[1]
+    acc = rep_b.per_client_accuracy
+    print(f"path (B) unit-weight round: {unit_s:.2f}s wall, "
+          f"{data.x_train.shape[0]} clients x {S} sample steps, launches "
+          f"{launches_b}, mean accuracy "
+          f"{float(rep_b.mean_accuracy):.4f}", flush=True)
+    if launches_b["clause_outputs"] != S or launches_b["ta_update"] != 2 * S:
+        raise SystemExit("the unit-weight round did not launch "
+                         "clause_outputs once and ta_update twice per step")
+    if not bool(((acc >= 0) & (acc <= 1)).all()) \
+            or not bool((st_b.client_state.weights == 1).all()) \
+            or int(st_b.client_state.ta_state.min()) < 1:
+        raise SystemExit("unit-weight round: bad accuracies or state")
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    one = tm.train(tm.init_params(cfg, rnd.PRNGKey(4, dev)),
+                   data.x_train[0], data.y_train[0], rnd.PRNGKey(5, dev),
+                   cfg, epochs=2)
+    one_acc = float(tm.accuracy(one, data.x_test[0], data.y_test[0], cfg))
+    conf = tm.confidence_scores(one, data.x_conf[0], cfg)
+    torch.cuda.synchronize()
+    launches_1 = dict(ops.LAUNCHES)
+    print(f"single-model API: accuracy {one_acc:.4f}, confidence "
+          f"{conf.tolist()}, launches {launches_1}", flush=True)
+    if (launches_1["train_epoch_fused"], launches_1["fused_votes"],
+            launches_1["clause_outputs"]) != (2, 1, 1) \
+            or not 0.0 <= one_acc <= 1.0 or conf.shape != (10,):
+        raise SystemExit("the single-model API did not run through its "
+                         "kernels")
+
+    # 8. small runs on the card against the same on the CPU: the
+    # unit-weight federation, and a checkpoint and its serving
+    small = []
+    for d in ("cpu", "cuda"):
+        part = partition.partition(x, y, 10, n_clients=4, experiment=5,
+                                   seed=1, n_train=8, n_test=8, n_conf=8,
+                                   device=d)
+        st, reps = Engine(TPFLStrategy(dataclasses.replace(
+            small_cfg, weighted=False), local_epochs=2), part,
+            RuntimeConfig(rounds=2)).run(rnd.PRNGKey(5, d))
+        small.append(convert.to_numpy(
+            [*st.client_state, st.server.slots,
+             *(r.per_client_accuracy for r in reps)]))
+    if not all(np.array_equal(a, b) for a, b in zip(*small)):
+        raise SystemExit("small unit-weight federation: GPU and CPU runs "
+                         "disagree")
+    print("check small unit-weight federation: GPU == CPU bit for bit",
+          flush=True)
+    small = []
+    flags = ["--clients", "4", "--clauses", "16", "--local-epochs", "1"]
+    for d in ("cpu", "cuda"):
+        ck = RUN_DIR / f"small_{d}"
+        fed_train.main(flags + ["--device", d, "--rounds", "2",
+                                "--ckpt-dir", str(ck), "--ckpt-every", "1"])
+        out = fed_serve.main(flags + ["--device", d, "--ckpt-dir", str(ck),
+                                      "--batch", "8", "--requests", "2",
+                                      "--verify-offline"])
+        part, _, _, strat = fed_train.build_scenario(
+            dataset="synthmnist", clients=4, clauses=16, local_epochs=1,
+            device=d)
+        plane = ServingPlane(strat, ModelRegistry(ck / "registry"),
+                             Engine(strat, part, RuntimeConfig()).init(
+                                 rnd.split(rnd.PRNGKey(0, d))[0]))
+        plane.refresh()
+        ids = np.array([0, 1, 2, 3, 3, 2, 1, 0])
+        preds = plane.predict(ids, torch.cat([part.x_test[:, 0],
+                                              part.x_test[:, 1]]))
+        small.append(([(ck / f"round_00000{r}.msgpack").read_bytes()
+                       for r in (1, 2)], preds, out["mismatches"]))
+    (ck_c, pr_c, mm_c), (ck_g, pr_g, mm_g) = small
+    if ck_c != ck_g or not np.array_equal(pr_c, pr_g) or mm_c or mm_g:
+        raise SystemExit("small checkpoint + serve: GPU and CPU disagree")
+    print("check small checkpoint + serve: checkpoints byte-identical, "
+          "predictions GPU == CPU", flush=True)
+
+    # 9. times at each path's shapes
     cfg = tm.TMConfig(n_classes=10, n_clauses=300, n_features=784,
                       n_states=63, s=5.0, T=40)
     data, _, _, strategy = fed_train.build_scenario(
@@ -290,7 +531,6 @@ def main() -> int:
     del nlit_f, inc_f
     k2_bytes = N * C * m * L + N * B * L + 4 * N * C * m + 4 * N * B * C
     k2_ops = 2 * N * B * C * m * L
-    k2_bound = max(k2_bytes / HBM_BYTES_PER_S, k2_ops / INT8_OPS_PER_S)
 
     S = data.x_train.shape[1]
     ekeys = rnd.split(rnd.split(rnd.PRNGKey(1, dev), N), 2)[:, 0]
@@ -315,7 +555,6 @@ def main() -> int:
                 + 4 * N * S * 2 + 4 * N * S * 2 * m
                 + stats["type1_rows"] * L)
     k1_ops = 2 * (2 * S) * N * m * L          # every step evaluates m·L
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_OPS_PER_S)
     print(f"epoch_draws (plain torch, one epoch, N={N} S={S}): "
           f"{draws_ms:.1f} ms", flush=True)
     print(f"train_epoch_fused bound: {stats['type1_rows']} Type I rows of "
@@ -327,30 +566,104 @@ def main() -> int:
           f"{k2_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {k2_ops:.3e} "
           f"operations, {k2_ops / INT8_OPS_PER_S * 1e3:.4f} ms", flush=True)
 
-    # 7. one more full-width round under torch.profiler
+    # kernel 3 on path (B)'s last sample step: 20 clients x 3000 clauses
+    a3, kw3 = cap3.args
+    inc3, lit3 = a3[0], a3[1]
+    k3_ms = cuda_ms(lambda: ops.clause_outputs(*a3, **kw3), reps=20)
+    k3_plain = cuda_ms(lambda: ref.clause_outputs_ref(*a3, **kw3), reps=5)
+    nlit_f = (1 - lit3).to(torch.float32)
+    inc_f = inc3.to(torch.float32).transpose(-1, -2)
+    k3_lib = cuda_ms(lambda: torch.matmul(nlit_f, inc_f), reps=20)
+    del nlit_f, inc_f
+    n3, cm3, l3 = inc3.shape
+    b3 = lit3.shape[-2]
+    k3_bytes = (inc3.numel() * inc3.element_size()
+                + lit3.numel() * lit3.element_size() + 4 * n3 * b3 * cm3)
+    k3_ops = 2 * n3 * b3 * cm3 * l3
+    # kernel 4 on path (A)'s last offline check: one model, B = 1
+    a4, kw4 = cap4.args
+    inc4, lit4, wpol4 = a4
+    k4_ms = cuda_ms(lambda: ops.fused_votes(*a4, **kw4), reps=50)
+    k4_plain = cuda_ms(lambda: ref.fused_votes_ref(*a4, **kw4), reps=20)
+    c4, m4, l4 = inc4.shape
+    b4 = lit4.shape[0]
+    nlit_f = (1 - lit4).to(torch.float32)
+    inc_f = inc4.reshape(c4 * m4, l4).to(torch.float32).T
+    k4_lib = cuda_ms(lambda: torch.matmul(nlit_f, inc_f), reps=50)
+    del nlit_f, inc_f
+    k4_bytes = (inc4.numel() * inc4.element_size()
+                + lit4.numel() * lit4.element_size()
+                + wpol4.numel() * wpol4.element_size() + 4 * b4 * c4)
+    k4_ops = 2 * b4 * c4 * m4 * l4
+    # kernel 5 on path (B)'s last negative-class update: 20 banks
+    a5, kw5 = cap5.args
+    ta5, type1 = a5[0], a5[3]
+    k5_ms = cuda_ms(lambda: ops.ta_update(*a5, **kw5), reps=20)
+    k5_plain = cuda_ms(lambda: ref.ta_update_ref(*a5, **kw5), reps=5)
+    n5, m5, l5 = ta5.shape
+    t1_rows = int((type1 != 0).sum())
+    # each state read and written once, the flags once, and one uniform
+    # per literal of the rows that take Type I feedback
+    k5_bytes = (2 * 4 * ta5.numel() + 4 * t1_rows * l5
+                + sum(a.numel() * a.element_size() for a in a5[1:5]))
+    k5_ops = 6 * ta5.numel()   # compares, and/or, add, two-sided clamp
+    print(f"clause_outputs bound: {k3_bytes / 1e9:.4f} GB, "
+          f"{k3_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {k3_ops:.3e} "
+          f"operations, {k3_ops / INT8_OPS_PER_S * 1e3:.4f} ms", flush=True)
+    print(f"fused_votes bound: {k4_bytes / 1e6:.3f} MB, "
+          f"{k4_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms; {k4_ops:.3e} "
+          f"operations, {k4_ops / INT8_OPS_PER_S * 1e3:.5f} ms", flush=True)
+    print(f"ta_update bound: {t1_rows} Type I rows of {n5 * m5}, "
+          f"{k5_bytes / 1e6:.2f} MB, {k5_bytes / HBM_BYTES_PER_S * 1e3:.4f} "
+          f"ms; {k5_ops / FP32_OPS_PER_S * 1e3:.4f} ms of operations",
+          flush=True)
+    on_device = {
+        "fused_votes_batched": device_ms(
+            lambda: ops.fused_votes_batched(*votes), 10,
+            "votes_batched_kernel"),
+        "train_epoch_fused": device_ms(
+            lambda: ops.train_epoch_fused(*epoch, n_states=63, T=40), 2,
+            "train_epoch_kernel"),
+        "clause_outputs": device_ms(
+            lambda: ops.clause_outputs(*a3, **kw3), 20,
+            "clause_outputs_kernel"),
+        "fused_votes": device_ms(lambda: ops.fused_votes(*a4, **kw4), 20,
+                                 "fused_votes_kernel"),
+        "ta_update": device_ms(lambda: ops.ta_update(*a5, **kw5), 20,
+                               "ta_update_kernel")}
+    print("kernel alone on the device (profiler, ms per call): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in on_device.items()),
+          flush=True)
+    print(f"serving: {served['requests_per_s']:.1f} req/s, "
+          f"p50={served['p50_s'] * 1e6:.0f}us p99={served['p99_s'] * 1e6:.0f}"
+          f"us per batch of 32; unit-weight round {unit_s:.3f}s", flush=True)
+
+    # 10. one more full-width round under torch.profiler
     del epoch
     profile_round(Engine(strategy, data, RuntimeConfig(rounds=1)), state,
                   rnd.PRNGKey(2, dev))
 
     kernels = [
-        {"name": "fused_votes_batched", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/clause_eval.cu",
-         "replaces": "src/repro/kernels/clause_eval.py:185",
-         "launches": launches["fused_votes_batched"],
-         "max_abs_err": err["fused_votes_batched"], "ms": k2_ms,
-         "plain_ms": k2_plain, "bound_ms": k2_bound * 1e3,
-         "bound_by": ("bytes" if k2_bytes / HBM_BYTES_PER_S
-                      >= k2_ops / INT8_OPS_PER_S else "operations"),
-         "library_ms": k2_lib},
-        {"name": "train_epoch_fused", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/train_epoch.cu",
-         "replaces": "src/repro/kernels/train_epoch.py:115",
-         "launches": launches["train_epoch_fused"],
-         "max_abs_err": err["train_epoch_fused"], "ms": k1_ms,
-         "plain_ms": k1_plain, "bound_ms": k1_bound * 1e3,
-         "bound_by": ("bytes" if k1_bytes / HBM_BYTES_PER_S
-                      >= k1_ops / FP32_OPS_PER_S else "operations"),
-         "library_ms": None},
+        kernel_entry("fused_votes_batched", "clause_eval.cu",
+                     "src/repro/kernels/clause_eval.py:185",
+                     launches["fused_votes_batched"], err, k2_ms, k2_plain,
+                     k2_lib, k2_bytes, k2_ops, INT8_OPS_PER_S),
+        kernel_entry("train_epoch_fused", "train_epoch.cu",
+                     "src/repro/kernels/train_epoch.py:115",
+                     launches["train_epoch_fused"], err, k1_ms, k1_plain,
+                     None, k1_bytes, k1_ops, FP32_OPS_PER_S),
+        kernel_entry("clause_outputs", "clause_eval.cu",
+                     "src/repro/kernels/clause_eval.py:77",
+                     launches_b["clause_outputs"], err, k3_ms, k3_plain,
+                     k3_lib, k3_bytes, k3_ops, INT8_OPS_PER_S),
+        kernel_entry("fused_votes", "clause_eval.cu",
+                     "src/repro/kernels/clause_eval.py:130",
+                     launches_a["fused_votes"], err, k4_ms, k4_plain, k4_lib,
+                     k4_bytes, k4_ops, INT8_OPS_PER_S),
+        kernel_entry("ta_update", "ta_update.cu",
+                     "src/repro/kernels/ta_update.py:48",
+                     launches_b["ta_update"], err, k5_ms, k5_plain, None,
+                     k5_bytes, k5_ops, FP32_OPS_PER_S),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,31 @@
 """Multiclass weighted Tsetlin Machine on PyTorch: the TPFL client model.
 
-Counterpart of ``repro/core/tm.py`` (paper §4.1, Fig. 1, Eq. 1), for the
-client-batched entry points a federated round calls.  State is two
-integer tensors with a leading client axis N:
+Counterpart of ``repro/core/tm.py`` (paper §4.1, Fig. 1, Eq. 1).  State
+is two integer tensors:
 
-* ``ta_state`` (N, C, m, 2o) int32 — TA states in [1, 2·n_states]; a
+* ``ta_state`` (C, m, 2o) int32 — TA states in [1, 2·n_states]; a
   literal is included in a clause iff its state exceeds ``n_states``;
-* ``weights``  (N, C, m) int32 — clause vote weights.
+* ``weights``  (C, m) int32 — clause vote weights (all of them count as
+  1 when ``weighted=False``, the classic unit-weight TM).
+
+The single-model API (``clause_outputs``, ``class_votes``, ``forward``,
+``predict``, ``accuracy``, ``confidence_scores``, ``train_epoch``,
+``train``) takes params without a client axis; the ``*_batched`` entry
+points a federated round calls take a leading client axis N.
 
 Clause polarity is positional: even clauses vote for their class, odd
 ones against it.  All randomness is keyed (:mod:`repro_torch.random`),
 so with the same keys every function here is bit-identical to the JAX
 package.  On CUDA tensors the clause evaluation and training run in the
 hand-written kernels (:mod:`repro_torch.kernels.ops`); on CPU tensors in
-their plain versions.
+their plain versions.  The device decides: there is no ``use_kernel``.
 
-Not ported yet: the per-sample scan path (``_train_one_sample``,
-``_feedback_one_class``) and its ``ta_update`` kernel, which the JAX
-package takes for ``weighted=False`` training.
+Training takes one of two paths, as the JAX package's kernel path does:
+the weighted TM trains an epoch in one fused-epoch launch for all N
+clients; the unit-weight TM (``weighted=False``) trains through the
+per-sample scan, in which each sample step evaluates every client's
+clauses in one ``clause_outputs`` launch and updates the target and the
+negative class of every client in one ``ta_update`` launch each.
 """
 from __future__ import annotations
 
@@ -88,6 +96,165 @@ def _feedback_probs(cfg: TMConfig) -> tuple[float, float]:
     return p_inc, 1.0 / cfg.s
 
 
+def _wpol(params: TMParams, cfg: TMConfig) -> torch.Tensor:
+    """polarity · weight (…, C, m); unit weights when ``weighted=False``."""
+    pol = clause_polarity(cfg, params.weights.device)
+    return pol * params.weights if cfg.weighted else pol.expand(
+        params.weights.shape)
+
+
+# ---------------------------------------------------------------------------
+# Single-model forward pass (no client axis; a leading one is carried)
+# ---------------------------------------------------------------------------
+
+def clause_outputs(params: TMParams, lits: torch.Tensor, cfg: TMConfig,
+                   predict: bool = False) -> torch.Tensor:
+    """lits (…, B, L) 0/1 → clause outputs (…, B, C, m) int32, one
+    ``clause_outputs`` launch.  Empty clauses fire while learning and
+    stay silent in predict mode."""
+    include = include_mask(params, cfg)
+    fired = ops.clause_outputs(include.flatten(-3, -2), lits, predict)
+    return fired.unflatten(-1, (cfg.n_classes, cfg.n_clauses))
+
+
+def class_votes(params: TMParams, clauses: torch.Tensor, cfg: TMConfig,
+                clip: bool = True) -> torch.Tensor:
+    """Eq. 1: v[b, c] = Σ_j pol_j · w_j · clause_j, clipped to [−T, T]:
+    clauses (…, B, C, m) → votes (…, B, C) int32."""
+    wpol = _wpol(params, cfg).unsqueeze(-3)
+    v = (clauses.to(torch.int32) * wpol).sum(-1, dtype=torch.int32)
+    return v.clamp(-cfg.T, cfg.T) if clip else v
+
+
+def forward(params: TMParams, x: torch.Tensor, cfg: TMConfig,
+            predict: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, o) 0/1 → (clause outputs (B, C, m), clipped votes (B, C))."""
+    cl = clause_outputs(params, literals(x), cfg, predict=predict)
+    return cl, class_votes(params, cl, cfg)
+
+
+def predict(params: TMParams, x: torch.Tensor, cfg: TMConfig
+            ) -> torch.Tensor:
+    """x (B, o) → predicted classes (B,) int64: one ``fused_votes``
+    launch, the votes clipped to ±T before the argmax (ties go to the
+    lowest class, as ``jnp.argmax`` does)."""
+    votes = ops.fused_votes(include_mask(params, cfg), literals(x),
+                            _wpol(params, cfg), predict=True)
+    return torch.argmax(votes.clamp(-cfg.T, cfg.T), dim=-1)
+
+
+def accuracy(params: TMParams, x: torch.Tensor, y: torch.Tensor,
+             cfg: TMConfig) -> torch.Tensor:
+    """() float32: the hit count times f32(1/B), as the reference's
+    ``jnp.mean`` computes it (see ``ref.reciprocal_f32``)."""
+    hits = (predict(params, x, cfg) == y).sum().to(torch.float32)
+    return hits * torch.full_like(hits, ref.reciprocal_f32(y.shape[-1]))
+
+
+def confidence_scores(params: TMParams, x_conf: torch.Tensor, cfg: TMConfig,
+                      weighted: bool = False) -> torch.Tensor:
+    """Alg. 1 step 6: conf[c] = Σ_x (Σ_j C⁺_j(x) − Σ_j C⁻_j(x)) → (C,)
+    int32, from one ``clause_outputs`` launch in predict mode;
+    ``weighted=True`` uses the Eq.-1 weighted margin."""
+    cl = clause_outputs(params, literals(x_conf), cfg, predict=True)
+    pol = clause_polarity(cfg, cl.device)
+    wpol = pol * params.weights if weighted else pol
+    return (cl * wpol).sum(-1, dtype=torch.int32).sum(0, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Training.  The per-sample scan (weighted=False) runs all N clients of a
+# round side by side, which is what the reference's vmap(train) computes.
+# ---------------------------------------------------------------------------
+
+def _feedback_one_class(ta: torch.Tensor, lit: torch.Tensor,
+                        clause_out: torch.Tensor, votes: torch.Tensor,
+                        is_target: bool, key: torch.Tensor, cfg: TMConfig
+                        ) -> torch.Tensor:
+    """Feedback to one class's bank of each client for one sample.
+
+    ta (N, m, L), lit (N, 1, L), clause_out (N, m), votes (N,) clipped,
+    key (N, 2) → new ta.  The target class gives Type I feedback to its
+    positive clauses and Type II to its negative ones; the sampled
+    negative class the mirror image.  Each active clause is drawn with
+    probability (T ∓ v) · f32(1/2T) (``ref.reciprocal_f32``).  Weights
+    do not change: this path trains the unit-weight TM."""
+    m, L = ta.shape[-2:]
+    k_act, k_s1, k_s2 = rnd.split(key, 3).unbind(-2)
+    num = (cfg.T - votes if is_target else cfg.T + votes).to(torch.float32)
+    p_act = num * torch.full_like(num, ref.reciprocal_f32(2 * cfg.T))
+    active = rnd.uniform(k_act, (m,)) < p_act[:, None]        # (N, m)
+    pos = clause_polarity(cfg, ta.device) > 0
+    type1 = (pos if is_target else ~pos) & active
+    type2 = (~pos if is_target else pos) & active
+    p_inc, p_dec = _feedback_probs(cfg)
+    return ops.ta_update(ta, lit, clause_out[..., None], type1[..., None],
+                         type2[..., None], rnd.uniform(k_s1, (m, L)),
+                         rnd.uniform(k_s2, (m, L)), p_inc=p_inc,
+                         p_dec=p_dec, n_states=cfg.n_states)
+
+
+def _train_one_sample(params: TMParams, lit: torch.Tensor, y: torch.Tensor,
+                      key: torch.Tensor, cfg: TMConfig) -> None:
+    """One sample step of every client, updating ``params.ta_state``
+    (N, C, m, L) in place: lit (N, 1, L), y (N,), key (N, 2).  The target
+    class is updated first; the negative class, drawn uniformly from the
+    other C − 1, uses the clause outputs and votes from before either
+    update."""
+    ta = params.ta_state
+    cl = clause_outputs(params, lit, cfg)                    # (N, 1, C, m)
+    votes = class_votes(params, cl, cfg)[:, 0]               # (N, C)
+    cl = cl[:, 0]
+    k_neg, k_t, k_n = rnd.split(key, 3).unbind(-2)
+    ybar = (y + rnd.randint(k_neg, (), 1, cfg.n_classes)) % cfg.n_classes
+    rows = torch.arange(ta.shape[0], device=ta.device)
+    for cls, is_target, k in ((y, True, k_t), (ybar, False, k_n)):
+        ta[rows, cls] = _feedback_one_class(
+            ta[rows, cls], lit, cl[rows, cls], votes[rows, cls], is_target,
+            k, cfg)
+
+
+def _epoch(ta: torch.Tensor, w: torch.Tensor, xs: torch.Tensor,
+           ys: torch.Tensor, key: torch.Tensor, cfg: TMConfig
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One local epoch of N stacked clients under epoch keys (N, 2)."""
+    lits = literals(xs).contiguous()                            # (N, S, L)
+    ys = ys.long()
+    n_samples = ys.shape[1]
+    if not cfg.weighted:
+        params = TMParams(ta.clone(), w)   # the scan updates this copy
+        keys = rnd.split(key, n_samples)                        # (N, S, 2)
+        for s in range(n_samples):
+            _train_one_sample(params, lits[:, s, None], ys[:, s], keys[:, s],
+                              cfg)
+        return params
+    p_inc, p_dec = _feedback_probs(cfg)
+    offs, u_act, coin = draws.epoch_draws(
+        key, n_samples, cfg.n_clauses, cfg.n_literals, cfg.n_classes, p_inc,
+        p_dec)
+    ys32 = ys.to(torch.int32)
+    cls2 = torch.stack([ys32, (ys32 + offs) % cfg.n_classes], dim=-1)
+    return ops.train_epoch_fused(ta, w, lits, cls2.contiguous(), u_act, coin,
+                                 n_states=cfg.n_states, T=cfg.T)
+
+
+def train_epoch(params: TMParams, xs: torch.Tensor, ys: torch.Tensor,
+                key: torch.Tensor, cfg: TMConfig) -> TMParams:
+    """One sample-sequential pass of one model over xs (S, o), ys (S,)."""
+    ta, w = _epoch(params.ta_state[None], params.weights[None], xs[None],
+                   ys[None], key[None], cfg)
+    return TMParams(ta_state=ta[0], weights=w[0])
+
+
+def train(params: TMParams, xs: torch.Tensor, ys: torch.Tensor,
+          key: torch.Tensor, cfg: TMConfig, epochs: int = 1) -> TMParams:
+    """``epochs`` local epochs of one model under ``split(key, epochs)``:
+    :func:`train_batched` for one client."""
+    p = train_batched(TMParams(params.ta_state[None], params.weights[None]),
+                      xs[None], ys[None], key[None], cfg, epochs)
+    return TMParams(ta_state=p.ta_state[0], weights=p.weights[0])
+
+
 # ---------------------------------------------------------------------------
 # Client-batched entry points (leading client axis N everywhere)
 # ---------------------------------------------------------------------------
@@ -97,27 +264,15 @@ def train_batched(params: TMParams, xs: torch.Tensor, ys: torch.Tensor,
                   epochs: int = 1) -> TMParams:
     """params (N, ...); xs (N,S,o); ys (N,S); keys (N,2) → trained params.
 
-    Each epoch draws its randomness under the reference key discipline
-    (per client ``split(key, epochs)``, then :func:`draws.epoch_draws`)
-    and runs one fused-epoch launch for all N clients."""
-    if not cfg.weighted:
-        raise NotImplementedError(
-            "weighted=False trains through the per-sample scan and the "
-            "ta_update kernel, which a later slice ports (ROADMAP.md)")
-    p_inc, p_dec = _feedback_probs(cfg)
-    n_samples = ys.shape[1]
-    lits = literals(xs).contiguous()
-    ys32 = ys.to(torch.int32)
+    Per client ``split(key, epochs)`` gives the epoch keys, as
+    ``vmap(train)`` does in the reference.  The weighted TM draws each
+    epoch's randomness with :func:`draws.epoch_draws` and runs one
+    fused-epoch launch for all N clients; the unit-weight TM runs the
+    per-sample scan (see :func:`_train_one_sample`)."""
     ekeys = rnd.split(keys, epochs)                     # (N, epochs, 2)
     ta, w = params.ta_state, params.weights
     for e in range(epochs):
-        offs, u_act, coin = draws.epoch_draws(
-            ekeys[:, e], n_samples, cfg.n_clauses, cfg.n_literals,
-            cfg.n_classes, p_inc, p_dec)
-        cls2 = torch.stack([ys32, (ys32 + offs) % cfg.n_classes], dim=-1)
-        ta, w = ops.train_epoch_fused(ta, w, lits, cls2.contiguous(), u_act,
-                                      coin, n_states=cfg.n_states, T=cfg.T)
-        del coin
+        ta, w = _epoch(ta, w, xs, ys, ekeys[:, e], cfg)
     return TMParams(ta_state=ta, weights=w)
 
 
@@ -145,10 +300,8 @@ def predict_batched(params: TMParams, x: torch.Tensor,
     One fused-votes launch for all N models; votes are clipped to ±T
     before the argmax (Eq. 1), and ties go to the lowest class, as
     ``jnp.argmax`` does."""
-    pol = clause_polarity(cfg, params.weights.device)
-    w = params.weights if cfg.weighted else torch.ones_like(params.weights)
     votes = ops.fused_votes_batched(include_mask(params, cfg), literals(x),
-                                    pol * w, predict=True)
+                                    _wpol(params, cfg), predict=True)
     return torch.argmax(votes.clamp(-cfg.T, cfg.T), dim=-1)
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/fl/runtime``: ``scheduler`` (who takes part),
 ``strategy`` (what a round means), ``codec`` (the bytes on the wire),
-``executors`` (where the compute runs) and ``engine`` (the round).  This
-slice runs TPFL, sync, full participation, float32 wire, in process.
+``executors`` (where the compute runs), ``engine`` (the round) and
+``checkpointing`` (round checkpoints).  The port runs TPFL, sync, full
+participation, float32 wire, in process.
 """
 from repro_torch.fl.runtime.engine import (                   # noqa: F401
     Engine, EngineState, RoundReport, RuntimeConfig)

@@ -4,7 +4,7 @@ Counterpart of ``repro/fl/runtime/engine.py`` for the configuration this
 slice of the port supports: sync barrier, full participation, the dense
 float32 wire, the resident client population and the in-process
 executor.  :class:`RuntimeConfig` therefore holds only the number of
-rounds; the reference's other runtime settings (async aggregation, the
+rounds and the checkpoint cadence; the reference's other runtime settings (async aggregation, the
 shard-mapped backend, the mmap client store, transports, other codecs,
 partial participation) come with later slices (ROADMAP.md, queue A).
 
@@ -39,6 +39,7 @@ import torch
 
 from repro_torch import random as rnd
 from repro_torch.data.partition import ClientData
+from repro_torch.fl.runtime import checkpointing
 from repro_torch.fl.runtime.codec import decode, encode
 from repro_torch.fl.runtime.executors import InProcessExecutor, applied_slots
 from repro_torch.fl.runtime.scheduler import Participation, Scheduler
@@ -51,6 +52,8 @@ _LATER = "ROADMAP.md, queue A"
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     rounds: int = 10
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 0         # 0 = never
 
 
 class EngineState(NamedTuple):
@@ -98,7 +101,8 @@ class Engine:
             rounds: int | None = None
             ) -> tuple[EngineState, list[RoundReport]]:
         """Run ``cfg.rounds`` rounds (or ``rounds``), continuing from
-        ``state`` if given."""
+        ``state`` if given.  With a checkpoint directory, the state after
+        round r is saved when ``(r + 1) % checkpoint_every == 0``."""
         k_init, k_rounds = rnd.split(key.to(self.device)).unbind(0)
         if state is None:
             state = self.init(k_init)
@@ -108,6 +112,9 @@ class Engine:
         for r in range(start, start + n_rounds):
             state, rep = self.run_round(state, rnd.fold_in(k_rounds, r))
             reports.append(rep)
+            every = self.cfg.checkpoint_every
+            if self.cfg.checkpoint_dir and every and (r + 1) % every == 0:
+                checkpointing.save(self.cfg.checkpoint_dir, state)
         return state, reports
 
     def run_round(self, state: EngineState, round_key: torch.Tensor

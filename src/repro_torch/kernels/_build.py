@@ -22,14 +22,17 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("clause_eval", "train_epoch")
+SOURCES = ("clause_eval", "ta_update", "train_epoch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    "clause_outputs": ("clause_eval", [_P] * 3 + [_I] * 5 + [_P]),
+    "fused_votes": ("clause_eval", [_P] * 4 + [_I] * 5 + [_P]),
     "fused_votes_batched": ("clause_eval", [_P, _P, _P, _P] + [_I] * 6
                             + [_P]),
+    "ta_update": ("ta_update", [_P] * 8 + [_I] * 3 + [_F, _F, _I, _P]),
     "train_epoch_fused": ("train_epoch", [_P] * 6 + [_I] * 7 + [_P]),
 }
 

@@ -1,4 +1,4 @@
-"""Dispatch for the kernels on the training round's path.
+"""Dispatch for the port's kernels.
 
 Counterpart of ``repro/kernels/ops.py``.  A CUDA tensor goes to the
 hand-written kernel, which raises on what it cannot take; a CPU tensor
@@ -11,7 +11,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import clause_eval, ref, train_epoch
+from repro_torch.kernels import ta_update as _ta
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401
+
+
+def clause_outputs(include: torch.Tensor, lits: torch.Tensor,
+                   predict: bool = False) -> torch.Tensor:
+    """Clause outputs: (…,CM,L) × (…,B,L) → fired (…,B,CM) int32."""
+    if include.is_cuda:
+        return clause_eval.clause_outputs(include, lits, predict)
+    return ref.clause_outputs_ref(include, lits, predict)
+
+
+def fused_votes(include: torch.Tensor, lits: torch.Tensor,
+                wpol: torch.Tensor, predict: bool = True) -> torch.Tensor:
+    """One model's Eq.-1 votes: (C,m,L) × (B,L) × (C,m) → (B,C)."""
+    if include.is_cuda:
+        return clause_eval.fused_votes(include, lits, wpol, predict)
+    return ref.fused_votes_ref(include, lits, wpol, predict)
 
 
 def fused_votes_batched(include: torch.Tensor, lits: torch.Tensor,
@@ -21,6 +38,19 @@ def fused_votes_batched(include: torch.Tensor, lits: torch.Tensor,
     if include.is_cuda:
         return clause_eval.fused_votes_batched(include, lits, wpol, predict)
     return ref.fused_votes_batched_ref(include, lits, wpol, predict)
+
+
+def ta_update(ta: torch.Tensor, lit: torch.Tensor, fired: torch.Tensor,
+              type1: torch.Tensor, type2: torch.Tensor, u_inc: torch.Tensor,
+              u_dec: torch.Tensor, *, p_inc: float, p_dec: float,
+              n_states: int) -> torch.Tensor:
+    """The Type I/II TA transition of (a batch of) banks; see
+    ref.ta_update_ref."""
+    args = (ta, lit, fired, type1, type2, u_inc, u_dec)
+    kw = dict(p_inc=p_inc, p_dec=p_dec, n_states=n_states)
+    if ta.is_cuda:
+        return _ta.ta_update(*args, **kw)
+    return ref.ta_update_ref(*args, **kw)
 
 
 def train_epoch_fused(ta: torch.Tensor, w: torch.Tensor, lits: torch.Tensor,

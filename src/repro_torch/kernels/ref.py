@@ -1,9 +1,12 @@
-"""Plain PyTorch versions of the kernels on the training round's path.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function is the semantic reference of the CUDA kernel of the same
 name (``csrc/*.cu``) and of the JAX package's kernel it ports:
 
+* :func:`clause_outputs_ref` — ``clause_eval.py::clause_outputs_pallas``;
+* :func:`fused_votes_ref` — ``clause_eval.py::fused_votes_pallas``;
 * :func:`fused_votes_batched_ref` — ``clause_eval.py::fused_votes_batched_pallas``;
+* :func:`ta_update_ref` — ``ta_update.py::ta_update_pallas``;
 * :func:`train_epoch_ref` — ``train_epoch.py::train_epoch_pallas``.
 
 ``kernels/ops.py`` runs them for CPU tensors; the tests and
@@ -44,16 +47,50 @@ def clause_outputs_ref(include: torch.Tensor, lits: torch.Tensor,
     return fired
 
 
+def fused_votes_ref(include: torch.Tensor, lits: torch.Tensor,
+                    wpol: torch.Tensor, predict: bool = True) -> torch.Tensor:
+    """include (..., C, m, L); lits (..., B, L); wpol (..., C, m) → votes
+    (..., B, C) int32: the unclipped Eq.-1 votes of one model (or of a
+    leading batch of models); predict mode drops empty clauses."""
+    C, m, L = include.shape[-3:]
+    fired = clause_outputs_ref(include.reshape(include.shape[:-3]
+                                               + (C * m, L)), lits, predict)
+    contrib = fired.unflatten(-1, (C, m)) * wpol.to(torch.int32)[..., None,
+                                                                 :, :]
+    return contrib.sum(-1, dtype=torch.int32)
+
+
+def ta_update_ref(ta: torch.Tensor, lit: torch.Tensor, fired: torch.Tensor,
+                  type1: torch.Tensor, type2: torch.Tensor,
+                  u_inc: torch.Tensor, u_dec: torch.Tensor, *, p_inc: float,
+                  p_dec: float, n_states: int) -> torch.Tensor:
+    """Type I / Type II TA transition of one clause bank (or of a leading
+    batch of banks).
+
+    ta (..., m, L) int32 in [1, 2N]; lit (..., 1, L) 0/1;
+    fired / type1 / type2 (..., m, 1) 0/1; u_inc / u_dec (..., m, L)
+    float32 uniforms.  Type I: +1 on fired ∧ lit with probability p_inc,
+    −1 on ¬(fired ∧ lit) with probability p_dec; Type II: +1 on
+    fired ∧ ¬lit ∧ excluded; then the clamp to [1, 2N].  The uniforms are
+    compared with float32(p), as the reference does."""
+    litb, firedb = lit != 0, fired != 0
+    t1, t2 = type1 != 0, type2 != 0
+    up1 = t1 & firedb & litb & (u_inc < float(np.float32(p_inc)))
+    down1 = t1 & ((firedb & ~litb) | ~firedb) & (
+        u_dec < float(np.float32(p_dec)))
+    up2 = t2 & firedb & ~litb & (ta <= n_states)
+    delta = up1.to(torch.int32) - down1.to(torch.int32) + up2.to(torch.int32)
+    return (ta + delta).clamp(1, 2 * n_states).to(torch.int32)
+
+
 def fused_votes_batched_ref(include: torch.Tensor, lits: torch.Tensor,
                             wpol: torch.Tensor, predict: bool = True
                             ) -> torch.Tensor:
-    """include (N,C,m,L); lits (N,B,L); wpol (N,C,m) → votes (N,B,C) i32.
-
-    Unclipped Eq.-1 votes; predict mode drops empty clauses."""
-    N, C, m, L = include.shape
-    fired = clause_outputs_ref(include.reshape(N, C * m, L), lits, predict)
-    contrib = fired.view(N, -1, C, m) * wpol.to(torch.int32)[:, None]
-    return contrib.sum(-1, dtype=torch.int32)
+    """include (N,C,m,L); lits (N,B,L); wpol (N,C,m) → votes (N,B,C) i32:
+    :func:`fused_votes_ref` with the client axis N in front."""
+    if include.ndim != 4:
+        raise ValueError("fused_votes_batched_ref: include is (N,C,m,L)")
+    return fused_votes_ref(include, lits, wpol, predict)
 
 
 def train_epoch_ref(ta: torch.Tensor, w: torch.Tensor, lits: torch.Tensor,

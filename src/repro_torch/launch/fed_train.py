@@ -10,7 +10,9 @@ slices, ROADMAP.md):
 
 runs on the GPU; ``--device cpu`` runs the kernels' plain versions.  It
 prints the same per-round ``acc= … up= … down_bc= … down_pc=`` lines and
-totals line as the reference CLI.
+totals line as the reference CLI.  ``--ckpt-dir D --ckpt-every k`` saves
+the engine state every k rounds; ``--resume`` continues from the newest
+checkpoint in D and completes the requested ``--rounds`` in total.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch import device as devices
 from repro_torch import random as rnd
 from repro_torch.core import federation, tm
 from repro_torch.data import partition, synthetic
-from repro_torch.fl.runtime import Engine, RuntimeConfig
+from repro_torch.fl.runtime import Engine, RuntimeConfig, checkpointing
 
 
 def accuracy_deciles(per_client_accuracy) -> list[float]:
@@ -72,9 +74,13 @@ def main(argv: list[str] | None = None) -> dict:
                     help="paper setup 1..5 (fraction of non-IID clients)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain versions)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
 
-    rt_cfg = RuntimeConfig(rounds=args.rounds)
+    rt_cfg = RuntimeConfig(rounds=args.rounds, checkpoint_dir=args.ckpt_dir,
+                           checkpoint_every=args.ckpt_every)
     device = (devices.default_device() if args.device == "cuda"
               else devices.resolve(args.device))
     data, tm_cfg, fed_cfg, strategy = build_scenario(
@@ -82,12 +88,30 @@ def main(argv: list[str] | None = None) -> dict:
         seed=args.seed, experiment=args.experiment, rounds=args.rounds,
         local_epochs=args.local_epochs, device=device)
     engine = Engine(strategy, data, rt_cfg)
+    state, remaining = None, None
+    if args.resume and args.ckpt_dir:
+        latest = checkpointing.latest(args.ckpt_dir)
+        if latest is not None:
+            state = checkpointing.restore(
+                latest, engine.init(rnd.PRNGKey(args.seed, device)))
+            # complete the originally requested total, don't extend it
+            remaining = max(0, args.rounds - int(state.round_idx))
+            print(f"resumed from {latest} "
+                  f"({remaining} of {args.rounds} rounds remaining)",
+                  flush=True)
+            if remaining == 0:
+                print("nothing to do: run already complete", flush=True)
+                return {"final_accuracy": None, "acc_per_round": [],
+                        "upload_bytes": 0,
+                        "download_bytes_broadcast": 0,
+                        "download_bytes_per_client": 0}
     print(f"tpfl on {args.dataset} "
           f"[{tm_cfg.n_features}f, m={tm_cfg.n_clauses}] "
           f"exp{args.experiment}: {args.clients} clients, "
           f"K={engine.scheduler.k}/round, codec=float32, mode=sync, "
           f"device={device}", flush=True)
-    state, reports = engine.run(rnd.PRNGKey(args.seed, device))
+    state, reports = engine.run(rnd.PRNGKey(args.seed, device), state=state,
+                                rounds=remaining)
 
     up = down_bc = down_pc = 0
     for rep in reports:

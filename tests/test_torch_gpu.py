@@ -72,6 +72,27 @@ def _draws(rng, N, S, C, m, L):
     return cls2, u_act, coin
 
 
+# p_inc / p_dec whose float32 lies below the float64 value: a uniform equal
+# to float32(p) passes a float64 compare but not the reference's float32 one
+TA_P = (0.9, 0.7)
+
+
+def _ta_inputs(rng, NB, m, L, n_states=63, p=TA_P):
+    """Banks near the include boundary and at the clamp edges, 0/1 flags,
+    and uniforms with every (row, literal) of a third of the rows set to
+    exactly float32(p_inc) / float32(p_dec)."""
+    ta = rng.integers(n_states - 2, n_states + 3, (NB, m, L))
+    ta[:, 0, :2] = [1, 2 * n_states]
+    lit = rng.integers(0, 2, (NB, 1, L))
+    fired, t1, t2 = (rng.integers(0, 2, (NB, m, 1)) for _ in range(3))
+    u = [rng.random((NB, m, L)).astype(np.float32) for _ in range(2)]
+    for a, pv in zip(u, p):
+        a[:, ::3] = np.float32(pv)
+    return [ta.astype(np.int32), lit.astype(np.int32),
+            fired.astype(np.int32), t1.astype(np.int32),
+            t2.astype(np.int32), *u]
+
+
 def _t(*arrays, device="cpu"):
     return [torch.as_tensor(a, device=device) for a in arrays]
 
@@ -139,3 +160,114 @@ def test_gpu_round_matches_cpu_round(cuda, strategy_kw):
         for f in ("per_client_accuracy", "assignment", "cluster_counts"):
             assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
         assert a.upload_bytes == b.upload_bytes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", VOTE_SHAPES + [(20, 10, 300, 1568, 1)])
+@pytest.mark.parametrize("predict", [True, False])
+def test_clause_outputs_kernel_matches_plain_on_gpu(cuda, shape, predict):
+    N, C, m, L, B = shape
+    include, lits, _ = _vote_inputs(np.random.default_rng(6), *shape)
+    inc, lit = _t(include.reshape(N, C * m, L).astype(bool), lits,
+                  device=cuda)
+    n = ops.LAUNCHES["clause_outputs"]
+    got = ops.clause_outputs(inc, lit, predict)
+    one = ops.clause_outputs(inc[0], lit[0], predict)     # no batch axis
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["clause_outputs"] == n + 2
+    want = ref.clause_outputs_ref(inc, lit, predict)
+    assert torch.equal(got, want) and torch.equal(one, want[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", VOTE_SHAPES + [(1, 10, 300, 1568, 1),
+                                                 (1, 10, 300, 1568, 40)])
+@pytest.mark.parametrize("predict", [True, False])
+def test_single_model_fused_votes_kernel_matches_plain_on_gpu(cuda, shape,
+                                                              predict):
+    include, lits, wpol = _vote_inputs(np.random.default_rng(7), *shape)
+    args = _t(include[0].astype(bool), lits[0], wpol[0], device=cuda)
+    n = ops.LAUNCHES["fused_votes"]
+    got = ops.fused_votes(*args, predict)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_votes"] == n + 1
+    assert torch.equal(got, ref.fused_votes_ref(*args, predict))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NB,m,L", [(1, 16, 128), (3, 33, 130),
+                                    (40, 300, 1568)])
+def test_ta_update_kernel_matches_plain_on_gpu(cuda, NB, m, L):
+    args = _t(*_ta_inputs(np.random.default_rng(8), NB, m, L), device=cuda)
+    kw = dict(p_inc=TA_P[0], p_dec=TA_P[1], n_states=63)
+    n = ops.LAUNCHES["ta_update"]
+    got = ops.ta_update(*args, **kw)
+    one = ops.ta_update(*(a[0] for a in args), **kw)      # no batch axis
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ta_update"] == n + 2
+    want = ref.ta_update_ref(*args, **kw)
+    assert torch.equal(got, want) and torch.equal(one, want[0])
+    assert not torch.equal(want, args[0])
+
+
+@pytest.mark.gpu
+def test_gpu_unweighted_round_matches_cpu_round(cuda):
+    """weighted=False trains through the per-sample scan: on the card it
+    launches clause_outputs once and ta_update twice per sample step."""
+    x, y, _ = synthetic.make_pool("synthmnist", 400, seed=0)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        data = partition.partition(x, y, 10, n_clients=4, experiment=5,
+                                   seed=1, n_train=6, n_test=8, n_conf=8,
+                                   device=dev)
+        eng = Engine(TPFLStrategy(ttm.TMConfig(**TM, weighted=False),
+                                  local_epochs=2),
+                     data, RuntimeConfig(rounds=2))
+        before = dict(ops.LAUNCHES)
+        runs.append(eng.run(tr.PRNGKey(5, "cpu")))
+        launched = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+    assert launched["clause_outputs"] == 2 * 2 * 6
+    assert launched["ta_update"] == 2 * 2 * 2 * 6
+    (s0, r0), (s1, r1) = runs
+    for a, b in zip(convert.to_numpy([*s0.client_state, s0.server.slots]),
+                    convert.to_numpy([*s1.client_state, s1.server.slots])):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(r0, r1):
+        assert torch.equal(a.per_client_accuracy,
+                           b.per_client_accuracy.cpu())
+
+
+@pytest.mark.gpu
+def test_gpu_serve_matches_cpu_serve(cuda, tmp_path):
+    """A CPU-trained checkpoint served on the card: the same predictions
+    as on the CPU, and fed_serve's offline check passes there with one
+    single-model fused-votes launch per client."""
+    from repro_torch.fl.serve import ModelRegistry, ServingPlane
+    from repro_torch.launch import fed_serve, fed_train
+    flags = ["--clients", "4", "--clauses", "8", "--local-epochs", "1"]
+    fed_train.main(flags + ["--device", "cpu", "--rounds", "2",
+                            "--ckpt-dir", str(tmp_path), "--ckpt-every",
+                            "1"])
+    preds = []
+    for dev in ("cpu", "cuda"):
+        data, _, _, strategy = fed_train.build_scenario(
+            dataset="synthmnist", clients=4, clauses=8, local_epochs=1,
+            device=dev)
+        eng = Engine(strategy, data, RuntimeConfig())
+        reg = ModelRegistry(tmp_path / f"reg_{dev}")
+        reg.publish(tmp_path / "round_000002.msgpack")
+        plane = ServingPlane(strategy, reg,
+                             eng.init(tr.split(tr.PRNGKey(0, dev))[0]))
+        plane.refresh()
+        ids = np.array([0, 1, 2, 3, 3, 2, 1, 0])
+        x = torch.cat([data.x_test[:, 0], data.x_test[:, 1]])
+        preds.append(plane.predict(ids, x))
+    np.testing.assert_array_equal(*preds)
+    before = dict(ops.LAUNCHES)
+    out = fed_serve.main(flags + ["--ckpt-dir", str(tmp_path), "--batch",
+                                  "8", "--requests", "3",
+                                  "--verify-offline"])
+    assert out["mismatches"] == 0
+    assert ops.LAUNCHES["fused_votes"] - before["fused_votes"] == 4
+    assert ops.LAUNCHES["fused_votes_batched"] \
+        - before["fused_votes_batched"] == 3 + 1

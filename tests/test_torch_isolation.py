@@ -1,6 +1,7 @@
 """The port stands alone: no module of src/repro_torch/ and not
-chip_smoke.py imports jax or the JAX package ``repro``; every module
-imports with jax blocked; entry points and every function that makes
+chip_smoke.py imports jax, the JAX package ``repro`` or ``msgpack`` (the
+GPU machine has neither jax nor msgpack); every module imports with them
+blocked; entry points and every function that makes
 tensors from host values default to the GPU and refuse to fall back to
 the CPU; the port's float32 wire frames are byte-identical to the
 reference codec's."""
@@ -32,7 +33,7 @@ def _imports(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
 def test_no_jax_or_reference_imports(path):
-    bad = _imports(path) & {"jax", "jaxlib", "repro"}
+    bad = _imports(path) & {"jax", "jaxlib", "repro", "msgpack"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
@@ -41,12 +42,13 @@ def test_every_module_imports_with_jax_blocked():
         "import sys, importlib\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro', "
+        "'msgpack'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k.split('.')[0] in ('jax', 'repro') "
+        "assert not any(k.split('.')[0] in ('jax', 'repro', 'msgpack') "
         "for k in sys.modules)\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -60,9 +62,11 @@ def test_default_device_refuses_a_gpu_less_host(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device.default_device()
-    from repro_torch.launch import fed_train
+    from repro_torch.launch import fed_serve, fed_train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fed_train.main(["--clients", "2", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fed_serve.main(["--clients", "2", "--ckpt-dir", "unused"])
 
 
 def _host_value_makers():

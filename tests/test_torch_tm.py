@@ -1,6 +1,8 @@
-"""repro_torch.core.tm against repro.core.tm: ``init_params`` and the four
-client-batched entry points are bit-equal at the shapes of
-test_tm.py's batched test (N = 4, S = 17, C = 3, m = 33, o = 65)."""
+"""repro_torch.core.tm against repro.core.tm: ``init_params``, the four
+client-batched entry points (the weighted TM's fused epoch and the
+unit-weight TM's per-sample scan) and the single-model API are bit-equal
+at the shapes of test_tm.py's batched test (N = 4, S = 17, C = 3,
+m = 33, o = 65)."""
 import dataclasses
 
 import jax
@@ -115,10 +117,93 @@ def test_aggregate_matches_reference_formula():
         np.testing.assert_array_equal(np.asarray(x), y.numpy())
 
 
-def test_unweighted_training_is_a_later_slice():
-    cfg = ttm.TMConfig(**CFG, weighted=False)
-    p = ttm.init_params(cfg, tr.split(tr.PRNGKey(0, "cpu"), 1))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttm.train_batched(p, torch.zeros((1, 2, 65)),
-                          torch.zeros((1, 2)), tr.split(tr.PRNGKey(1, "cpu"), 1),
-                          cfg)
+def test_unweighted_train_batched_bit_equal():
+    """weighted=False trains through the per-sample scan: the JAX
+    package's vmap(train) (its jnp path, which it pins equal to its
+    kernel path) and the port's batched scan agree; weights never move."""
+    jcfg = jtm.TMConfig(**CFG, weighted=False)
+    tcfg = ttm.TMConfig(**CFG, weighted=False)
+    rng = np.random.default_rng(2)
+    xs = (rng.random((N, 6, CFG["n_features"])) < 0.4).astype(np.int32)
+    ys = rng.integers(0, CFG["n_classes"], (N, 6)).astype(np.int32)
+    jp = jax.vmap(lambda k: jtm.init_params(jcfg, k))(
+        jax.random.split(jax.random.PRNGKey(4), N))
+    tp = ttm.init_params(tcfg, tr.split(tr.PRNGKey(4, "cpu"), N))
+    a = jtm.train_batched(jp, jnp.asarray(xs), jnp.asarray(ys),
+                          jax.random.split(jax.random.PRNGKey(5), N), jcfg,
+                          epochs=2)
+    b = ttm.train_batched(tp, torch.as_tensor(xs), torch.as_tensor(ys),
+                          tr.split(tr.PRNGKey(5, "cpu"), N), tcfg, epochs=2)
+    np.testing.assert_array_equal(np.asarray(a.ta_state), b.ta_state)
+    np.testing.assert_array_equal(np.asarray(a.weights), b.weights)
+    assert (b.ta_state != tp.ta_state).any()
+    assert torch.equal(b.weights, tp.weights)
+
+
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["weighted", "unit_weight"])
+def single(request):
+    """One model trained by both packages' single-model ``train`` (the
+    fused epoch at N = 1, or the per-sample scan), and a test set."""
+    kw = dict(CFG, weighted=request.param)
+    jcfg, tcfg = jtm.TMConfig(**kw), ttm.TMConfig(**kw)
+    rng = np.random.default_rng(6)
+    xs = (rng.random((S, CFG["n_features"])) < 0.4).astype(np.int32)
+    ys = rng.integers(0, CFG["n_classes"], S).astype(np.int32)
+    jp = jtm.train(jtm.init_params(jcfg, jax.random.PRNGKey(1)),
+                   jnp.asarray(xs), jnp.asarray(ys), jax.random.PRNGKey(2),
+                   jcfg, epochs=2)
+    tp = ttm.train(ttm.init_params(tcfg, tr.PRNGKey(1, "cpu")),
+                   torch.as_tensor(xs), torch.as_tensor(ys),
+                   tr.PRNGKey(2, "cpu"), tcfg, epochs=2)
+    xe = (rng.random((B, CFG["n_features"])) < 0.4).astype(np.int32)
+    ye = rng.integers(0, CFG["n_classes"], B).astype(np.int32)
+    return jcfg, tcfg, jp, tp, xe, ye
+
+
+def test_single_model_train_bit_equal(single):
+    _, _, jp, tp, _, _ = single
+    np.testing.assert_array_equal(np.asarray(jp.ta_state), tp.ta_state)
+    np.testing.assert_array_equal(np.asarray(jp.weights), tp.weights)
+
+
+def test_single_model_train_epoch_bit_equal(single):
+    jcfg, tcfg, jp, tp, xe, ye = single
+    a = jtm.train_epoch(jp, jnp.asarray(xe), jnp.asarray(ye),
+                        jax.random.PRNGKey(9), jcfg)
+    b = ttm.train_epoch(tp, torch.as_tensor(xe), torch.as_tensor(ye),
+                        tr.PRNGKey(9, "cpu"), tcfg)
+    np.testing.assert_array_equal(np.asarray(a.ta_state), b.ta_state)
+    np.testing.assert_array_equal(np.asarray(a.weights), b.weights)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_single_model_predict_and_accuracy_bit_equal(single, use_kernel):
+    """Against both of the reference's paths: its jnp forward pass and its
+    fused-votes kernel in interpret mode."""
+    jcfg, tcfg, jp, tp, xe, ye = single
+    jcfg = dataclasses.replace(jcfg, use_kernel=use_kernel)
+    a = jtm.predict(jp, jnp.asarray(xe), jcfg)
+    b = ttm.predict(tp, torch.as_tensor(xe), tcfg)
+    np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    a = jtm.accuracy(jp, jnp.asarray(xe), jnp.asarray(ye), jcfg)
+    b = ttm.accuracy(tp, torch.as_tensor(xe), torch.as_tensor(ye), tcfg)
+    assert b.dtype == torch.float32 and b.shape == ()
+    np.testing.assert_array_equal(np.asarray(a).view(np.int32),
+                                  b.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_single_model_forward_and_confidence_bit_equal(single, use_kernel):
+    jcfg, tcfg, jp, tp, xe, _ = single
+    jcfg = dataclasses.replace(jcfg, use_kernel=use_kernel)
+    for predict in (False, True):
+        for a, b in zip(jtm.forward(jp, jnp.asarray(xe), jcfg, predict),
+                        ttm.forward(tp, torch.as_tensor(xe), tcfg, predict)):
+            assert b.dtype == torch.int32
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    for weighted in (False, True):
+        a = jtm.confidence_scores(jp, jnp.asarray(xe), jcfg, weighted)
+        b = ttm.confidence_scores(tp, torch.as_tensor(xe), tcfg, weighted)
+        assert b.dtype == torch.int32 and b.shape == (CFG["n_classes"],)
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())

@@ -9,10 +9,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``nvcc`` per source, started together), timed;
 3. hold each of the five kernels against its plain PyTorch version on
    the card, exactly, at the paper's TM width (20 clients, C = 10,
-   m = 300, L = 1568: batched fused votes at B = 40, one fused epoch at
-   S = 80, clause outputs at B = 1 for all 20 clients, single-model fused
-   votes at B = 1 and B = 40, the TA transition of 20 x 2 banks) and at
-   one tile-unaligned shape each;
+   m = 300, L = 1568: batched fused votes at B = 40 and at serving's 32
+   lanes of B = 1, one fused epoch at S = 80, clause outputs at B = 1 for
+   all 20 clients, single-model fused votes at B = 1, 40 and 130, the TA
+   transition of 20 x 2 banks) and at tile-unaligned shapes (L = 130,
+   m = 33; the vote kernels also at B = 130, two passes over the
+   samples, with weights up to 2**15);
 4. the training path: the port's ``fed_train`` at full width (mnist
    28x28, 300 clauses, 20 clients, 2 rounds of 2 local epochs, a
    checkpoint after each round) with the launch counters set to 0 just
@@ -33,7 +35,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 9. time each kernel at its path's shapes with CUDA events, beside its
    plain version, a one-call PyTorch yardstick where one exists, and the
    bound from bytes and operations; print each kernel's device time
-   alone (profiler), without its wrapper's host work;
+   alone (profiler), without its wrapper's host work; the vote kernels
+   also at a second shape each (batched at serving's 32 lanes of B = 1,
+   single-model at B = 40);
 10. profile one more full-width round (device busy share, top ops), then
    print the kernel times as one JSON line.
 
@@ -125,15 +129,34 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
             "library_ms": library_ms}
 
 
-def vote_inputs(gen, N, C, m, L, B, device):
+def vote_inputs(gen, N, C, m, L, B, device, wmax=7):
     import torch
     include = torch.rand((N, C, m, L), generator=gen, device=device) < 2.0 / L
     include[:, :, ::5] = False                     # empty clauses
     lits = torch.randint(0, 2, (N, B, L), generator=gen, device=device,
                          dtype=torch.int32)
-    wpol = torch.randint(-7, 8, (N, C, m), generator=gen, device=device,
-                         dtype=torch.int32)
+    wpol = torch.randint(-wmax, wmax + 1, (N, C, m), generator=gen,
+                         device=device, dtype=torch.int32)
     return include, lits, wpol
+
+
+def ptxas_lines(log: str):
+    """(kernel, line) for each register / shared-memory / spill line of a
+    ``ptxas -v`` log, the kernel named from its mangled symbol (template
+    arguments as ``<8,1>``)."""
+    import re
+    func = "?"
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            sym = m.group(1)
+            name = re.search(r"\d+([A-Za-z]\w*?_kernel)", sym)
+            args = re.findall(r"L[ib](\d+)E", sym)
+            func = (name.group(1) if name else sym) + (
+                f"<{','.join(args)}>" if args else "")
+        elif "registers" in line or "spill" in line:
+            yield func, line.strip()
 
 
 def epoch_inputs(gen, N, S, C, m, L, n_states, device):
@@ -181,6 +204,19 @@ def ta_inputs(gen, NB, m, L, n_states, device):
             bits(NB, m, 1), *u]
 
 
+def vote_work(include, lits, wpol) -> tuple[int, int]:
+    """Bytes and {0,1} operations of one vote call: the include plane,
+    the literals and wpol read once at the element sizes the kernel
+    reads, the votes written once; two operations per (sample, clause,
+    literal)."""
+    *lead, C, m, L = include.shape
+    B = lits.shape[-2]
+    N = lead[0] if lead else 1
+    n_bytes = (include.numel() * include.element_size()
+               + lits.numel() * 4 + wpol.numel() * 4 + 4 * N * B * C)
+    return n_bytes, 2 * N * B * C * m * L
+
+
 def exact(name, got, want, what: str, err: dict) -> None:
     """Require ``got == want`` bit for bit; record the max |difference|."""
     import torch
@@ -194,16 +230,18 @@ def exact(name, got, want, what: str, err: dict) -> None:
 
 
 class Capture:
-    """Record the arguments of the last call of ``ops.<fn>`` while a path
-    runs, so a kernel is timed on the inputs that path gave it."""
+    """Record the arguments of the last (or the first) call of
+    ``ops.<fn>`` while a path runs, so a kernel is timed on the inputs
+    that path gave it."""
 
-    def __init__(self, ops, fn: str):
+    def __init__(self, ops, fn: str, first: bool = False):
         self.ops, self.fn, self.orig = ops, fn, getattr(ops, fn)
-        self.args = None
+        self.args, self.first = None, first
 
     def __enter__(self):
         def call(*a, **kw):
-            self.args = (a, kw)
+            if self.args is None or not self.first:
+                self.args = (a, kw)
             return self.orig(*a, **kw)
         setattr(self.ops, self.fn, call)
         return self
@@ -254,7 +292,7 @@ def main() -> int:
     from repro_torch.fl.runtime import (Engine, RuntimeConfig,
                                         TPFLStrategy)
     from repro_torch.fl.serve import ModelRegistry, ServingPlane
-    from repro_torch.kernels import _build, draws, ops, ref
+    from repro_torch.kernels import _build, clause_eval, draws, ops, ref
     from repro_torch.launch import fed_serve, fed_train
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -276,16 +314,22 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f}s for "
           f"{sorted(built) or 'nothing (cached)'}", flush=True)
     for name, info in built.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
+        for func, line in ptxas_lines(info["log"]):
+            print(f"  ptxas {name} {func}: {line}", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape in ((20, 10, 300, 1568, 40), (32, 10, 300, 1568, 1),
+                  (1, 10, 300, 1568, 1), (1, 10, 300, 1568, 40)):
+        print(f"  votes plan (N, C, m, L, B)={shape} on {sms} SMs: "
+              f"{clause_eval.plan(*shape, sms=sms)}", flush=True)
 
     # 3. kernels against their plain versions, exactly
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     err: dict = {}
-    for shape in ((20, 10, 300, 1568, 40), (3, 3, 33, 130, 7)):
-        args = vote_inputs(gen, *shape, dev)
+    for shape, wmax in (((20, 10, 300, 1568, 40), 7), ((3, 3, 33, 130, 7), 7),
+                        ((32, 10, 300, 1568, 1), 7),
+                        ((2, 3, 33, 130, 130), 1 << 15)):
+        args = vote_inputs(gen, *shape, dev, wmax)
         for predict in (True, False):
             exact("fused_votes_batched",
                   ops.fused_votes_batched(*args, predict),
@@ -312,9 +356,10 @@ def main() -> int:
                   ref.clause_outputs_ref(inc, lits, predict),
                   f"N={N} B={B} CM={C * m} L={L} predict={predict}", err)
     for C, m, L, B in ((10, 300, 1568, 1), (10, 300, 1568, 40),
-                       (3, 33, 130, 7)):
-        include, lits, wpol = (a[0] for a in vote_inputs(gen, 1, C, m, L, B,
-                                                         dev))
+                       (3, 33, 130, 7), (10, 300, 1568, 130),
+                       (3, 33, 130, 130)):
+        include, lits, wpol = (a[0] for a in vote_inputs(
+            gen, 1, C, m, L, B, dev, 7 if B < 130 else 1 << 15))
         for predict in (True, False):
             exact("fused_votes", ops.fused_votes(include, lits, wpol,
                                                  predict),
@@ -405,7 +450,8 @@ def main() -> int:
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    with Capture(ops, "fused_votes") as cap4:
+    with Capture(ops, "fused_votes") as cap4, \
+            Capture(ops, "fused_votes_batched", first=True) as cap2:
         served = fed_serve.main(SERVE_ARGS)
         torch.cuda.synchronize()
     serve_wall = time.perf_counter() - t0
@@ -529,8 +575,7 @@ def main() -> int:
     inc_f = include.reshape(N, C * m, L).to(torch.float32).transpose(1, 2)
     k2_lib = cuda_ms(lambda: torch.bmm(nlit_f, inc_f), reps=20)
     del nlit_f, inc_f
-    k2_bytes = N * C * m * L + N * B * L + 4 * N * C * m + 4 * N * B * C
-    k2_ops = 2 * N * B * C * m * L
+    k2_bytes, k2_ops = vote_work(*votes)
 
     S = data.x_train.shape[1]
     ekeys = rnd.split(rnd.split(rnd.PRNGKey(1, dev), N), 2)[:, 0]
@@ -586,15 +631,32 @@ def main() -> int:
     k4_ms = cuda_ms(lambda: ops.fused_votes(*a4, **kw4), reps=50)
     k4_plain = cuda_ms(lambda: ref.fused_votes_ref(*a4, **kw4), reps=20)
     c4, m4, l4 = inc4.shape
-    b4 = lit4.shape[0]
     nlit_f = (1 - lit4).to(torch.float32)
     inc_f = inc4.reshape(c4 * m4, l4).to(torch.float32).T
     k4_lib = cuda_ms(lambda: torch.matmul(nlit_f, inc_f), reps=50)
     del nlit_f, inc_f
-    k4_bytes = (inc4.numel() * inc4.element_size()
-                + lit4.numel() * lit4.element_size()
-                + wpol4.numel() * wpol4.element_size() + 4 * b4 * c4)
-    k4_ops = 2 * b4 * c4 * m4 * l4
+    k4_bytes, k4_ops = vote_work(*a4)
+    # kernel 2 at serving's shape: path A's first batch, 32 lanes of B = 1
+    a2s, kw2s = cap2.args
+    k2s_ms = cuda_ms(lambda: ops.fused_votes_batched(*a2s, **kw2s), reps=20)
+    k2s_plain = cuda_ms(lambda: ref.fused_votes_batched_ref(*a2s, **kw2s),
+                        reps=5)
+    n2s, c2s, m2s, l2s = a2s[0].shape
+    nlit_f = (1 - a2s[1]).to(torch.float32)
+    inc_f = a2s[0].reshape(n2s, c2s * m2s, l2s).to(torch.float32
+                                                    ).transpose(1, 2)
+    k2s_lib = cuda_ms(lambda: torch.bmm(nlit_f, inc_f), reps=20)
+    del nlit_f, inc_f
+    k2s_bytes, k2s_ops = vote_work(*a2s)
+    # kernel 4 at B = 40: the same model on its client's 40 test samples
+    a4b = (inc4, tm.literals(data.x_test[0]), wpol4)
+    k4b_ms = cuda_ms(lambda: ops.fused_votes(*a4b, **kw4), reps=50)
+    k4b_plain = cuda_ms(lambda: ref.fused_votes_ref(*a4b, **kw4), reps=20)
+    nlit_f = (1 - a4b[1]).to(torch.float32)
+    inc_f = inc4.reshape(c4 * m4, l4).to(torch.float32).T
+    k4b_lib = cuda_ms(lambda: torch.matmul(nlit_f, inc_f), reps=50)
+    del nlit_f, inc_f
+    k4b_bytes, k4b_ops = vote_work(*a4b)
     # kernel 5 on path (B)'s last negative-class update: 20 banks
     a5, kw5 = cap5.args
     ta5, type1 = a5[0], a5[3]
@@ -619,8 +681,7 @@ def main() -> int:
           flush=True)
     on_device = {
         "fused_votes_batched": device_ms(
-            lambda: ops.fused_votes_batched(*votes), 10,
-            "votes_batched_kernel"),
+            lambda: ops.fused_votes_batched(*votes), 10, "votes_mma_kernel"),
         "train_epoch_fused": device_ms(
             lambda: ops.train_epoch_fused(*epoch, n_states=63, T=40), 2,
             "train_epoch_kernel"),
@@ -628,12 +689,37 @@ def main() -> int:
             lambda: ops.clause_outputs(*a3, **kw3), 20,
             "clause_outputs_kernel"),
         "fused_votes": device_ms(lambda: ops.fused_votes(*a4, **kw4), 20,
-                                 "fused_votes_kernel"),
+                                 "votes_mma_kernel"),
         "ta_update": device_ms(lambda: ops.ta_update(*a5, **kw5), 20,
                                "ta_update_kernel")}
     print("kernel alone on the device (profiler, ms per call): "
           + ", ".join(f"{k} {v:.4f}" for k, v in on_device.items()),
           flush=True)
+    for name, shape, ms, plain, lib, lib_name, nb, no, alone in (
+            ("fused_votes_batched", tuple(a2s[0].shape[:1])
+             + tuple(a2s[1].shape[1:2]), k2s_ms, k2s_plain, k2s_lib,
+             "torch.bmm", k2s_bytes, k2s_ops, device_ms(
+                 lambda: ops.fused_votes_batched(*a2s, **kw2s), 20,
+                 "votes_mma_kernel")),
+            ("fused_votes", (1, a4b[1].shape[0]), k4b_ms, k4b_plain,
+             k4b_lib, "torch.matmul", k4b_bytes, k4b_ops, device_ms(
+                 lambda: ops.fused_votes(*a4b, **kw4), 20,
+                 "votes_mma_kernel"))):
+        print(f"{name} at (N, B)={shape}: {ms:.5f} ms by events, "
+              f"{alone:.5f} ms alone, plain {plain:.4f} ms, {lib_name} "
+              f"{lib:.5f} ms, bound {max(nb / HBM_BYTES_PER_S, no / INT8_OPS_PER_S) * 1e3:.5f} "
+              f"ms ({nb / 1e6:.3f} MB, {no:.3e} operations)", flush=True)
+    # kernel 2 alone at B = 40 as the grid grows (10 blocks a client,
+    # 132 SMs): flat from one wave to two blocks an SM means a block's
+    # own chain of steps sets the time, not the card's byte rate
+    two = tuple(torch.cat([a, a]) for a in votes)
+    sweep = {n: device_ms(lambda n=n: ops.fused_votes_batched(
+        *(a[:n] for a in two)), 10, "votes_mma_kernel")
+        for n in (7, 13, 20, 26, 33)}
+    del two
+    print("fused_votes_batched alone at B = 40 by clients (blocks): "
+          + ", ".join(f"{n} ({10 * n}) {v:.4f} ms" for n, v in
+                      sweep.items()), flush=True)
     print(f"serving: {served['requests_per_s']:.1f} req/s, "
           f"p50={served['p50_s'] * 1e6:.0f}us p99={served['p99_s'] * 1e6:.0f}"
           f"us per batch of 32; unit-weight round {unit_s:.3f}s", flush=True)

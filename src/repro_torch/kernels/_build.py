@@ -3,8 +3,8 @@ libraries, bound with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``build/kernels/lib<name>-<hash>.so`` at the repository root (the hash
-is the source's, so an edited kernel is rebuilt), for ``sm_90a`` and
-without fast math.  Nothing here runs at import: a CPU-only host imports
+is the source's and the headers', so an edited kernel is rebuilt), for
+``sm_90a`` and without fast math.  Nothing here runs at import: a CPU-only host imports
 the package and never reaches ``nvcc``.
 
 ``LAUNCHES`` counts the launches of each kernel; a wrapper adds one right
@@ -27,17 +27,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     "clause_outputs": ("clause_eval", [_P] * 3 + [_I] * 5 + [_P]),
-    "fused_votes": ("clause_eval", [_P] * 4 + [_I] * 5 + [_P]),
-    "fused_votes_batched": ("clause_eval", [_P, _P, _P, _P] + [_I] * 6
-                            + [_P]),
+    # planes; shape; wpol strides; predict; stream
+    "fused_votes": ("clause_eval", [_P] * 4 + [_I] * 4 + [_LL] * 2
+                    + [_I, _P]),
+    "fused_votes_batched": ("clause_eval", [_P] * 4 + [_I] * 5 + [_LL] * 3
+                            + [_I, _P]),
     "ta_update": ("ta_update", [_P] * 8 + [_I] * 3 + [_F, _F, _I, _P]),
     "train_epoch_fused": ("train_epoch", [_P] * 6 + [_I] * 7 + [_P]),
+}
+# entry points that launch nothing (not counted)
+_QUERIES = {
+    "votes_plan": ("clause_eval", [_I] * 6 + [_P]),
 }
 
 LAUNCHES = {fn: 0 for fn in _SIGNATURES}
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[str, ctypes._CFuncPtr] = {}
 
 
 def nvcc() -> str:
@@ -50,8 +58,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        (CSRC / f"{name}.cu").read_bytes()
+        + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.h")))
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -87,8 +97,12 @@ def build(names=SOURCES) -> dict[str, dict]:
 
 
 def function(fn: str):
-    """The C entry point ``fn``, building its library on first use."""
-    source, argtypes = _SIGNATURES[fn]
+    """The C entry point ``fn``, building its library on first use; bound
+    once, with its argument types, and kept."""
+    f = _FUNCS.get(fn)
+    if f is not None:
+        return f
+    source, argtypes = _SIGNATURES.get(fn) or _QUERIES[fn]
     lib = _LIBS.get(source)
     if lib is None:
         path = library_path(source)
@@ -97,6 +111,7 @@ def function(fn: str):
         lib = _LIBS[source] = ctypes.CDLL(str(path))
     f = getattr(lib, fn)
     f.argtypes, f.restype = argtypes, ctypes.c_int
+    _FUNCS[fn] = f
     return f
 
 

@@ -4,13 +4,23 @@ Counterparts of ``repro/kernels/clause_eval.py``'s three kernels, with
 their results: :func:`clause_outputs` (``clause_outputs_pallas``),
 :func:`fused_votes` (``fused_votes_pallas``) and
 :func:`fused_votes_batched` (``fused_votes_batched_pallas``).  Each is its
-own launch with its own count.  The kernels take the include plane and
-``1 - lits`` as 0/1 bytes, padded with zero bytes to a multiple of 4
-literals so they can count violations four literals per ``popc``.  The
-plain versions are the functions of the same names in
-:mod:`repro_torch.kernels.ref`.
+own launch with its own count.  The plain versions are the functions of
+the same names in :mod:`repro_torch.kernels.ref`.
+
+The two vote wrappers share one kernel (``votes_mma_kernel``): it takes
+the include plane as the bool bytes ``tm.include_mask`` gives, the
+literals as the int32 ``tm.literals`` gives and ``wpol`` as int32 at any
+strides, so a call at those dtypes is one device operation (the output is
+``torch.empty``).  The C launcher plans its thread-block clusters, its
+passes over the samples and its shared-memory rings from the shape;
+:func:`plan` asks it for that plan.  ``clause_outputs`` takes the include
+plane and ``1 - lits`` as 0/1 bytes, padded with zero bytes to a multiple
+of 4 literals so it can count violations four literals per ``popc``.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -66,11 +76,87 @@ def clause_outputs(include: torch.Tensor, lits: torch.Tensor,
     return out
 
 
+class Plan(NamedTuple):
+    """How ``votes_mma_kernel`` covers one call, as the launcher plans it
+    (``plan_votes`` in ``csrc/votes_plan.h``): ``cluster`` blocks per
+    (client, class) split its 16-clause tiles (and, with more than 8
+    samples a pass, stage the samples once between them); ``ks`` warps
+    of a block split one tile's chunks; ``samples`` samples are staged per pass
+    (every sample in one pass when they fit); ``nt`` n-tiles of 8 samples
+    is the kernel's instantiation; ``stages`` the shared-memory ring
+    stages of each warp; ``smem`` and ``static_smem`` its dynamic and
+    static shared memory in bytes."""
+    cluster: int
+    ks: int
+    samples: int
+    nt: int
+    stages: int
+    smem: int
+    static_smem: int
+
+
+def plan(N: int, C: int, m: int, L: int, B: int, sms: int) -> Plan:
+    """The launcher's plan of a vote call (include (N,C,m,L), B samples)
+    on a card with ``sms`` SMs, from the built kernel library (so
+    ``nvcc``); it touches no device.  Raises ``ValueError`` for a shape
+    the kernel cannot hold."""
+    return plan_from(_build.function("votes_plan"), N, C, m, L, B, sms)
+
+
+def plan_from(query, N: int, C: int, m: int, L: int, B: int,
+              sms: int) -> Plan:
+    """:func:`plan` through ``query``, a ctypes binding of ``votes_plan``
+    (the kernel library's, or ``csrc/votes_plan.h`` built alone by a host
+    compiler)."""
+    out = (ctypes.c_int * 7)()
+    if query(N, C, m, L, B, sms, out) != 0:
+        raise ValueError(f"votes_plan: no plan for N={N} C={C} m={m} L={L} "
+                         f"B={B} on {sms} SMs")
+    return Plan(*out)
+
+
+def vote_operands(include: torch.Tensor, lits: torch.Tensor,
+                  wpol: torch.Tensor):
+    """The three planes as the kernel reads them: include as contiguous
+    0/1 bytes (a bool or uint8 plane as it is), lits as contiguous int32,
+    wpol as int32 at its own strides (an expanded plane stays expanded).
+    Only other dtypes, or a non-contiguous include or lits, are copied."""
+    if include.dtype not in (torch.bool, torch.uint8):
+        include = include != 0
+    if not include.is_contiguous():
+        include = include.contiguous()
+    if lits.dtype != torch.int32 or not lits.is_contiguous():
+        lits = lits.to(torch.int32).contiguous()
+    if wpol.dtype != torch.int32:
+        wpol = wpol.to(torch.int32)
+    return include, lits, wpol
+
+
+def _votes(fn: str, include, lits, wpol, predict, lead) -> torch.Tensor:
+    """Launch ``fn`` (``fused_votes`` or ``fused_votes_batched``) on
+    include (*lead,C,m,L), lits (*lead,B,L), wpol (*lead,C,m): the only
+    device work is the kernel (the output is ``torch.empty``); the
+    launcher plans the grid from the shape."""
+    C, m, L = include.shape[-3:]
+    B = lits.shape[-2]
+    out = include.new_empty(lead + (B, C), dtype=torch.int32)
+    if out.numel() == 0:
+        return out
+    inc, lit, wp = vote_operands(include, lits, wpol)
+    # the raw handle of torch's current stream (what
+    # torch.cuda.current_stream().cuda_stream returns, without the object)
+    stream = torch._C._cuda_getCurrentRawStream(inc.get_device())
+    err = _build.function(fn)(
+        inc.data_ptr(), lit.data_ptr(), wp.data_ptr(), out.data_ptr(), *lead,
+        C, m, L, B, *wp.stride(), int(bool(predict)), stream)
+    _build.check(fn, err)
+    return out
+
+
 def fused_votes(include: torch.Tensor, lits: torch.Tensor,
                 wpol: torch.Tensor, predict: bool = True) -> torch.Tensor:
     """include (C,m,L) 0/1; lits (B,L) 0/1; wpol (C,m) int → unclipped
     Eq.-1 votes (B,C) int32 of one model, one launch."""
-    _cuda("fused_votes", include, lits, wpol)
     if include.ndim != 3 or lits.ndim != 2 or wpol.ndim != 2:
         raise ValueError("fused_votes: include (C,m,L), lits (B,L), "
                          "wpol (C,m)")
@@ -80,16 +166,8 @@ def fused_votes(include: torch.Tensor, lits: torch.Tensor,
         raise ValueError(f"fused_votes: shapes disagree: include "
                          f"{tuple(include.shape)}, lits {tuple(lits.shape)},"
                          f" wpol {tuple(wpol.shape)}")
-    lp = -(-L // 4) * 4
-    inc = _bytes(include, lp)
-    nlit = _bytes(1 - lits.to(torch.int32), lp)
-    wp = wpol.to(torch.int32).contiguous()
-    out = torch.empty((B, C), dtype=torch.int32, device=include.device)
-    fn = _build.function("fused_votes")
-    err = fn(inc.data_ptr(), nlit.data_ptr(), wp.data_ptr(), out.data_ptr(),
-             C, m, lp // 4, B, int(bool(predict)), _stream(include))
-    _build.check("fused_votes", err)
-    return out
+    _cuda("fused_votes", include, lits, wpol)
+    return _votes("fused_votes", include, lits, wpol, predict, ())
 
 
 def fused_votes_batched(include: torch.Tensor, lits: torch.Tensor,
@@ -97,7 +175,6 @@ def fused_votes_batched(include: torch.Tensor, lits: torch.Tensor,
                         ) -> torch.Tensor:
     """include (N,C,m,L) 0/1; lits (N,B,L) 0/1; wpol (N,C,m) int →
     unclipped Eq.-1 votes (N,B,C) int32, one launch."""
-    _cuda("fused_votes_batched", include, lits, wpol)
     if include.ndim != 4 or lits.ndim != 3 or wpol.ndim != 3:
         raise ValueError("fused_votes_batched: include (N,C,m,L), "
                          "lits (N,B,L), wpol (N,C,m)")
@@ -107,13 +184,5 @@ def fused_votes_batched(include: torch.Tensor, lits: torch.Tensor,
         raise ValueError(f"fused_votes_batched: shapes disagree: include "
                          f"{tuple(include.shape)}, lits {tuple(lits.shape)},"
                          f" wpol {tuple(wpol.shape)}")
-    lp = -(-L // 4) * 4
-    inc = _bytes(include, lp)
-    nlit = _bytes(1 - lits.to(torch.int32), lp)
-    wp = wpol.to(torch.int32).contiguous()
-    out = torch.empty((N, B, C), dtype=torch.int32, device=include.device)
-    fn = _build.function("fused_votes_batched")
-    err = fn(inc.data_ptr(), nlit.data_ptr(), wp.data_ptr(), out.data_ptr(),
-             N, C, m, lp // 4, B, int(bool(predict)), _stream(include))
-    _build.check("fused_votes_batched", err)
-    return out
+    _cuda("fused_votes_batched", include, lits, wpol)
+    return _votes("fused_votes_batched", include, lits, wpol, predict, (N,))

@@ -42,12 +42,38 @@ def cuda():
     return torch.device("cuda")
 
 
-def _vote_inputs(rng, N, C, m, L, B):
+def _vote_inputs(rng, N, C, m, L, B, banks="mixed", wmax=7):
+    """Sparse include planes, random literals and weights in
+    [-wmax, wmax].  ``banks``: "mixed" (every fifth clause empty),
+    "empty" (every clause) or "full" (none: one literal more per clause)."""
     include = (rng.random((N, C, m, L)) < 2.0 / L).astype(np.int32)
-    include[:, :, ::5] = 0                        # empty clauses
+    if banks == "mixed":
+        include[:, :, ::5] = 0
+    elif banks == "empty":
+        include[:] = 0
+    else:
+        idx = rng.integers(0, L, (N, C, m))
+        np.put_along_axis(include, idx[..., None], 1, -1)
     lits = rng.integers(0, 2, (N, B, L)).astype(np.int32)
-    wpol = rng.integers(-7, 8, (N, C, m)).astype(np.int32)
+    wpol = rng.integers(-wmax, wmax + 1, (N, C, m)).astype(np.int32)
     return include, lits, wpol
+
+
+# (N, C, m, L, B, banks, wmax): B = 1 / 24 / 40 / 130 (two passes of
+# samples; B = 24 takes the 4-n-tile instantiation), the ragged L = 130, m = 33 and 300 (not a multiple of the
+# 16-clause tile or of the cluster's split), a bank of empty clauses and
+# one of none, weights up to 2**15
+VOTE_CASES = [
+    (3, 4, 33, 130, 1, "mixed", 7),
+    (3, 4, 33, 130, 40, "mixed", 7),
+    (2, 3, 33, 130, 24, "mixed", 7),
+    (2, 3, 33, 130, 130, "mixed", 7),
+    (2, 10, 300, 1568, 1, "full", 2 ** 15),
+    (2, 10, 300, 1568, 40, "mixed", 2 ** 15),
+    (2, 3, 300, 130, 130, "empty", 2 ** 15),
+    (2, 3, 300, 256, 40, "full", 2 ** 15),
+    (1, 10, 300, 1568, 130, "full", 2 ** 15),
+]
 
 
 def _epoch_inputs(rng, N, S, C, m, o, n_states):
@@ -192,6 +218,79 @@ def test_single_model_fused_votes_kernel_matches_plain_on_gpu(cuda, shape,
     torch.cuda.synchronize()
     assert ops.LAUNCHES["fused_votes"] == n + 1
     assert torch.equal(got, ref.fused_votes_ref(*args, predict))
+
+
+def _device_ops_per_call(fn, calls: int = 3) -> list[str]:
+    """The names of the device operations (kernels, memsets, copies) that
+    ``calls`` calls of ``fn()`` ran, from a torch.profiler trace, with
+    each name once per call it ran in.  A trace that recorded no device
+    operation at all (the profiler missed its short window) is taken
+    again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops_ = [(e.key, e.count) for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU]
+        if ops_:
+            break
+    return [k for k, n in ops_ for _ in range(n // calls)
+            if n % calls == 0] + [f"{k} x{n}" for k, n in ops_
+                                  if n % calls]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", VOTE_CASES)
+@pytest.mark.parametrize("predict", [True, False])
+@pytest.mark.parametrize("batched", [True, False])
+def test_vote_kernels_one_launch_and_exact(cuda, case, predict, batched):
+    """Both vote wrappers at the main path's dtypes (bool include, int32
+    lits and wpol): equal to the plain version, one count and one device
+    kernel (no memset, no conversion pass) per call."""
+    *shape, banks, wmax = case
+    include, lits, wpol = _vote_inputs(np.random.default_rng(10), *shape,
+                                       banks=banks, wmax=wmax)
+    args = _t(include.astype(bool), lits, wpol, device=cuda)
+    if batched:
+        name, plain = "fused_votes_batched", ref.fused_votes_batched_ref
+    else:
+        name, plain = "fused_votes", ref.fused_votes_ref
+        args = [a[0] for a in args]
+    fn = getattr(ops, name)
+    n = ops.LAUNCHES[name]
+    got = fn(*args, predict)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == n + 1
+    assert torch.equal(got, plain(*args, predict))
+    names = _device_ops_per_call(lambda: fn(*args, predict))
+    assert len(names) == 1 and "votes_mma_kernel" in names[0], names
+
+
+@pytest.mark.gpu
+def test_vote_kernels_take_other_dtypes_and_strides(cuda):
+    """Other dtypes are converted and an expanded wpol (unit weights) is
+    read at its strides; the result does not change."""
+    include, lits, wpol = _vote_inputs(np.random.default_rng(11), 3, 4, 33,
+                                       130, 9)
+    inc, lit, wp = _t(include.astype(bool), lits, wpol, device=cuda)
+    unit = torch.where(torch.arange(33, device=cuda) % 2 == 0, 1, -1
+                       ).to(torch.int32).expand(3, 4, 33)
+    strided = torch.cat([inc, inc], -1)[..., :130]        # not contiguous
+    for args in ((inc.to(torch.int64), lit.to(torch.uint8),
+                  wp.to(torch.int16)),
+                 (inc, lit, unit), (strided, lit.to(torch.int64), unit)):
+        want = ref.fused_votes_batched_ref(*args)
+        assert torch.equal(ops.fused_votes_batched(*args), want)
+        assert torch.equal(ops.fused_votes(*(a[1] for a in args)), want[1])
+    assert _device_ops_per_call(
+        lambda: ops.fused_votes_batched(inc, lit, unit)) \
+        == _device_ops_per_call(lambda: ops.fused_votes_batched(inc, lit, wp))
 
 
 @pytest.mark.gpu

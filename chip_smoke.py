@@ -10,8 +10,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3. hold each of the five kernels against its plain PyTorch version on
    the card, exactly, at the paper's TM width (20 clients, C = 10,
    m = 300, L = 1568: batched fused votes at B = 40 and at serving's 32
-   lanes of B = 1, one fused epoch at S = 80, clause outputs at B = 1 for
-   all 20 clients, single-model fused votes at B = 1, 40 and 130, the TA
+   lanes of B = 1, one fused epoch at S = 80 (drawing its randomness
+   from the epoch's keys, against the plain coin plane), clause
+   outputs at B = 1 for all 20 clients, single-model fused votes at
+   B = 1, 40 and 130, the TA
    transition of 20 x 2 banks) and at tile-unaligned shapes (L = 130,
    m = 33; the vote kernels also at B = 130, two passes over the
    samples, with weights up to 2**15);
@@ -19,7 +21,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    28x28, 300 clauses, 20 clients, 2 rounds of 2 local epochs, a
    checkpoint after each round) with the launch counters set to 0 just
    before, printing its round lines, and check its output;
-5. require every kernel of that path to have launched;
+5. require every kernel of that path to have launched (the fused epoch
+   once per local epoch);
 6. path (A), serving: ``fed_serve`` publishes the newest checkpoint,
    serves 8 mixed-cluster batches of 32 and checks all 20 clients
    against ``tm.predict`` (counters zeroed just before: 8 + 1 batched
@@ -37,7 +40,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bound from bytes and operations; print each kernel's device time
    alone (profiler), without its wrapper's host work; the vote kernels
    also at a second shape each (batched at serving's 32 lanes of B = 1,
-   single-model at B = 40);
+   single-model at B = 40); the fused epoch's launch plan, its time
+   over 1 to 33 clients, the main path's epoch without a coin plane
+   (its peak device memory), and its bound from the instructions the
+   built kernel issues per coin (``cuobjdump -sass``);
 10. profile one more full-width round (device busy share, top ops), then
    print the kernel times as one JSON line.
 
@@ -49,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -65,6 +72,18 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12          # tensor-core int8, for 8-bit {0,1} work
 FP32_OPS_PER_S = 67e12            # 32-bit work outside the tensor cores
+# int32 instructions: 64 lanes an SM, half the fp32 lanes, one operation
+# each (the fp32 rate counts a fused multiply-add as two).  Hopper's ALU
+# pipe (adds of three, logic, shifts, selects, compares) and the heavy half
+# of its FMA pipe (integer multiply-adds, IMAD.IADD among them) each have
+# these 64 lanes; an SM issues 128 lanes' instructions a cycle.
+INT32_OPS_PER_S = FP32_OPS_PER_S / 4
+ALU_PIPE = ("LOP3", "SHF", "IADD3", "SEL", "ISETP", "PLOP3", "LEA", "PRMT",
+            "MOV", "FSEL", "FSETP", "P2R", "R2P", "SGXT", "BMSK", "POPC",
+            "FLO", "IABS")
+FMA_PIPE = ("IMAD", "IMUL", "FFMA", "FADD", "FMUL")
+EITHER_PIPE = ("VIADD", "VIADDMNMX", "VIMNMX")  # sm_90 ops, pipe unstated
+K1_KW = dict(n_states=63, T=40, p_inc=0.8, p_dec=0.2)
 
 RUN_DIR = ROOT / "build" / "chip_smoke"          # checkpoints, registry
 SCENARIO = ["--dataset", "mnist", "--clauses", "300", "--clients", "20",
@@ -144,7 +163,6 @@ def ptxas_lines(log: str):
     """(kernel, line) for each register / shared-memory / spill line of a
     ``ptxas -v`` log, the kernel named from its mangled symbol (template
     arguments as ``<8,1>``)."""
-    import re
     func = "?"
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -159,9 +177,53 @@ def ptxas_lines(log: str):
             yield func, line.strip()
 
 
+def coin_mix(sass: str, coins: int) -> dict:
+    """The instructions the fused epoch issues per Type I coin, by pipe,
+    from the kernel's SASS (``cuobjdump -sass``): the straight-line block
+    that holds the most funnel-shift rotations, which must be the
+    ``coins`` coins of one TA-pass item (20 rotations a threefry).
+    ``units`` is the least time of one coin in int32 instructions of 64
+    lanes an SM: the ALU pipe's count, the FMA pipe's, or half of all
+    issued, whichever is largest (an op whose pipe is not stated may take
+    either)."""
+    import collections
+    insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);")
+    code = [(int(a, 16), op, args) for a, op, args in insn.findall(sass)]
+    jumps = ("BRA", "BRX", "JMP", "CALL", "RET", "EXIT")
+    starts = {int(t[-1], 16) for _, op, args in code
+              if op.split(".")[0] in jumps + ("BSSY",)
+              and (t := re.findall(r"0x([0-9a-f]+)", args))}
+    blocks, cur = [], []
+    for a, op, _ in code:
+        if a in starts and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append(op)
+        if op.split(".")[0] in jumps:
+            blocks.append(cur)
+            cur = []
+    blocks.append(cur)
+    block = max(blocks, key=lambda b: sum(o.startswith("SHF.L.W") for o in b))
+    rot = sum(o.startswith("SHF.L.W") for o in block)
+    if rot != 20 * coins:
+        raise SystemExit(f"coin_mix: the block with the most rotations "
+                         f"holds {rot}, not the {20 * coins} of {coins} "
+                         f"coins: the kernel's code changed shape")
+    ops = collections.Counter(o.split(".")[0] for o in block)
+    mix = {"alu": sum(v for o, v in ops.items() if o in ALU_PIPE),
+           "fma": sum(v for o, v in ops.items() if o in FMA_PIPE),
+           "either": sum(v for o, v in ops.items() if o in EITHER_PIPE)}
+    mix["other"] = len(block) - sum(mix.values())
+    mix = {k: v / coins for k, v in mix.items()}
+    mix["issued"] = len(block) / coins
+    mix["units"] = max(mix["alu"], mix["fma"], mix["issued"] / 2)
+    return mix
+
+
 def epoch_inputs(gen, N, S, C, m, L, n_states, device):
     """Near-boundary TA banks with a few included literals per clause,
-    weights, literals, and one epoch's real draws."""
+    weights, literals, and one epoch's classes and role keys."""
     import torch
     from repro_torch import random as rnd
     from repro_torch.kernels import draws
@@ -179,9 +241,9 @@ def epoch_inputs(gen, N, S, C, m, L, n_states, device):
     keys = rnd.split(rnd.PRNGKey(int(torch.randint(0, 1 << 30, (1,),
                                                    generator=gen, device=device
                                                    ).item()), device), N)
-    offs, u_act, coin = draws.epoch_draws(keys, S, m, L, C, 0.8, 0.2)
+    offs, role_keys = draws.epoch_keys(keys, S, C)
     cls2 = torch.stack([ys, (ys + offs) % C], -1).contiguous()
-    return ta, w, lits, cls2, u_act, coin
+    return ta, w, lits, cls2, role_keys
 
 
 def ta_inputs(gen, NB, m, L, n_states, device):
@@ -292,7 +354,8 @@ def main() -> int:
     from repro_torch.fl.runtime import (Engine, RuntimeConfig,
                                         TPFLStrategy)
     from repro_torch.fl.serve import ModelRegistry, ServingPlane
-    from repro_torch.kernels import _build, clause_eval, draws, ops, ref
+    from repro_torch.kernels import (_build, clause_eval, draws, ops, ref,
+                                     train_epoch)
     from repro_torch.launch import fed_serve, fed_train
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -337,9 +400,10 @@ def main() -> int:
                   f"(N, C, m, L, B)={shape} predict={predict}", err)
     for N, S, C, m, L in ((20, 80, 10, 300, 1568), (4, 17, 3, 33, 130)):
         args = epoch_inputs(gen, N, S, C, m, L, 63, dev)
-        got = ops.train_epoch_fused(*args, n_states=63, T=40)
-        want = ref.train_epoch_ref(*args, n_states=63, T=40)
-        what = f"N={N} S={S} C={C} m={m} L={L}"
+        got = ops.train_epoch_fused(*args, **K1_KW)
+        want = train_epoch.train_epoch_plain(*args, **K1_KW)
+        what = (f"N={N} S={S} C={C} m={m} L={L} plan "
+                f"{train_epoch.plan(N, C, m, L)}")
         moved = int((want[0] != args[0]).sum())
         exact("train_epoch_fused", got[0], want[0],
               f"{what} TA states ({moved} changed)", err)
@@ -409,6 +473,9 @@ def main() -> int:
     for name in ("fused_votes_batched", "train_epoch_fused"):
         if launches[name] <= 0:
             raise SystemExit(f"{name} never launched on the training path")
+    if launches["train_epoch_fused"] != 2 * 2:
+        raise SystemExit("the fused epoch did not launch once per local "
+                         "epoch (2 rounds x 2)")
     state = result["state"]
     for rep in result["reports"]:
         acc = rep.per_client_accuracy
@@ -457,7 +524,9 @@ def main() -> int:
     serve_wall = time.perf_counter() - t0
     launches_a = dict(ops.LAUNCHES)
     print(f"path (A) serving: {serve_wall:.2f}s wall, launches "
-          f"{launches_a}, result {served}", flush=True)
+          f"{launches_a}, result "
+          f"{ {k: v for k, v in served.items() if k != 'latencies_s'} }",
+          flush=True)
     if launches_a["fused_votes_batched"] != 8 + 1 \
             or launches_a["fused_votes"] != 20:
         raise SystemExit("serving did not launch fused_votes_batched 8 + 1 "
@@ -465,6 +534,15 @@ def main() -> int:
     if served["mismatches"] != 0 or served["verified_clients"] != 20 \
             or served["version"] != 2:
         raise SystemExit(f"serving parity failed: {served}")
+    # the same requests once more, in the same process: a slow first
+    # batch is a first-call cost, slow batches in both a stall
+    again = fed_serve.main(SERVE_ARGS)
+    if again["mismatches"] != 0:
+        raise SystemExit(f"serving parity failed: {again}")
+    for i, out in enumerate((served, again)):
+        print(f"path (A) serving pass {i + 1}: batch latencies in order "
+              f"(us) {[round(t * 1e6) for t in out['latencies_s']]}",
+              flush=True)
 
     # 7. path (B): the unit-weight TM through the per-sample scan, then
     # the single-model API on one client
@@ -578,35 +656,85 @@ def main() -> int:
     k2_bytes, k2_ops = vote_work(*votes)
 
     S = data.x_train.shape[1]
+    W = (L + 31) // 32
     ekeys = rnd.split(rnd.split(rnd.PRNGKey(1, dev), N), 2)[:, 0]
     torch.cuda.synchronize()
     t = time.perf_counter()
-    offs, u_act, coin = draws.epoch_draws(ekeys, S, m, L, C, 0.8, 0.2)
+    offs, role_keys = draws.epoch_keys(ekeys, S, C)
+    torch.cuda.synchronize()
+    keys_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    draws.role_draws(role_keys, m, L, 0.8, 0.2)
     torch.cuda.synchronize()
     draws_ms = (time.perf_counter() - t) * 1e3
     ys = data.y_train.to(torch.int32)
     epoch = (state.client_state.ta_state, state.client_state.weights,
              tm.literals(data.x_train).contiguous(),
-             torch.stack([ys, (ys + offs) % C], -1).contiguous(), u_act, coin)
-    del offs, u_act, coin
-    k1_ms = cuda_ms(lambda: ops.train_epoch_fused(*epoch, n_states=63,
-                                                   T=40), reps=5)
-    k1_plain = cuda_ms(lambda: ref.train_epoch_ref(*epoch, n_states=63,
-                                                   T=40), reps=1, warmup=0)
-    # coins are read only on the rows that take Type I feedback
+             torch.stack([ys, (ys + offs) % C], -1).contiguous(), role_keys)
+    del offs
+    k1_ms = cuda_ms(lambda: ops.train_epoch_fused(*epoch, **K1_KW), reps=5)
+    # the plain version draws the coin plane; coins are hashed only for
+    # the rows that take Type I feedback
     stats = {}
-    ref.train_epoch_ref(*epoch, n_states=63, T=40, stats=stats)
+    k1_plain = cuda_ms(lambda: train_epoch.train_epoch_plain(
+        *epoch, **K1_KW, stats=stats), reps=1, warmup=0)
+    k1_plan = train_epoch.plan(N, C, m, L)
     k1_bytes = (2 * 4 * N * C * m * L + 2 * 4 * N * C * m + 4 * N * S * L
-                + 4 * N * S * 2 + 4 * N * S * 2 * m
-                + stats["type1_rows"] * L)
-    k1_ops = 2 * (2 * S) * N * m * L          # every step evaluates m·L
-    print(f"epoch_draws (plain torch, one epoch, N={N} S={S}): "
-          f"{draws_ms:.1f} ms", flush=True)
-    print(f"train_epoch_fused bound: {stats['type1_rows']} Type I rows of "
-          f"{N * S * 2 * m} ({k1_bytes / 1e9:.3f} GB moved at least, "
-          f"{k1_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
-          f"{k1_ops / FP32_OPS_PER_S * 1e3:.4f} ms of operations)",
+                + 4 * N * S * 2 + 8 * N * S * 2 * 3 * 2)
+    # the least int32 issue time a coin takes, from the built kernel's
+    # SASS (a TA-pass item holds kItemWords coins a lane); the activation
+    # draws are counted at a coin's cost, and the clause outputs at one
+    # AND-NOT-OR (LOP3) a word
+    item = int(re.search(r"kItemWords = (\d+)", (
+        _build.CSRC / "epoch_plan.h").read_text()).group(1))
+    sass = subprocess.run(
+        [str(Path(_build.nvcc()).with_name("cuobjdump")), "-sass",
+         str(_build.library_path("train_epoch"))], capture_output=True,
+        text=True, check=True, timeout=120).stdout
+    mix = coin_mix(sass, item)
+    k1_hashes = stats["type1_rows"] * L + N * 2 * S * m
+    k1_ops = mix["units"] * k1_hashes + (2 * S) * N * m * W
+    print("train_epoch_fused instructions a coin (cuobjdump -sass): "
+          + ", ".join(f"{k} {v:g}" for k, v in mix.items()), flush=True)
+    print(f"epoch_keys (plain torch, one epoch, N={N} S={S}): "
+          f"{keys_ms:.2f} ms; the plain coin plane of those keys "
+          f"(draws.role_draws, no longer on the main path): {draws_ms:.1f} ms",
           flush=True)
+    print(f"train_epoch_fused plan at (N, C, m, L)=({N}, {C}, {m}, {L}): "
+          f"{k1_plan}: {k1_plan.cluster * N} blocks", flush=True)
+    print(f"train_epoch_fused bound: {k1_bytes / 1e9:.3f} GB, "
+          f"{k1_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+          f"{stats['type1_rows']} Type I rows of {N * S * 2 * m}, "
+          f"{k1_hashes} hashes, {k1_ops:.4e} int32 issue units, "
+          f"{k1_ops / INT32_OPS_PER_S * 1e3:.4f} ms", flush=True)
+    # one epoch of the main path (tm._epoch): one launch and no coin plane
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n1 = ops.LAUNCHES["train_epoch_fused"]
+    tm._epoch(epoch[0], epoch[1], data.x_train, data.y_train, ekeys, cfg)
+    torch.cuda.synchronize()
+    above = torch.cuda.max_memory_allocated() - base
+    plane = N * S * 2 * m * L
+    print(f"main-path epoch: {ops.LAUNCHES['train_epoch_fused'] - n1} "
+          f"launch, peak device memory {above / 1e9:.3f} GB above its "
+          f"inputs (the coin plane alone: {plane / 1e9:.3f} GB)", flush=True)
+    if ops.LAUNCHES["train_epoch_fused"] != n1 + 1 or above >= plane:
+        raise SystemExit("the main path's epoch did not take one launch "
+                         "without a coin plane")
+    # alone as the clients grow (the round's clients repeated): the
+    # cluster shrinks as the clients fill the card, so each block owns
+    # more clauses and hashes more coins a step
+    two = tuple(torch.cat([a, a]) for a in epoch)
+    sweep = {}
+    for n in (1, 5, 10, 20, 33):
+        k = train_epoch.plan(n, C, m, L).cluster
+        sweep[n] = (k, device_ms(lambda n=n: ops.train_epoch_fused(
+            *(a[:n] for a in two), **K1_KW), 3, "train_epoch_kernel"))
+    del two
+    print("train_epoch_fused alone by clients (blocks a client): "
+          + ", ".join(f"{n} ({k}) {v:.4f} ms" for n, (k, v) in
+                      sweep.items()), flush=True)
     print(f"fused_votes_batched bound: {k2_bytes / 1e9:.4f} GB, "
           f"{k2_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {k2_ops:.3e} "
           f"operations, {k2_ops / INT8_OPS_PER_S * 1e3:.4f} ms", flush=True)
@@ -683,7 +811,7 @@ def main() -> int:
         "fused_votes_batched": device_ms(
             lambda: ops.fused_votes_batched(*votes), 10, "votes_mma_kernel"),
         "train_epoch_fused": device_ms(
-            lambda: ops.train_epoch_fused(*epoch, n_states=63, T=40), 2,
+            lambda: ops.train_epoch_fused(*epoch, **K1_KW), 5,
             "train_epoch_kernel"),
         "clause_outputs": device_ms(
             lambda: ops.clause_outputs(*a3, **kw3), 20,
@@ -737,7 +865,7 @@ def main() -> int:
         kernel_entry("train_epoch_fused", "train_epoch.cu",
                      "src/repro/kernels/train_epoch.py:115",
                      launches["train_epoch_fused"], err, k1_ms, k1_plain,
-                     None, k1_bytes, k1_ops, FP32_OPS_PER_S),
+                     None, k1_bytes, k1_ops, INT32_OPS_PER_S),
         kernel_entry("clause_outputs", "clause_eval.cu",
                      "src/repro/kernels/clause_eval.py:77",
                      launches_b["clause_outputs"], err, k3_ms, k3_plain,

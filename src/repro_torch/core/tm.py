@@ -229,13 +229,12 @@ def _epoch(ta: torch.Tensor, w: torch.Tensor, xs: torch.Tensor,
                               cfg)
         return params
     p_inc, p_dec = _feedback_probs(cfg)
-    offs, u_act, coin = draws.epoch_draws(
-        key, n_samples, cfg.n_clauses, cfg.n_literals, cfg.n_classes, p_inc,
-        p_dec)
+    offs, role_keys = draws.epoch_keys(key, n_samples, cfg.n_classes)
     ys32 = ys.to(torch.int32)
     cls2 = torch.stack([ys32, (ys32 + offs) % cfg.n_classes], dim=-1)
-    return ops.train_epoch_fused(ta, w, lits, cls2.contiguous(), u_act, coin,
-                                 n_states=cfg.n_states, T=cfg.T)
+    return ops.train_epoch_fused(ta, w, lits, cls2.contiguous(), role_keys,
+                                 n_states=cfg.n_states, T=cfg.T, p_inc=p_inc,
+                                 p_dec=p_dec)
 
 
 def train_epoch(params: TMParams, xs: torch.Tensor, ys: torch.Tensor,
@@ -265,10 +264,11 @@ def train_batched(params: TMParams, xs: torch.Tensor, ys: torch.Tensor,
     """params (N, ...); xs (N,S,o); ys (N,S); keys (N,2) → trained params.
 
     Per client ``split(key, epochs)`` gives the epoch keys, as
-    ``vmap(train)`` does in the reference.  The weighted TM draws each
-    epoch's randomness with :func:`draws.epoch_draws` and runs one
-    fused-epoch launch for all N clients; the unit-weight TM runs the
-    per-sample scan (see :func:`_train_one_sample`)."""
+    ``vmap(train)`` does in the reference.  The weighted TM derives each
+    epoch's keys with :func:`draws.epoch_keys` and runs one fused-epoch
+    launch for all N clients, which draws the randomness from them; the
+    unit-weight TM runs the per-sample scan (see
+    :func:`_train_one_sample`)."""
     ekeys = rnd.split(keys, epochs)                     # (N, epochs, 2)
     ta, w = params.ta_state, params.weights
     for e in range(epochs):

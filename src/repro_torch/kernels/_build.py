@@ -36,11 +36,13 @@ _SIGNATURES = {
     "fused_votes_batched": ("clause_eval", [_P] * 4 + [_I] * 5 + [_LL] * 3
                             + [_I, _P]),
     "ta_update": ("ta_update", [_P] * 8 + [_I] * 3 + [_F, _F, _I, _P]),
-    "train_epoch_fused": ("train_epoch", [_P] * 6 + [_I] * 7 + [_P]),
+    # outputs, inputs, keys; shape, n_states, T, thresholds; stream
+    "train_epoch_fused": ("train_epoch", [_P] * 7 + [_I] * 9 + [_P]),
 }
 # entry points that launch nothing (not counted)
 _QUERIES = {
     "votes_plan": ("clause_eval", [_I] * 6 + [_P]),
+    "train_epoch_plan": ("train_epoch", [_I] * 4 + [_P]),
 }
 
 LAUNCHES = {fn: 0 for fn in _SIGNATURES}

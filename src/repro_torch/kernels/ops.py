@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/kernels/ops.py``.  A CUDA tensor goes to the
 hand-written kernel, which raises on what it cannot take; a CPU tensor
-goes to the plain version in :mod:`repro_torch.kernels.ref`.  There is
+goes to the plain version (:mod:`repro_torch.kernels.ref`, and for the
+fused epoch ``train_epoch.train_epoch_plain``).  There is
 no fallback between the two.  ``LAUNCHES`` counts each kernel's launches
 (plain-version calls are not counted).
 """
@@ -54,12 +55,13 @@ def ta_update(ta: torch.Tensor, lit: torch.Tensor, fired: torch.Tensor,
 
 
 def train_epoch_fused(ta: torch.Tensor, w: torch.Tensor, lits: torch.Tensor,
-                      cls2: torch.Tensor, u_act: torch.Tensor,
-                      coin: torch.Tensor, *, n_states: int, T: int
+                      cls2: torch.Tensor, role_keys: torch.Tensor, *,
+                      n_states: int, T: int, p_inc: float, p_dec: float
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One fused training epoch over stacked clients; see ref.train_epoch_ref."""
+    """One fused training epoch over stacked clients under the role keys of
+    draws.epoch_keys; see train_epoch.train_epoch_plain."""
+    kw = dict(n_states=n_states, T=T, p_inc=p_inc, p_dec=p_dec)
     if ta.is_cuda:
-        return train_epoch.train_epoch_fused(ta, w, lits, cls2, u_act, coin,
-                                             n_states=n_states, T=T)
-    return ref.train_epoch_ref(ta, w, lits, cls2, u_act, coin,
-                               n_states=n_states, T=T)
+        return train_epoch.train_epoch_fused(ta, w, lits, cls2, role_keys,
+                                             **kw)
+    return train_epoch.train_epoch_plain(ta, w, lits, cls2, role_keys, **kw)

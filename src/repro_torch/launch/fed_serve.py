@@ -148,7 +148,8 @@ def main(argv: list[str] | None = None) -> dict:
           f"p99={p99 * 1e6:.0f}us per batch", flush=True)
 
     result = {"version": plane.active_version, "requests": served,
-              "requests_per_s": rps, "p50_s": p50, "p99_s": p99}
+              "requests_per_s": rps, "p50_s": p50, "p99_s": p99,
+              "latencies_s": latencies}
 
     if args.verify_offline:
         # one covering batch: every client once, each with its own test

@@ -88,6 +88,15 @@ def _epoch_inputs(rng, N, S, C, m, o, n_states):
     return ta.astype(np.int32), w.astype(np.int32), lits
 
 
+def _keys(rng, N, S, C):
+    """Classes (target, another class) and random role keys (N,S,2,3,2):
+    uint32 words in int64, as draws.epoch_keys makes them."""
+    target = rng.integers(0, C, (N, S))
+    neg = (target + rng.integers(1, C, (N, S))) % C
+    cls2 = np.stack([target, neg], -1).astype(np.int32)
+    return cls2, rng.integers(0, 1 << 32, (N, S, 2, 3, 2), dtype=np.int64)
+
+
 def _draws(rng, N, S, C, m, L):
     target = rng.integers(0, C, (N, S))
     neg = (target + rng.integers(1, C, (N, S))) % C
@@ -138,18 +147,55 @@ def test_fused_votes_kernel_matches_plain_on_gpu(cuda, shape, predict):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,S,C,m,o", [(4, 17, 3, 33, 65), (3, 8, 10, 300, 784)])
-def test_train_epoch_kernel_matches_plain_on_gpu(cuda, N, S, C, m, o):
+@pytest.mark.parametrize("N,S,C,m,L", [
+    (3, 17, 3, 33, 130), (1, 40, 10, 300, 1568), (20, 8, 10, 300, 1568),
+    (33, 8, 10, 300, 1568)])
+def test_train_epoch_kernel_matches_plain_on_gpu(cuda, N, S, C, m, L):
+    """The keyed kernel equals its plain version (the role keys' coin plane
+    and train_epoch_ref) bit for bit, in one launch: unaligned, one client
+    (the widest cluster), the round's 20 clients and 33 (past one block an
+    SM)."""
+    from repro_torch.kernels import train_epoch
     rng = np.random.default_rng(4)
-    ta, w, lits = _epoch_inputs(rng, N, S, C, m, o, 63)
-    args = _t(ta, w, lits, *_draws(rng, N, S, C, m, 2 * o), device=cuda)
+    ta, w, lits = _epoch_inputs(rng, N, S, C, m, L // 2, 63)
+    args = _t(ta, w, lits, *_keys(rng, N, S, C), device=cuda)
+    kw = dict(n_states=63, T=15, p_inc=0.8, p_dec=0.2)
     n = ops.LAUNCHES["train_epoch_fused"]
-    got = ops.train_epoch_fused(*args, n_states=63, T=15)
+    got = ops.train_epoch_fused(*args, **kw)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["train_epoch_fused"] == n + 1
-    want = ref.train_epoch_ref(*args, n_states=63, T=15)
+    want = train_epoch.train_epoch_plain(*args, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(want[0], args[0])
     assert torch.equal(args[0].cpu(), torch.as_tensor(ta))   # input intact
+
+
+@pytest.mark.gpu
+def test_train_epoch_allocates_no_coin_plane(cuda):
+    """An epoch of 20 clients x 80 samples at the paper's width through
+    the main path's tm._epoch: one launch, and its peak device memory
+    above what was allocated before stays below the (N,S,2,m,L) int8 coin
+    plane's 1.5 GB."""
+    N, S, C, m, o = 20, 80, 10, 300, 784
+    cfg = ttm.TMConfig(n_classes=C, n_clauses=m, n_features=o, n_states=63,
+                       s=5.0, T=40)
+    rng = np.random.default_rng(8)
+    ta, w, _ = _epoch_inputs(rng, N, 1, C, m, o, 63)
+    ta, w = _t(ta, w, device=cuda)
+    xs = torch.as_tensor(rng.random((N, S, o)) < 0.4, device=cuda)
+    ys = torch.as_tensor(rng.integers(0, C, (N, S)), device=cuda)
+    keys = tr.split(tr.PRNGKey(3, cuda), N)
+    ttm._epoch(ta, w, xs, ys, keys, cfg)           # build and warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n = ops.LAUNCHES["train_epoch_fused"]
+    out = ttm._epoch(ta, w, xs, ys, keys, cfg)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["train_epoch_fused"] == n + 1
+    plane = N * S * 2 * m * 2 * o
+    assert torch.cuda.max_memory_allocated() - base < plane
+    assert not torch.equal(out[0], ta)
 
 
 @pytest.mark.gpu

@@ -21,7 +21,7 @@ from repro_torch import random as tr
 from repro_torch.kernels import draws, ops, ref
 from repro_torch.kernels import clause_eval as tce
 from test_torch_gpu import (TA_P, VOTE_CASES, VOTE_SHAPES,  # noqa: F401
-                            _draws, _epoch_inputs, _t, _ta_inputs,
+                            _draws, _epoch_inputs, _keys, _t, _ta_inputs,
                             _vote_inputs, one_torch_thread)
 
 
@@ -360,7 +360,9 @@ def test_ta_update_ref_matches_pallas(m, L):
 
 @pytest.mark.parametrize("epochs", [1, 2])
 def test_train_epoch_ref_matches_jax(epochs):
-    """N = 4, S = 17, C = 3, m = 33, o = 65, fed the same numpy draws."""
+    """N = 4, S = 17, C = 3, m = 33, o = 65, fed the same numpy draws: the
+    coin-plane oracle behind the keyed plain version
+    (train_epoch.train_epoch_plain)."""
     N, S, C, m, o, n_states, T = 4, 17, 3, 33, 65, 63, 15
     rng = np.random.default_rng(epochs)
     ta, w, lits = _epoch_inputs(rng, N, S, C, m, o, n_states)
@@ -371,8 +373,8 @@ def test_train_epoch_ref_matches_jax(epochs):
         jta, jw = jops.train_epoch_fused(
             jta, jw, jnp.asarray(lits), jnp.asarray(cls2),
             jnp.asarray(u_act), jnp.asarray(coin), n_states=n_states, T=T)
-        tta, tw = ops.train_epoch_fused(tta, tw, *_t(lits, cls2, u_act, coin),
-                                        n_states=n_states, T=T)
+        tta, tw = ref.train_epoch_ref(tta, tw, *_t(lits, cls2, u_act, coin),
+                                      n_states=n_states, T=T)
     np.testing.assert_array_equal(tta.numpy(), np.asarray(jta))
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
     assert (tta.numpy() != ta).any() and (tw.numpy() != w).any()
@@ -393,10 +395,11 @@ def test_wrappers_refuse_cpu_tensors():
                                             8)),
                             p_inc=0.9, p_dec=0.1, n_states=63)
     ta, w, lt = _epoch_inputs(np.random.default_rng(0), 1, 2, 2, 4, 4, 63)
+    cls2, role_keys = _keys(np.random.default_rng(1), 1, 2, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        train_epoch.train_epoch_fused(
-            *_t(ta, w, lt, *_draws(np.random.default_rng(1), 1, 2, 2, 4, 8)),
-            n_states=63, T=15)
+        train_epoch.train_epoch_fused(*_t(ta, w, lt, cls2, role_keys),
+                                      n_states=63, T=15, p_inc=0.8,
+                                      p_dec=0.2)
 
 
 @pytest.mark.parametrize("T", [15, 40, 1000])

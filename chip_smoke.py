@@ -13,10 +13,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    lanes of B = 1, one fused epoch at S = 80 (drawing its randomness
    from the epoch's keys, against the plain coin plane), clause
    outputs at B = 1 for all 20 clients, single-model fused votes at
-   B = 1, 40 and 130, the TA
-   transition of 20 x 2 banks) and at tile-unaligned shapes (L = 130,
-   m = 33; the vote kernels also at B = 130, two passes over the
-   samples, with weights up to 2**15);
+   B = 1, 40 and 130, one sample step's TA transitions of 20 clients,
+   both roles in place, drawn from role keys, with votes at and past
+   ±T) and at tile-unaligned shapes (L = 130, m = 33; the vote kernels
+   also at B = 130, two passes over the samples, with weights up to
+   2**15);
 4. the training path: the port's ``fed_train`` at full width (mnist
    28x28, 300 clauses, 20 clients, 2 rounds of 2 local epochs, a
    checkpoint after each round) with the launch counters set to 0 just
@@ -29,7 +30,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    fused-votes launches, 20 single-model ones, 0 mismatches);
 7. path (B), the unit-weight TM: one round of one local epoch of a
    20-client ``weighted=False`` federation through the per-sample scan
-   (clause outputs once and the TA transition twice per sample step),
+   (clause outputs once and the keyed TA transition once per sample
+   step),
    then single-model ``tm.train`` / ``accuracy`` / ``confidence_scores``
    on one client;
 8. small federations (Alg. 1, the §7 variant, the unit-weight TM) and a
@@ -43,9 +45,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    single-model at B = 40); the fused epoch's launch plan, its time
    over 1 to 33 clients, the main path's epoch without a coin plane
    (its peak device memory), and its bound from the instructions the
-   built kernel issues per coin (``cuobjdump -sass``);
-10. profile one more full-width round (device busy share, top ops), then
-   print the kernel times as one JSON line.
+   built kernel issues per coin (``cuobjdump -sass``); the same for the
+   TA transition at path (B)'s last step (its launch plan, its Type I
+   and Type II rows, bytes against hashing, and its time with no row
+   listed);
+10. profile one more full-width round of the training path and one of
+   path (B) (device busy share, top ops; path (B)'s round also without
+   the profiler), then print the kernel times as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero
@@ -177,16 +183,23 @@ def ptxas_lines(log: str):
             yield func, line.strip()
 
 
-def coin_mix(sass: str, coins: int) -> dict:
-    """The instructions the fused epoch issues per Type I coin, by pipe,
-    from the kernel's SASS (``cuobjdump -sass``): the straight-line block
-    that holds the most funnel-shift rotations, which must be the
-    ``coins`` coins of one TA-pass item (20 rotations a threefry).
-    ``units`` is the least time of one coin in int32 instructions of 64
-    lanes an SM: the ALU pipe's count, the FMA pipe's, or half of all
-    issued, whichever is largest (an op whose pipe is not stated may take
-    either)."""
+def coin_mix(sass: str, coins: int, func: str = "") -> dict:
+    """The instructions a kernel issues per Type I coin, by pipe, from its
+    SASS (``cuobjdump -sass``; only the function whose name holds
+    ``func``): the straight-line block that holds the most funnel-shift
+    rotations, which must be the ``coins`` coins of one item a lane (20
+    rotations a threefry).  ``units`` is the least time of one coin in
+    int32 instructions of 64 lanes an SM: the ALU pipe's count, the FMA
+    pipe's, or half of all issued, whichever is largest (an op whose pipe
+    is not stated may take either)."""
     import collections
+    if func:
+        parts = [p for p in sass.split("Function : ")[1:]
+                 if func in p.split("\n", 1)[0]]
+        if len(parts) != 1:
+            raise SystemExit(f"coin_mix: {len(parts)} functions named like "
+                             f"{func} in the SASS")
+        sass = parts[0]
     insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?"
                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
     code = [(int(a, 16), op, args) for a, op, args in insn.findall(sass)]
@@ -246,24 +259,32 @@ def epoch_inputs(gen, N, S, C, m, L, n_states, device):
     return ta, w, lits, cls2, role_keys
 
 
-def ta_inputs(gen, NB, m, L, n_states, device):
-    """Banks near the include boundary, 0/1 flags, and uniforms with a
-    third of the rows exactly at float32(p_inc) / float32(p_dec)."""
+def step_inputs(gen, N, C, m, L, n_states, T, device):
+    """One sample step of N clients: banks near the include boundary and
+    at the clamp edges, literals, clause outputs, two different classes a
+    client with votes at -T - 5, -T, 0, T and T + 5 in turn (the rest of
+    the classes anywhere in between), and role keys (N, 2, 3, 2)."""
     import torch
-    ta = torch.randint(n_states - 2, n_states + 3, (NB, m, L), generator=gen,
-                       device=device, dtype=torch.int32)
-    ta[:, 0, :2] = torch.tensor([1, 2 * n_states], dtype=torch.int32)
+    from repro_torch import random as rnd
 
-    def bits(*shape):
-        return torch.randint(0, 2, shape, generator=gen, device=device,
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device,
                              dtype=torch.int32)
 
-    u = [torch.rand((NB, m, L), generator=gen, device=device)
-         for _ in range(2)]
-    for a, p in zip(u, TA_P):
-        a[:, ::3] = float(np.float32(p))
-    return [ta, bits(NB, 1, L), bits(NB, m, 1), bits(NB, m, 1),
-            bits(NB, m, 1), *u]
+    ta = ints(n_states - 2, n_states + 3, N, C, m, L)
+    ta[:, :, 0, :2] = torch.tensor([1, 2 * n_states], dtype=torch.int32)
+    target = ints(0, C, N)
+    cls2 = torch.stack([target, (target + ints(1, C, N)) % C], -1)
+    votes = ints(-T - 5, T + 6, N, C)
+    edges = torch.tensor([-T - 5, -T, 0, T, T + 5], dtype=torch.int32,
+                         device=device)
+    n = torch.arange(N, device=device)
+    votes[n, cls2[:, 0].long()] = edges[n % 5]
+    votes[n, cls2[:, 1].long()] = edges[(n + 2) % 5]
+    role_keys = rnd.split(rnd.split(rnd.PRNGKey(int(ints(0, 1 << 30, 1)),
+                                                device), N * 2), 3)
+    return (ta, ints(0, 2, N, L), ints(0, 2, N, C, m), votes,
+            cls2.contiguous(), role_keys.reshape(N, 2, 3, 2))
 
 
 def vote_work(include, lits, wpol) -> tuple[int, int]:
@@ -313,7 +334,7 @@ class Capture:
         return False
 
 
-def profile_round(engine, state, key) -> None:
+def profile_round(engine, state, key, label: str) -> None:
     """Run one round under torch.profiler and print the device's busy
     share of the round's wall time and the ops with the most device
     time.  The profiler's own overhead lengthens the wall time, so the
@@ -334,7 +355,7 @@ def profile_round(engine, state, key) -> None:
     kernels = [e for e in events if e.device_type != DeviceType.CPU]
     ops = [e for e in events if e.device_type == DeviceType.CPU]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"profiled round: wall {wall_us / 1e3:.1f} ms, device busy "
+    print(f"profiled {label}: wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f} %) in "
           f"{sum(e.count for e in kernels)} kernel launches", flush=True)
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
@@ -355,7 +376,7 @@ def main() -> int:
                                         TPFLStrategy)
     from repro_torch.fl.serve import ModelRegistry, ServingPlane
     from repro_torch.kernels import (_build, clause_eval, draws, ops, ref,
-                                     train_epoch)
+                                     ta_update, train_epoch)
     from repro_torch.launch import fed_serve, fed_train
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -429,15 +450,21 @@ def main() -> int:
                                                  predict),
                   ref.fused_votes_ref(include, lits, wpol, predict),
                   f"C={C} m={m} L={L} B={B} predict={predict}", err)
-    for NB, m, L in ((40, 300, 1568), (3, 33, 130)):
-        args = ta_inputs(gen, NB, m, L, 63, dev)
-        kw = dict(p_inc=TA_P[0], p_dec=TA_P[1], n_states=63)
-        want = ref.ta_update_ref(*args, **kw)
-        exact("ta_update", ops.ta_update(*args, **kw), want,
-              f"NB={NB} m={m} L={L} (moved "
-              f"{int((want != args[0]).sum())} states)", err)
+    kw_step = dict(T=40, p_inc=TA_P[0], p_dec=TA_P[1], n_states=63)
+    for N, C, m, L in ((20, 10, 300, 1568), (3, 3, 33, 130)):
+        ta, *args = step_inputs(gen, N, C, m, L, 63, 40, dev)
+        got, want, stats = ta.clone(), ta.clone(), {}
+        ops.ta_update_(got, *args, **kw_step)
+        ta_update.ta_update_plain(want, *args, **kw_step, stats=stats)
+        exact("ta_update", got, want,
+              f"N={N} C={C} m={m} L={L} plan "
+              f"{ta_update.plan(N, C, m, L)} (moved "
+              f"{int((want != ta).sum())} states; rows {stats})", err)
+        if stats["type1_rows"] == 0 or stats["type2_rows"] == 0:
+            raise SystemExit("ta_update: a check without Type I or Type II "
+                             "rows")
     torch.cuda.synchronize()
-    del include, lits, wpol, inc, args, want
+    del include, lits, wpol, inc, args, want, ta, got
 
     # 4. the training path at full width, through the CLI entry point
     shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -549,15 +576,15 @@ def main() -> int:
     data, cfg, _, _ = fed_train.build_scenario(
         dataset="mnist", clients=20, clauses=300, device=dev)
     unit = dataclasses.replace(cfg, weighted=False)
-    eng = Engine(TPFLStrategy(unit, local_epochs=1), data,
-                 RuntimeConfig(rounds=1))
+    eng_b = Engine(TPFLStrategy(unit, local_epochs=1), data,
+                   RuntimeConfig(rounds=1))
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with Capture(ops, "clause_outputs") as cap3, \
-            Capture(ops, "ta_update") as cap5:
-        st_b, (rep_b,) = eng.run(rnd.PRNGKey(3, dev))
+            Capture(ops, "ta_update_") as cap5:
+        st_b, (rep_b,) = eng_b.run(rnd.PRNGKey(3, dev))
         torch.cuda.synchronize()
     unit_s = time.perf_counter() - t0
     launches_b = dict(ops.LAUNCHES)
@@ -567,9 +594,9 @@ def main() -> int:
           f"{data.x_train.shape[0]} clients x {S} sample steps, launches "
           f"{launches_b}, mean accuracy "
           f"{float(rep_b.mean_accuracy):.4f}", flush=True)
-    if launches_b["clause_outputs"] != S or launches_b["ta_update"] != 2 * S:
+    if launches_b["clause_outputs"] != S or launches_b["ta_update"] != S:
         raise SystemExit("the unit-weight round did not launch "
-                         "clause_outputs once and ta_update twice per step")
+                         "clause_outputs once and ta_update once per step")
     if not bool(((acc >= 0) & (acc <= 1)).all()) \
             or not bool((st_b.client_state.weights == 1).all()) \
             or int(st_b.client_state.ta_state.min()) < 1:
@@ -785,28 +812,56 @@ def main() -> int:
     k4b_lib = cuda_ms(lambda: torch.matmul(nlit_f, inc_f), reps=50)
     del nlit_f, inc_f
     k4b_bytes, k4b_ops = vote_work(*a4b)
-    # kernel 5 on path (B)'s last negative-class update: 20 banks
+    # kernel 5 on path (B)'s last sample step: both roles of 20 clients,
+    # in place on a copy of the banks (each call does the same rows)
     a5, kw5 = cap5.args
-    ta5, type1 = a5[0], a5[3]
-    k5_ms = cuda_ms(lambda: ops.ta_update(*a5, **kw5), reps=20)
-    k5_plain = cuda_ms(lambda: ref.ta_update_ref(*a5, **kw5), reps=5)
-    n5, m5, l5 = ta5.shape
-    t1_rows = int((type1 != 0).sum())
-    # each state read and written once, the flags once, and one uniform
-    # per literal of the rows that take Type I feedback
-    k5_bytes = (2 * 4 * ta5.numel() + 4 * t1_rows * l5
-                + sum(a.numel() * a.element_size() for a in a5[1:5]))
-    k5_ops = 6 * ta5.numel()   # compares, and/or, add, two-sided clamp
+    ta5 = a5[0].clone()
+    n5, c5, m5, l5 = ta5.shape
+    k5_ms = cuda_ms(lambda: ops.ta_update_(ta5, *a5[1:], **kw5), reps=20)
+    stats5 = {}
+    k5_plain = cuda_ms(lambda: ta_update.ta_update_plain(
+        ta5, *a5[1:], **kw5, stats=stats5), reps=5)
+    k5_plan = ta_update.plan(n5, c5, m5, l5)
+    # each listed row read and written once, the literals, the two banks'
+    # clause outputs and votes, the classes and the role keys read once;
+    # one hash an activation and a coin a literal of every Type I row, at
+    # the built kernel's instructions a coin
+    rows5 = stats5["type1_rows"] + stats5["type2_rows"]
+    k5_bytes = (2 * 4 * rows5 * l5 + 4 * n5 * l5 + 4 * n5 * 2 * (m5 + 1)
+                + 4 * n5 * 2 + 8 * n5 * 2 * 3 * 2)
+    sass5 = subprocess.run(
+        [str(Path(_build.nvcc()).with_name("cuobjdump")), "-sass",
+         str(_build.library_path("ta_update"))], capture_output=True,
+        text=True, check=True, timeout=120).stdout
+    mix5 = coin_mix(sass5, 8, "ta_update_kernelILb1E")
+    k5_hashes = stats5["type1_rows"] * l5 + n5 * 2 * m5
+    k5_ops = mix5["units"] * k5_hashes
+    print("ta_update instructions a coin (cuobjdump -sass): "
+          + ", ".join(f"{k} {v:g}" for k, v in mix5.items()), flush=True)
+    # the fixed part: the same step with votes at +T on the target and -T
+    # on the negative class, where no clause is active and no row listed
+    idle5 = list(a5[1:])
+    idle5[2] = a5[3].clone()
+    n_idx = torch.arange(n5, device=dev)
+    idle5[2][n_idx, a5[4][:, 0].long()] = kw5["T"]
+    idle5[2][n_idx, a5[4][:, 1].long()] = -kw5["T"]
+    k5_idle = device_ms(lambda: ops.ta_update_(ta5, *idle5, **kw5), 20,
+                        "ta_update_kernel")
+    print(f"ta_update plan at (N, C, m, L)=({n5}, {c5}, {m5}, {l5}): "
+          f"{k5_plan}; alone with no row listed (votes at ±T): "
+          f"{k5_idle:.4f} ms", flush=True)
+    print(f"ta_update bound: {stats5['type1_rows']} Type I and "
+          f"{stats5['type2_rows']} fired Type II rows of {n5 * 2 * m5}; "
+          f"bytes {k5_bytes / 1e6:.3f} MB, "
+          f"{k5_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms; hashing {k5_hashes} "
+          f"hashes, {k5_ops:.4e} int32 issue units, "
+          f"{k5_ops / INT32_OPS_PER_S * 1e3:.5f} ms", flush=True)
     print(f"clause_outputs bound: {k3_bytes / 1e9:.4f} GB, "
           f"{k3_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {k3_ops:.3e} "
           f"operations, {k3_ops / INT8_OPS_PER_S * 1e3:.4f} ms", flush=True)
     print(f"fused_votes bound: {k4_bytes / 1e6:.3f} MB, "
           f"{k4_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms; {k4_ops:.3e} "
           f"operations, {k4_ops / INT8_OPS_PER_S * 1e3:.5f} ms", flush=True)
-    print(f"ta_update bound: {t1_rows} Type I rows of {n5 * m5}, "
-          f"{k5_bytes / 1e6:.2f} MB, {k5_bytes / HBM_BYTES_PER_S * 1e3:.4f} "
-          f"ms; {k5_ops / FP32_OPS_PER_S * 1e3:.4f} ms of operations",
-          flush=True)
     on_device = {
         "fused_votes_batched": device_ms(
             lambda: ops.fused_votes_batched(*votes), 10, "votes_mma_kernel"),
@@ -818,8 +873,8 @@ def main() -> int:
             "clause_outputs_kernel"),
         "fused_votes": device_ms(lambda: ops.fused_votes(*a4, **kw4), 20,
                                  "votes_mma_kernel"),
-        "ta_update": device_ms(lambda: ops.ta_update(*a5, **kw5), 20,
-                               "ta_update_kernel")}
+        "ta_update": device_ms(lambda: ops.ta_update_(ta5, *a5[1:], **kw5),
+                               20, "ta_update_kernel")}
     print("kernel alone on the device (profiler, ms per call): "
           + ", ".join(f"{k} {v:.4f}" for k, v in on_device.items()),
           flush=True)
@@ -852,10 +907,18 @@ def main() -> int:
           f"p50={served['p50_s'] * 1e6:.0f}us p99={served['p99_s'] * 1e6:.0f}"
           f"us per batch of 32; unit-weight round {unit_s:.3f}s", flush=True)
 
-    # 10. one more full-width round under torch.profiler
+    # 10. one more full-width round of the training path and of path (B)
+    # under torch.profiler; path (B)'s also without it, by host clock
     del epoch
     profile_round(Engine(strategy, data, RuntimeConfig(rounds=1)), state,
-                  rnd.PRNGKey(2, dev))
+                  rnd.PRNGKey(2, dev), "round")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng_b.run_round(st_b, rnd.PRNGKey(6, dev))
+    torch.cuda.synchronize()
+    print(f"path (B) round without the profiler: "
+          f"{(time.perf_counter() - t) * 1e3:.1f} ms", flush=True)
+    profile_round(eng_b, st_b, rnd.PRNGKey(7, dev), "path (B) round")
 
     kernels = [
         kernel_entry("fused_votes_batched", "clause_eval.cu",
@@ -877,7 +940,7 @@ def main() -> int:
         kernel_entry("ta_update", "ta_update.cu",
                      "src/repro/kernels/ta_update.py:48",
                      launches_b["ta_update"], err, k5_ms, k5_plain, None,
-                     k5_bytes, k5_ops, FP32_OPS_PER_S),
+                     k5_bytes, k5_ops, INT32_OPS_PER_S),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

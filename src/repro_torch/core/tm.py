@@ -25,7 +25,8 @@ the weighted TM trains an epoch in one fused-epoch launch for all N
 clients; the unit-weight TM (``weighted=False``) trains through the
 per-sample scan, in which each sample step evaluates every client's
 clauses in one ``clause_outputs`` launch and updates the target and the
-negative class of every client in one ``ta_update`` launch each.
+negative class of every client in place in one ``ta_update_`` launch,
+which draws its randomness from the epoch's role keys.
 """
 from __future__ import annotations
 
@@ -167,72 +168,44 @@ def confidence_scores(params: TMParams, x_conf: torch.Tensor, cfg: TMConfig,
 # round side by side, which is what the reference's vmap(train) computes.
 # ---------------------------------------------------------------------------
 
-def _feedback_one_class(ta: torch.Tensor, lit: torch.Tensor,
-                        clause_out: torch.Tensor, votes: torch.Tensor,
-                        is_target: bool, key: torch.Tensor, cfg: TMConfig
-                        ) -> torch.Tensor:
-    """Feedback to one class's bank of each client for one sample.
-
-    ta (N, m, L), lit (N, 1, L), clause_out (N, m), votes (N,) clipped,
-    key (N, 2) → new ta.  The target class gives Type I feedback to its
-    positive clauses and Type II to its negative ones; the sampled
-    negative class the mirror image.  Each active clause is drawn with
-    probability (T ∓ v) · f32(1/2T) (``ref.reciprocal_f32``).  Weights
-    do not change: this path trains the unit-weight TM."""
-    m, L = ta.shape[-2:]
-    k_act, k_s1, k_s2 = rnd.split(key, 3).unbind(-2)
-    num = (cfg.T - votes if is_target else cfg.T + votes).to(torch.float32)
-    p_act = num * torch.full_like(num, ref.reciprocal_f32(2 * cfg.T))
-    active = rnd.uniform(k_act, (m,)) < p_act[:, None]        # (N, m)
-    pos = clause_polarity(cfg, ta.device) > 0
-    type1 = (pos if is_target else ~pos) & active
-    type2 = (~pos if is_target else pos) & active
-    p_inc, p_dec = _feedback_probs(cfg)
-    return ops.ta_update(ta, lit, clause_out[..., None], type1[..., None],
-                         type2[..., None], rnd.uniform(k_s1, (m, L)),
-                         rnd.uniform(k_s2, (m, L)), p_inc=p_inc,
-                         p_dec=p_dec, n_states=cfg.n_states)
-
-
-def _train_one_sample(params: TMParams, lit: torch.Tensor, y: torch.Tensor,
-                      key: torch.Tensor, cfg: TMConfig) -> None:
+def _train_one_sample(params: TMParams, lit: torch.Tensor,
+                      cls2: torch.Tensor, role_keys: torch.Tensor,
+                      cfg: TMConfig) -> None:
     """One sample step of every client, updating ``params.ta_state``
-    (N, C, m, L) in place: lit (N, 1, L), y (N,), key (N, 2).  The target
-    class is updated first; the negative class, drawn uniformly from the
-    other C − 1, uses the clause outputs and votes from before either
-    update."""
-    ta = params.ta_state
-    cl = clause_outputs(params, lit, cfg)                    # (N, 1, C, m)
+    (N, C, m, L) in place: lit (N, L), cls2 (N, 2) [target, negative],
+    role_keys (N, 2, 3, 2) the step's slice of ``draws.epoch_keys``.  The
+    target class takes Type I feedback on its positive clauses and Type II
+    on its negative ones, the negative class the mirror image; both use
+    the clause outputs and votes from before either update, in one
+    ``ta_update_`` launch.  Weights do not change: this path trains the
+    unit-weight TM."""
+    cl = clause_outputs(params, lit[:, None], cfg)           # (N, 1, C, m)
     votes = class_votes(params, cl, cfg)[:, 0]               # (N, C)
-    cl = cl[:, 0]
-    k_neg, k_t, k_n = rnd.split(key, 3).unbind(-2)
-    ybar = (y + rnd.randint(k_neg, (), 1, cfg.n_classes)) % cfg.n_classes
-    rows = torch.arange(ta.shape[0], device=ta.device)
-    for cls, is_target, k in ((y, True, k_t), (ybar, False, k_n)):
-        ta[rows, cls] = _feedback_one_class(
-            ta[rows, cls], lit, cl[rows, cls], votes[rows, cls], is_target,
-            k, cfg)
+    p_inc, p_dec = _feedback_probs(cfg)
+    ops.ta_update_(params.ta_state, lit, cl[:, 0], votes, cls2, role_keys,
+                   T=cfg.T, p_inc=p_inc, p_dec=p_dec, n_states=cfg.n_states)
 
 
 def _epoch(ta: torch.Tensor, w: torch.Tensor, xs: torch.Tensor,
            ys: torch.Tensor, key: torch.Tensor, cfg: TMConfig
            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One local epoch of N stacked clients under epoch keys (N, 2)."""
+    """One local epoch of N stacked clients under epoch keys (N, 2): one
+    key chain (:func:`draws.epoch_keys`), then one fused-epoch launch, or
+    the per-sample scan for the unit-weight TM."""
     lits = literals(xs).contiguous()                            # (N, S, L)
-    ys = ys.long()
     n_samples = ys.shape[1]
-    if not cfg.weighted:
-        params = TMParams(ta.clone(), w)   # the scan updates this copy
-        keys = rnd.split(key, n_samples)                        # (N, S, 2)
-        for s in range(n_samples):
-            _train_one_sample(params, lits[:, s, None], ys[:, s], keys[:, s],
-                              cfg)
-        return params
-    p_inc, p_dec = _feedback_probs(cfg)
     offs, role_keys = draws.epoch_keys(key, n_samples, cfg.n_classes)
     ys32 = ys.to(torch.int32)
-    cls2 = torch.stack([ys32, (ys32 + offs) % cfg.n_classes], dim=-1)
-    return ops.train_epoch_fused(ta, w, lits, cls2.contiguous(), role_keys,
+    cls2 = torch.stack([ys32, (ys32 + offs) % cfg.n_classes],
+                       dim=-1).contiguous()                     # (N, S, 2)
+    if not cfg.weighted:
+        params = TMParams(ta.clone(), w)   # the scan updates this copy
+        for s in range(n_samples):
+            _train_one_sample(params, lits[:, s], cls2[:, s],
+                              role_keys[:, s], cfg)
+        return params
+    p_inc, p_dec = _feedback_probs(cfg)
+    return ops.train_epoch_fused(ta, w, lits, cls2, role_keys,
                                  n_states=cfg.n_states, T=cfg.T, p_inc=p_inc,
                                  p_dec=p_dec)
 
@@ -267,7 +240,7 @@ def train_batched(params: TMParams, xs: torch.Tensor, ys: torch.Tensor,
     ``vmap(train)`` does in the reference.  The weighted TM derives each
     epoch's keys with :func:`draws.epoch_keys` and runs one fused-epoch
     launch for all N clients, which draws the randomness from them; the
-    unit-weight TM runs the per-sample scan (see
+    unit-weight TM runs the per-sample scan from the same keys (see
     :func:`_train_one_sample`)."""
     ekeys = rnd.split(keys, epochs)                     # (N, epochs, 2)
     ta, w = params.ta_state, params.weights

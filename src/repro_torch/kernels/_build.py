@@ -26,7 +26,7 @@ SOURCES = ("clause_eval", "ta_update", "train_epoch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "clause_outputs": ("clause_eval", [_P] * 3 + [_I] * 5 + [_P]),
@@ -35,7 +35,10 @@ _SIGNATURES = {
                     + [_I, _P]),
     "fused_votes_batched": ("clause_eval", [_P] * 4 + [_I] * 5 + [_LL] * 3
                             + [_I, _P]),
-    "ta_update": ("ta_update", [_P] * 8 + [_I] * 3 + [_F, _F, _I, _P]),
+    # in place: ta, inputs, keys, scratch; shape; row strides, scratch
+    # words; n_states, T, thresholds; stream
+    "ta_update": ("ta_update", [_P] * 7 + [_I] * 4 + [_LL] * 4 + [_I] * 4
+                  + [_P]),
     # outputs, inputs, keys; shape, n_states, T, thresholds; stream
     "train_epoch_fused": ("train_epoch", [_P] * 7 + [_I] * 9 + [_P]),
 }
@@ -43,6 +46,7 @@ _SIGNATURES = {
 _QUERIES = {
     "votes_plan": ("clause_eval", [_I] * 6 + [_P]),
     "train_epoch_plan": ("train_epoch", [_I] * 4 + [_P]),
+    "ta_update_plan": ("ta_update", [_I] * 4 + [_LL, _I, _P]),
 }
 
 LAUNCHES = {fn: 0 for fn in _SIGNATURES}

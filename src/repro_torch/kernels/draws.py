@@ -21,10 +21,11 @@ time, so the hash words of a whole epoch (2 × 4 bytes per coin) are
 never held at once.
 
 The key chain (:func:`epoch_keys`) and the draws from the role keys
-(:func:`role_draws`) are apart: on the GPU the fused epoch kernel takes
-the role keys and hashes only the draws it reads, in the kernel
-(``csrc/threefry.h``); the plain version, and the CPU, draw the whole
-plane with :func:`role_draws`.
+(:func:`role_draws`) are apart: on the GPU the fused epoch kernel, and
+the TA-transition kernel of the unit-weight scan, take the role keys
+and hash only the draws they read, in the kernel
+(``csrc/threefry.h``); the plain versions, and the CPU, draw the whole
+planes (:func:`role_draws`, or ``random.uniform`` per sample step).
 """
 from __future__ import annotations
 

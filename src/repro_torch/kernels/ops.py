@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/kernels/ops.py``.  A CUDA tensor goes to the
 hand-written kernel, which raises on what it cannot take; a CPU tensor
-goes to the plain version (:mod:`repro_torch.kernels.ref`, and for the
-fused epoch ``train_epoch.train_epoch_plain``).  There is
+goes to the plain version (:mod:`repro_torch.kernels.ref`; for the
+fused epoch ``train_epoch.train_epoch_plain``, for the TA transition
+``ta_update.ta_update_plain``).  There is
 no fallback between the two.  ``LAUNCHES`` counts each kernel's launches
 (plain-version calls are not counted).
 """
@@ -41,17 +42,18 @@ def fused_votes_batched(include: torch.Tensor, lits: torch.Tensor,
     return ref.fused_votes_batched_ref(include, lits, wpol, predict)
 
 
-def ta_update(ta: torch.Tensor, lit: torch.Tensor, fired: torch.Tensor,
-              type1: torch.Tensor, type2: torch.Tensor, u_inc: torch.Tensor,
-              u_dec: torch.Tensor, *, p_inc: float, p_dec: float,
-              n_states: int) -> torch.Tensor:
-    """The Type I/II TA transition of (a batch of) banks; see
-    ref.ta_update_ref."""
-    args = (ta, lit, fired, type1, type2, u_inc, u_dec)
-    kw = dict(p_inc=p_inc, p_dec=p_dec, n_states=n_states)
+def ta_update_(ta: torch.Tensor, lits: torch.Tensor, fired: torch.Tensor,
+               votes: torch.Tensor, cls2: torch.Tensor,
+               role_keys: torch.Tensor, *, T: int, p_inc: float,
+               p_dec: float, n_states: int) -> torch.Tensor:
+    """One sample step's Type I/II TA transitions of both roles of every
+    client, in place on ta (N,C,m,L), drawn from the step's role keys; see
+    ta_update.ta_update_plain."""
+    args = (ta, lits, fired, votes, cls2, role_keys)
+    kw = dict(T=T, p_inc=p_inc, p_dec=p_dec, n_states=n_states)
     if ta.is_cuda:
-        return _ta.ta_update(*args, **kw)
-    return ref.ta_update_ref(*args, **kw)
+        return _ta.ta_update_(*args, **kw)
+    return _ta.ta_update_plain(*args, **kw)
 
 
 def train_epoch_fused(ta: torch.Tensor, w: torch.Tensor, lits: torch.Tensor,

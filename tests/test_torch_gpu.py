@@ -128,6 +128,25 @@ def _ta_inputs(rng, NB, m, L, n_states=63, p=TA_P):
             t2.astype(np.int32), *u]
 
 
+def _step_inputs(rng, N, C, m, L, n_states=63, T=15):
+    """One sample step of N clients: banks near the include boundary and
+    at the clamp edges, literals, clause outputs, votes in [-T-5, T+5]
+    (past the clip both ways), two different classes a client, and the
+    keys (N, 2, 2) of the two roles [k_t, k_n] (uint32 words in int64;
+    ``random.split(keys, 3)`` gives the role keys)."""
+    ta = rng.integers(n_states - 2, n_states + 3, (N, C, m, L))
+    ta[:, :, 0, :2] = [1, 2 * n_states]
+    lits = rng.integers(0, 2, (N, L))
+    fired = rng.integers(0, 2, (N, C, m))
+    votes = rng.integers(-T - 5, T + 6, (N, C))
+    target = rng.integers(0, C, N)
+    cls2 = np.stack([target, (target + rng.integers(1, C, N)) % C], -1)
+    keys = rng.integers(0, 1 << 32, (N, 2, 2), dtype=np.int64)
+    return (ta.astype(np.int32), lits.astype(np.int32),
+            fired.astype(np.int32), votes.astype(np.int32),
+            cls2.astype(np.int32), keys)
+
+
 def _t(*arrays, device="cpu"):
     return [torch.as_tensor(a, device=device) for a in arrays]
 
@@ -340,25 +359,53 @@ def test_vote_kernels_take_other_dtypes_and_strides(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("NB,m,L", [(1, 16, 128), (3, 33, 130),
-                                    (40, 300, 1568)])
-def test_ta_update_kernel_matches_plain_on_gpu(cuda, NB, m, L):
-    args = _t(*_ta_inputs(np.random.default_rng(8), NB, m, L), device=cuda)
-    kw = dict(p_inc=TA_P[0], p_dec=TA_P[1], n_states=63)
+@pytest.mark.parametrize("N,m,L", [(1, 16, 128), (3, 33, 130),
+                                   (20, 300, 1568)])
+def test_ta_update_kernel_matches_plain_on_gpu(cuda, N, m, L):
+    """The keyed kernel equals its plain version (the role keys' uniform
+    planes and ta_update_ref, target then negative bank) bit for bit, in
+    place and in one launch; a second step on the same banks composes (an
+    L that is not a multiple of 4 takes the 32-bit row accesses)."""
+    from repro_torch.kernels import ta_update
+    C = 10 if L == 1568 else 4
+    rng = np.random.default_rng(8)
+    kw = dict(T=15, p_inc=TA_P[0], p_dec=TA_P[1], n_states=63)
+    ta, *step, keys = _step_inputs(rng, N, C, m, L)
+    got = torch.as_tensor(ta, device=cuda)
+    want = got.clone()
+    for _ in range(2):
+        args = _t(*step, device=cuda) + [tr.split(torch.as_tensor(
+            keys, device=cuda), 3)]
+        n = ops.LAUNCHES["ta_update"]
+        assert ops.ta_update_(got, *args, **kw) is got
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["ta_update"] == n + 1
+        before = want.clone()
+        ta_update.ta_update_plain(want, *args, **kw)
+        assert torch.equal(got, want) and not torch.equal(want, before)
+        *step, keys = _step_inputs(rng, N, C, m, L)[1:]
+    assert ta_update.plan(N, C, m, L).grid >= 1
+
+
+@pytest.mark.gpu
+def test_ta_update_kernel_refuses_equal_classes(cuda):
+    ta, *step, keys = _step_inputs(np.random.default_rng(9), 3, 4, 16, 128)
+    step[3][2, 1] = step[3][2, 0]
+    args = _t(ta, *step, device=cuda)
     n = ops.LAUNCHES["ta_update"]
-    got = ops.ta_update(*args, **kw)
-    one = ops.ta_update(*(a[0] for a in args), **kw)      # no batch axis
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["ta_update"] == n + 2
-    want = ref.ta_update_ref(*args, **kw)
-    assert torch.equal(got, want) and torch.equal(one, want[0])
-    assert not torch.equal(want, args[0])
+    with pytest.raises(ValueError, match="same class for both roles of "
+                                         "client 2"):
+        ops.ta_update_(*args, tr.split(torch.as_tensor(keys, device=cuda),
+                                       3), T=15, p_inc=0.9, p_dec=0.1,
+                       n_states=63)
+    assert ops.LAUNCHES["ta_update"] == n
+    assert torch.equal(args[0].cpu(), torch.as_tensor(ta))
 
 
 @pytest.mark.gpu
 def test_gpu_unweighted_round_matches_cpu_round(cuda):
     """weighted=False trains through the per-sample scan: on the card it
-    launches clause_outputs once and ta_update twice per sample step."""
+    launches clause_outputs once and ta_update once per sample step."""
     x, y, _ = synthetic.make_pool("synthmnist", 400, seed=0)
     runs = []
     for dev in ("cpu", "cuda"):
@@ -372,7 +419,7 @@ def test_gpu_unweighted_round_matches_cpu_round(cuda):
         runs.append(eng.run(tr.PRNGKey(5, "cpu")))
         launched = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
     assert launched["clause_outputs"] == 2 * 2 * 6
-    assert launched["ta_update"] == 2 * 2 * 2 * 6
+    assert launched["ta_update"] == 2 * 2 * 6
     (s0, r0), (s1, r1) = runs
     for a, b in zip(convert.to_numpy([*s0.client_state, s0.server.slots]),
                     convert.to_numpy([*s1.client_state, s1.server.slots])):
@@ -380,6 +427,37 @@ def test_gpu_unweighted_round_matches_cpu_round(cuda):
     for a, b in zip(r0, r1):
         assert torch.equal(a.per_client_accuracy,
                            b.per_client_accuracy.cpu())
+
+
+@pytest.mark.gpu
+def test_gpu_unweighted_round_draws_no_plane(cuda, monkeypatch):
+    """On the card the unit-weight round draws no (m, L) uniform plane:
+    with repro_torch.random's uniform and mantissa_bits refusing any draw
+    of more than m values a key, a round still runs, through one
+    ta_update launch a sample step."""
+    x, y, _ = synthetic.make_pool("synthmnist", 400, seed=0)
+    data = partition.partition(x, y, 10, n_clients=4, experiment=5, seed=1,
+                               n_train=6, n_test=8, n_conf=8, device=cuda)
+    cfg = ttm.TMConfig(**TM, weighted=False)
+    eng = Engine(TPFLStrategy(cfg, local_epochs=1), data,
+                 RuntimeConfig(rounds=1))
+    state = eng.init(tr.PRNGKey(5, cuda))
+
+    def small_only(fn):
+        def draw(key, shape=()):
+            if int(np.prod(shape)) > cfg.n_clauses:
+                raise AssertionError(f"a plane of {tuple(shape)} was drawn")
+            return fn(key, shape)
+        return draw
+
+    for name in ("uniform", "mantissa_bits"):
+        monkeypatch.setattr(tr, name, small_only(getattr(tr, name)))
+    n = ops.LAUNCHES["ta_update"]
+    _, rep = eng.run_round(state, tr.PRNGKey(6, cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ta_update"] == n + 6
+    assert bool(((rep.per_client_accuracy >= 0)
+                 & (rep.per_client_accuracy <= 1)).all())
 
 
 @pytest.mark.gpu

@@ -21,8 +21,8 @@ from repro_torch import random as tr
 from repro_torch.kernels import draws, ops, ref
 from repro_torch.kernels import clause_eval as tce
 from test_torch_gpu import (TA_P, VOTE_CASES, VOTE_SHAPES,  # noqa: F401
-                            _draws, _epoch_inputs, _keys, _t, _ta_inputs,
-                            _vote_inputs, one_torch_thread)
+                            _draws, _epoch_inputs, _keys, _step_inputs, _t,
+                            _ta_inputs, _vote_inputs, one_torch_thread)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -336,18 +336,15 @@ def test_vote_wrappers_refuse_shapes_that_disagree():
 
 @pytest.mark.parametrize("m,L", [(16, 128), (33, 130)])
 def test_ta_update_ref_matches_pallas(m, L):
-    """Kernel 5, one bank at a time and with the leading batch axis.  A
-    third of the uniforms equal float32(p), which lies below p: a float64
-    compare would move those states, the reference's float32 one does
-    not."""
+    """Kernel 5's oracle (behind ta_update.ta_update_plain), one bank at
+    a time and with the leading batch axis.  A third of the uniforms equal
+    float32(p), which lies below p: a float64 compare would move those
+    states, the reference's float32 one does not."""
     NB, n_states = 3, 63
     args = _ta_inputs(np.random.default_rng(m), NB, m, L, n_states)
     kw = dict(p_inc=TA_P[0], p_dec=TA_P[1], n_states=n_states)
     got = ref.ta_update_ref(*_t(*args), **kw)
     assert got.dtype == torch.int32
-    before = dict(ops.LAUNCHES)
-    assert torch.equal(ops.ta_update(*_t(*args), **kw), got)
-    assert ops.LAUNCHES == before
     for n in range(NB):
         want = jta.ta_update_pallas(*(jnp.asarray(a[n]) for a in args),
                                     interpret=True, **kw)
@@ -390,10 +387,10 @@ def test_wrappers_refuse_cpu_tensors():
         clause_eval.fused_votes(*_t(include[0], lits[0], wpol[0]))
     with pytest.raises(ValueError, match="CUDA"):
         clause_eval.clause_outputs(*_t(include[0].reshape(8, 8), lits[0]))
+    *step, keys = _step_inputs(np.random.default_rng(0), 2, 3, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        ta_update.ta_update(*_t(*_ta_inputs(np.random.default_rng(0), 1, 4,
-                                            8)),
-                            p_inc=0.9, p_dec=0.1, n_states=63)
+        ta_update.ta_update_(*_t(*step), tr.split(torch.as_tensor(keys), 3),
+                             T=15, p_inc=0.9, p_dec=0.1, n_states=63)
     ta, w, lt = _epoch_inputs(np.random.default_rng(0), 1, 2, 2, 4, 4, 63)
     cls2, role_keys = _keys(np.random.default_rng(1), 1, 2, 2)
     with pytest.raises(ValueError, match="CUDA"):

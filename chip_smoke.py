@@ -33,10 +33,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (clause outputs once and the keyed TA transition once per sample
    step),
    then single-model ``tm.train`` / ``accuracy`` / ``confidence_scores``
-   on one client;
-8. small federations (Alg. 1, the §7 variant, the unit-weight TM) and a
-   small checkpoint + serve on the card against the same on the CPU,
-   bit for bit;
+   on one client; then path (C), FedTM under partial participation:
+   ``fed_train --strategy fedtm --active 10 --sampling weighted
+   --dropout 0.1 --straggler 0.2 --max-staleness 2`` at the training
+   path's width, 2 rounds of 2 local epochs (counters zeroed just
+   before: the fused epoch once per local epoch over the 10-client
+   cohort, the fused votes once per round over all 20 clients), its
+   round lines and round times, and each round's active and aggregated
+   counts against the scheduler's draw recomputed on the card;
+8. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
+   at participation 0.5 with dropout and stragglers, with round-robin
+   and with weighted sampling; FedTM) and a small checkpoint + serve on
+   the card against the same on the CPU, bit for bit;
 9. time each kernel at its path's shapes with CUDA events, beside its
    plain version, a one-call PyTorch yardstick where one exists, and the
    bound from bytes and operations; print each kernel's device time
@@ -45,13 +53,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    single-model at B = 40); the fused epoch's launch plan, its time
    over 1 to 33 clients, the main path's epoch without a coin plane
    (its peak device memory), and its bound from the instructions the
-   built kernel issues per coin (``cuobjdump -sass``); the same for the
+   built kernel issues per coin (``cuobjdump -sass``), and the same
+   numbers at path (C)'s 10-client cohort, where the kernel's TA states
+   and weights are also held against the plain version's exactly (its
+   plan there is one phase 3 does not take); the same for the
    TA transition at path (B)'s last step (its launch plan, its Type I
    and Type II rows, bytes against hashing, and its time with no row
    listed);
-10. profile one more full-width round of the training path and one of
-   path (B) (device busy share, top ops; path (B)'s round also without
-   the profiler), then print the kernel times as one JSON line.
+10. profile one more full-width round of the training path, one of
+   path (B) and one of path (C) (device busy share, top ops; path (B)'s
+   round also without the profiler), then print the kernel times as one
+   JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero
@@ -98,6 +110,12 @@ MAIN_ARGS = SCENARIO + ["--rounds", "2", "--ckpt-dir", str(RUN_DIR / "ckpt"),
                         "--ckpt-every", "1"]
 SERVE_ARGS = SCENARIO + ["--ckpt-dir", str(RUN_DIR / "ckpt"), "--batch",
                          "32", "--requests", "8", "--verify-offline"]
+PATH_C = dict(participation=10 / 20, sampling="weighted", dropout=0.1,
+              straggler=0.2, max_staleness=2)
+PATH_C_ARGS = SCENARIO + ["--rounds", "2", "--strategy", "fedtm",
+                          "--active", "10", "--sampling", "weighted",
+                          "--dropout", "0.1", "--straggler", "0.2",
+                          "--max-staleness", "2"]
 TA_P = (0.9, 0.7)   # float32(p) < p: a float64 compare would differ
 
 
@@ -372,8 +390,9 @@ def main() -> int:
     from repro_torch import random as rnd
     from repro_torch.core import tm
     from repro_torch.data import partition, synthetic
-    from repro_torch.fl.runtime import (Engine, RuntimeConfig,
-                                        TPFLStrategy)
+    from repro_torch.fl.runtime import (Engine, FedTMStrategy,
+                                        RuntimeConfig, Scheduler,
+                                        SchedulerConfig, TPFLStrategy)
     from repro_torch.fl.serve import ModelRegistry, ServingPlane
     from repro_torch.kernels import (_build, clause_eval, draws, ops, ref,
                                      ta_update, train_epoch)
@@ -618,6 +637,72 @@ def main() -> int:
         raise SystemExit("the single-model API did not run through its "
                          "kernels")
 
+    # path (C): FedTM on a weighted 10-of-20 cohort with dropout and
+    # stragglers, through the CLI entry point
+    round_c = []
+
+    def timed_round_c(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_round(self, *a, **kw)
+        torch.cuda.synchronize()
+        round_c.append(time.perf_counter() - t)
+        return out
+
+    Engine.run_round = timed_round_c
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    try:
+        with Capture(ops, "train_epoch_fused") as cap1c:
+            result_c = fed_train.main(PATH_C_ARGS)
+            torch.cuda.synchronize()
+    finally:
+        Engine.run_round = run_round
+    wall_c = time.perf_counter() - t0
+    launches_c = dict(ops.LAUNCHES)
+    print(f"path (C) FedTM, 10 of 20 clients: {wall_c:.2f}s wall for 2 "
+          f"rounds (rounds {[round(t, 4) for t in round_c]} s), launches "
+          f"{launches_c}", flush=True)
+    if launches_c["train_epoch_fused"] != 2 * 2 \
+            or launches_c["fused_votes_batched"] != 2:
+        raise SystemExit("path (C) did not launch the fused epoch once per "
+                         "local epoch and the fused votes once per round")
+    if cap1c.args[0][0].shape[0] != 10:
+        raise SystemExit("path (C)'s fused epoch did not run on the "
+                         "10-client cohort")
+    # the scheduler's draw, recomputed on the card from the same keys
+    # (the engine's ``sample`` draws on the host)
+    data_c, _, _, fedtm = fed_train.build_scenario(
+        dataset="mnist", clients=20, clauses=300, strategy="fedtm",
+        device=dev)
+    sched_c = Scheduler(SchedulerConfig(**PATH_C), 20, data_c.sizes)
+    k_rounds = rnd.split(rnd.PRNGKey(0, dev))[1]
+    for rep in result_c["reports"]:
+        part = sched_c.draw(rep.round_idx,
+                            rnd.fold_in(k_rounds, rep.round_idx))
+        arrive = part.active & (part.staleness == 0)
+        got = rep.participation
+        print(f"path (C) round {rep.round_idx}: sampled "
+              f"{got.idx.tolist()}, active {int(got.active.sum())}/10, "
+              f"late {int((got.active & (got.staleness > 0)).sum())}, agg "
+              f"{rep.aggregated_uploads}", flush=True)
+        if not all(torch.equal(getattr(got, f), getattr(part, f))
+                   for f in ("idx", "active", "staleness")) \
+                or rep.aggregated_uploads != int(arrive.sum()):
+            raise SystemExit(f"path (C) round {rep.round_idx}: active / "
+                             f"aggregated counts differ from the scheduler's "
+                             f"draw")
+        acc = rep.per_client_accuracy
+        if acc.shape != (20,) or not bool(((acc >= 0) & (acc <= 1)).all()):
+            raise SystemExit(f"path (C) round {rep.round_idx}: bad "
+                             f"accuracies {acc}")
+    st_c = result_c["state"]
+    if int(st_c.client_state.ta_state.min()) < 1 \
+            or int(st_c.client_state.ta_state.max()) > 126 \
+            or st_c.server.slots.shape != (1, 3000):
+        raise SystemExit("path (C): final state out of range")
+
     # 8. small runs on the card against the same on the CPU: the
     # unit-weight federation, and a checkpoint and its serving
     small = []
@@ -636,6 +721,32 @@ def main() -> int:
                          "disagree")
     print("check small unit-weight federation: GPU == CPU bit for bit",
           flush=True)
+    for name, sched in (
+            ("tpfl", dict(participation=0.5, dropout=0.3, straggler=0.3)),
+            ("tpfl", dict(participation=0.5, sampling="round_robin")),
+            ("tpfl", dict(participation=0.5, sampling="weighted")),
+            ("fedtm", dict(participation=0.5, sampling="weighted",
+                           dropout=0.3, straggler=0.3))):
+        small = []
+        for d in ("cpu", "cuda"):
+            part = partition.partition(x, y, 10, n_clients=6, experiment=5,
+                                       seed=1, n_train=16, n_test=8,
+                                       n_conf=8, device=d)
+            cls = FedTMStrategy if name == "fedtm" else TPFLStrategy
+            rt = RuntimeConfig(rounds=2, scheduler=SchedulerConfig(**sched))
+            st, reps = Engine(cls(small_cfg, local_epochs=2), part,
+                              rt).run(rnd.PRNGKey(3, d))
+            small.append(convert.to_numpy(
+                [*st.client_state, st.server.slots,
+                 *(r.per_client_accuracy for r in reps),
+                 *(r.assignment for r in reps),
+                 *(t for r in reps for t in r.participation)])
+                + [[(r.upload_bytes, r.aggregated_uploads) for r in reps]])
+        if not all(np.array_equal(a, b) for a, b in zip(*small)):
+            raise SystemExit(f"small federation {name} {sched}: GPU and CPU "
+                             f"runs disagree")
+        print(f"check small federation {name} {sched}: GPU == CPU bit for "
+              f"bit", flush=True)
     small = []
     flags = ["--clients", "4", "--clauses", "16", "--local-epochs", "1"]
     for d in ("cpu", "cuda"):
@@ -762,6 +873,40 @@ def main() -> int:
     print("train_epoch_fused alone by clients (blocks a client): "
           + ", ".join(f"{n} ({k}) {v:.4f} ms" for n, (k, v) in
                       sweep.items()), flush=True)
+    # kernel 1 on path (C)'s last epoch: the 10-client cohort, its bound
+    # counted as the main path's from this epoch's Type I rows
+    a1c, kw1c = cap1c.args
+    n1c = a1c[0].shape[0]
+    k1c_plan = train_epoch.plan(*a1c[0].shape)
+    k1c_alone = device_ms(lambda: ops.train_epoch_fused(*a1c, **kw1c), 5,
+                          "train_epoch_kernel")
+    k1c_ms = cuda_ms(lambda: ops.train_epoch_fused(*a1c, **kw1c), reps=5)
+    stats_c, plain_c = {}, []
+    k1c_plain = cuda_ms(lambda: plain_c.append(train_epoch.train_epoch_plain(
+        *a1c, **kw1c, stats=stats_c)), reps=1, warmup=0)
+    # the kernel at this plan, held against the plain version exactly
+    got_c, (want_c,) = ops.train_epoch_fused(*a1c, **kw1c), plain_c
+    what = f"path (C)'s cohort N={n1c} plan {k1c_plan}"
+    moved = int((want_c[0] != a1c[0]).sum())
+    exact("train_epoch_fused", got_c[0], want_c[0],
+          f"{what} TA states ({moved} changed)", err)
+    exact("train_epoch_fused", got_c[1], want_c[1], f"{what} weights", err)
+    if moved == 0:
+        raise SystemExit("train_epoch_fused changed nothing at path (C)'s "
+                         "cohort")
+    del got_c, want_c, plain_c
+    k1c_bytes = (2 * 4 * n1c * C * m * L + 2 * 4 * n1c * C * m
+                 + 4 * n1c * S * L + 4 * n1c * S * 2 + 8 * n1c * S * 2 * 3 * 2)
+    k1c_ops = (mix["units"] * (stats_c["type1_rows"] * L + n1c * 2 * S * m)
+               + (2 * S) * n1c * m * W)
+    k1c_bound = max(k1c_bytes / HBM_BYTES_PER_S, k1c_ops / INT32_OPS_PER_S)
+    print(f"train_epoch_fused at path (C)'s cohort (N={n1c}, plan "
+          f"{k1c_plan}): {k1c_alone:.4f} ms alone, {k1c_ms:.4f} ms by "
+          f"events, plain {k1c_plain:.1f} ms; bound "
+          f"{k1c_bound * 1e3:.4f} ms ({stats_c['type1_rows']} Type I rows, "
+          f"bytes {k1c_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operations "
+          f"{k1c_ops / INT32_OPS_PER_S * 1e3:.4f} ms)", flush=True)
+    del a1c, cap1c
     print(f"fused_votes_batched bound: {k2_bytes / 1e9:.4f} GB, "
           f"{k2_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {k2_ops:.3e} "
           f"operations, {k2_ops / INT8_OPS_PER_S * 1e3:.4f} ms", flush=True)
@@ -919,6 +1064,9 @@ def main() -> int:
     print(f"path (B) round without the profiler: "
           f"{(time.perf_counter() - t) * 1e3:.1f} ms", flush=True)
     profile_round(eng_b, st_b, rnd.PRNGKey(7, dev), "path (B) round")
+    eng_c = Engine(fedtm, data_c, RuntimeConfig(
+        rounds=1, scheduler=SchedulerConfig(**PATH_C)))
+    profile_round(eng_c, st_c, rnd.PRNGKey(8, dev), "path (C) round")
 
     kernels = [
         kernel_entry("fused_votes_batched", "clause_eval.cu",

@@ -9,7 +9,11 @@ per-client sample counts keep every split rectangular.
 
 The draws use a seeded ``numpy.random.Generator`` and are not
 bit-identical to the JAX package, which draws with
-``jax.random.dirichlet`` and ``categorical``.
+``jax.random.dirichlet`` and ``categorical``.  On the same pool (which
+``synthetic.make_pool`` draws exactly as the reference does) the first
+field that differs is ``mixtures``, the Dirichlet draw that every split
+is drawn from (``tests/test_torch_data.py``); so tests that compare the
+two packages build one ``ClientData`` and hand it to both.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Offline stand-ins for the paper's image datasets, drawn with numpy.
+"""Offline stand-ins for the paper's image datasets.
 
 Counterpart of ``repro/data/synthetic.py``.  Each class gets a prototype
 bitmap of a few random axis-aligned strokes; a sample is its class's
@@ -7,16 +7,20 @@ the repository's default scenario uses; ``mnist`` is the same generator
 at MNIST's 28×28 width (784 features, 1568 literals), the paper's model
 width.
 
-The pool comes from a seeded ``numpy.random.Generator``.  It is *not*
-bit-identical to the JAX package's pool, which draws with ``jax.random``
-(and, for ``mnist``, through the ingest mirror); tests that compare the
-two packages build one dataset with numpy and hand it to both.
+The pool is drawn with :mod:`repro_torch.random` exactly as the JAX
+package's ``make_dataset`` draws it (its ``vmap`` over keys written out
+as a batch of keys): ``make_pool("synthmnist", n, seed)`` equals
+``make_dataset("synthmnist", n, PRNGKey(seed), side=12)`` bit for bit,
+and ``make_pool("mnist", n, seed)`` the same generator at ``side=28``.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch import random as rnd
 
 DATASETS = ("synthmnist", "mnist")
 
@@ -42,36 +46,38 @@ def dataset_config(name: str) -> DataConfig:
     raise ValueError(f"unknown dataset {name!r}; choose from {DATASETS}")
 
 
-def _stroke(rng: np.random.Generator, side: int) -> np.ndarray:
-    """One random axis-aligned bar on a (side, side) grid."""
-    r0, c0 = rng.integers(0, side, size=2)
-    length = rng.integers(side // 3, side)
-    thick = rng.integers(1, max(side // 7, 2) + 1)
-    mask = np.zeros((side, side), bool)
-    if rng.random() < 0.5:
-        mask[r0:r0 + thick, c0:c0 + length] = True
-    else:
-        mask[r0:r0 + length, c0:c0 + thick] = True
-    return mask
+def _stroke_masks(keys: torch.Tensor, side: int) -> torch.Tensor:
+    """One random axis-aligned bar on a (side, side) grid per key:
+    keys (..., 2) → (..., side, side) bool."""
+    k = rnd.split(keys, 4)
+    k1, k2, k3, k4 = (k[..., i, :] for i in range(4))
+    r0 = rnd.randint(k1, (), 0, side)[..., None, None]
+    c0 = rnd.randint(k2, (), 0, side)[..., None, None]
+    length = rnd.randint(k3, (), side // 3, side)[..., None, None]
+    thick = rnd.randint(k4, (), 1, max(side // 7, 2) + 1)[..., None, None]
+    horiz = rnd.bernoulli(k1, 0.5)[..., None, None]     # k1 again, as there
+    rr = torch.arange(side, device=keys.device)[:, None]
+    cc = torch.arange(side, device=keys.device)[None, :]
+    h = (rr >= r0) & (rr < r0 + thick) & (cc >= c0) & (cc < c0 + length)
+    v = (cc >= c0) & (cc < c0 + thick) & (rr >= r0) & (rr < r0 + length)
+    return torch.where(horiz, h, v)
 
 
-def class_prototypes(cfg: DataConfig, rng: np.random.Generator
-                     ) -> np.ndarray:
+def class_prototypes(cfg: DataConfig, key: torch.Tensor) -> torch.Tensor:
     """(n_classes, side·side) boolean prototype per class."""
-    protos = np.zeros((cfg.n_classes, cfg.n_features), bool)
-    for c in range(cfg.n_classes):
-        for _ in range(cfg.n_strokes):
-            protos[c] |= _stroke(rng, cfg.side).reshape(-1)
-    return protos
+    keys = rnd.split(rnd.split(key, cfg.n_classes), cfg.n_strokes)
+    masks = _stroke_masks(keys, cfg.side)          # (C, strokes, side, side)
+    return masks.any(dim=1).reshape(cfg.n_classes, -1)
 
 
 def make_pool(name: str, n_samples: int, seed: int
               ) -> tuple[np.ndarray, np.ndarray, DataConfig]:
-    """Balanced global pool: (x (n, o) uint8 0/1, y (n,) int32, cfg)."""
+    """Balanced global pool: (x (n, o) uint8 0/1, y (n,) int32, cfg),
+    drawn on the CPU from ``PRNGKey(seed)``."""
     cfg = dataset_config(name)
-    rng = np.random.default_rng(seed)
-    protos = class_prototypes(cfg, rng)
-    y = rng.integers(0, cfg.n_classes, size=n_samples).astype(np.int32)
-    noise = rng.random((n_samples, cfg.n_features)) < cfg.flip
-    x = np.logical_xor(protos[y], noise).astype(np.uint8)
-    return x, y, cfg
+    kp, ky, kx = rnd.split(rnd.PRNGKey(seed, "cpu"), 3).unbind(0)
+    protos = class_prototypes(cfg, kp)
+    y = rnd.randint(ky, (n_samples,), 0, cfg.n_classes)
+    noise = rnd.bernoulli(kx, cfg.flip, (n_samples, cfg.n_features))
+    x = torch.logical_xor(protos[y.long()], noise).to(torch.uint8)
+    return x.numpy(), y.numpy(), cfg

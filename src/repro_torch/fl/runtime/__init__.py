@@ -1,14 +1,14 @@
-"""Federated runtime: scheduler, TPFL strategy, wire codec, round engine.
+"""Federated runtime: scheduler, strategies, wire codec, round engine.
 
 Counterpart of ``repro/fl/runtime``: ``scheduler`` (who takes part),
 ``strategy`` (what a round means), ``codec`` (the bytes on the wire),
 ``executors`` (where the compute runs), ``engine`` (the round) and
-``checkpointing`` (round checkpoints).  The port runs TPFL, sync, full
-participation, float32 wire, in process.
+``checkpointing`` (round checkpoints).  The port runs TPFL and FedTM,
+sync, under any scheduler setting, on the float32 wire, in process.
 """
 from repro_torch.fl.runtime.engine import (                   # noqa: F401
     Engine, EngineState, RoundReport, RuntimeConfig)
 from repro_torch.fl.runtime.scheduler import (                # noqa: F401
-    Participation, Scheduler)
+    Participation, Scheduler, SchedulerConfig)
 from repro_torch.fl.runtime.strategy import (                 # noqa: F401
-    ServerState, TPFLStrategy, Upload, default_server_update)
+    FedTMStrategy, ServerState, TPFLStrategy, Upload, default_server_update)

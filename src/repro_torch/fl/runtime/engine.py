@@ -1,27 +1,36 @@
 """The federated round engine, sync path on one device.
 
 Counterpart of ``repro/fl/runtime/engine.py`` for the configuration this
-slice of the port supports: sync barrier, full participation, the dense
-float32 wire, the resident client population and the in-process
-executor.  :class:`RuntimeConfig` therefore holds only the number of
-rounds and the checkpoint cadence; the reference's other runtime settings (async aggregation, the
-shard-mapped backend, the mmap client store, transports, other codecs,
-partial participation) come with later slices (ROADMAP.md, queue A).
+slice of the port supports: sync barrier, the dense float32 wire, the
+resident client population and the in-process executor, under any
+scheduler setting (partial participation; uniform, weighted or
+round-robin sampling; dropout; stragglers).  :class:`RuntimeConfig`
+therefore holds the number of rounds, the scheduler and the checkpoint
+cadence; the reference's other runtime settings (async aggregation, the
+shard-mapped backend, the mmap client store, transports, other codecs)
+come with later slices (ROADMAP.md, queue A).
 
 Round anatomy (``run_round``), as in the reference's staged sync path:
 
-1. ``scheduler.sample`` — the whole population, in order;
-2. the strategy's ``fused_client_step`` on the cohort with per-client
-   keys ``split(round_key, N)``: local training (one fused-epoch kernel
-   launch per local epoch), confidence (one fused-votes launch), the
-   top-class pick;
-3. the uplink: every surviving upload is encoded to a real float32
-   frame, metered (4-byte slot id + payload) and decoded;
-4. the masked per-slot mean and the Alg. 2 server update (empty slots
-   keep their row);
-5. the downlink: populated slot rows are encoded, metered and decoded,
-   then applied to the clients that shared them (Phase D);
-6. evaluation of every client (one fused-votes launch).
+1. ``scheduler.sample``: K sampled ids, dropout survival, staleness; an
+   upload arrives when its client survived and is on time (a missed
+   sync barrier counts as a drop);
+2. the sampled clients' state and data are gathered (not under uniform
+   full participation, where the cohort is the population in order),
+   with per-client keys ``split(round_key, N)[idx]``;
+3. the strategy's ``fused_client_step`` on the cohort: local training
+   (one fused-epoch kernel launch per local epoch), for TPFL confidence
+   (one fused-votes launch) and the top-class pick;
+4. the uplink: every upload of a surviving client (stragglers too) is
+   encoded to a real float32 frame, metered (4-byte slot id + payload)
+   and decoded;
+5. the masked per-slot mean over the arrived uploads and the Alg. 2
+   server update (empty slots keep their row);
+6. the downlink: slot rows are encoded, metered and decoded, then
+   applied to the arrived clients that shared them (Phase D); the
+   others keep their state from before the round;
+7. the cohort is scattered back and every client of the population is
+   evaluated (one fused-votes launch).
 
 The key chain matches the reference: ``k_init, k_rounds = split(key)``,
 round r runs under ``fold_in(k_rounds, r)``.  With the same data and key
@@ -42,7 +51,8 @@ from repro_torch.data.partition import ClientData
 from repro_torch.fl.runtime import checkpointing
 from repro_torch.fl.runtime.codec import decode, encode
 from repro_torch.fl.runtime.executors import InProcessExecutor, applied_slots
-from repro_torch.fl.runtime.scheduler import Participation, Scheduler
+from repro_torch.fl.runtime.scheduler import (Participation, Scheduler,
+                                              SchedulerConfig)
 from repro_torch.fl.runtime.strategy import (ServerState,
                                              default_server_update)
 
@@ -52,6 +62,7 @@ _LATER = "ROADMAP.md, queue A"
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     rounds: int = 10
+    scheduler: SchedulerConfig = SchedulerConfig()
     checkpoint_dir: str | None = None
     checkpoint_every: int = 0         # 0 = never
 
@@ -66,7 +77,7 @@ class RoundReport(NamedTuple):
     round_idx: int
     mean_accuracy: torch.Tensor
     per_client_accuracy: torch.Tensor   # (n,)
-    assignment: torch.Tensor            # (n, j) int32, −1 = not shared
+    assignment: torch.Tensor            # (n, j) int32, −1 = not applied
     cluster_counts: torch.Tensor        # (n_slots,) f32
     participation: Participation
     upload_bytes: int                   # Σ len(frame) actually sent up
@@ -81,14 +92,17 @@ class Engine:
     def __init__(self, strategy, data: ClientData, cfg: RuntimeConfig):
         if not hasattr(strategy, "fused_client_step"):
             raise NotImplementedError(
-                f"{type(strategy).__name__}: the port runs TPFL only; the "
-                f"other strategies come with a later slice ({_LATER})")
+                f"{type(strategy).__name__}: the port runs TPFL and FedTM "
+                f"only; the other strategies come with a later slice "
+                f"({_LATER})")
         self.strategy = strategy
         self.data = data
         self.cfg = cfg
         self.n = int(data.x_train.shape[0])
         self.device = data.x_train.device
-        self.scheduler = Scheduler(self.n)
+        # weighted sampling weighs clients by the partitioner's pool
+        # shares: clients holding more data are sampled more often
+        self.scheduler = Scheduler(cfg.scheduler, self.n, data.sizes)
         self.executor = InProcessExecutor()
 
     def init(self, key: torch.Tensor) -> EngineState:
@@ -121,41 +135,67 @@ class Engine:
                   ) -> tuple[EngineState, RoundReport]:
         r = int(state.round_idx)
         part = self.scheduler.sample(r, round_key)
+        arrive = part.active & (part.staleness == 0)
         keys = rnd.split(round_key, self.n)
-        new_cs, vecs, slots = self.executor.train(
-            self.strategy, state.client_state, state.server.slots, self.data,
-            keys)
-        dec, up_bytes = self._wire_uplink(vecs, slots)
-        agg, counts = self.executor.masked_mean(self.strategy, dec, slots)
+        # the cohort is the population in order: nothing is gathered
+        in_order = self.scheduler.full_in_order
+        if in_order:
+            sub_cs, sub_data = state.client_state, self.data
+        else:
+            idx = part.idx.long()
+            keys = keys[idx]
+            sub_cs = type(state.client_state)(
+                *(a[idx] for a in state.client_state))
+            sub_data = type(self.data)(
+                *(None if a is None else a[idx] for a in self.data))
+        new_sub, vecs, slots = self.executor.train(
+            self.strategy, sub_cs, state.server.slots, sub_data, keys)
+        dec, up_bytes = self._wire_uplink(vecs, slots, part.active)
+        agg, counts = self.executor.masked_mean(self.strategy, dec, slots,
+                                                arrive)
         server = default_server_update(state.server, agg, counts)
-        applied = applied_slots(slots, counts)
+        applied = applied_slots(slots, counts, arrive)
         rx_server, down_bc, down_pc = self._wire_downlink(server.slots,
                                                           counts, applied)
-        merged = self.executor.apply_broadcast(self.strategy, new_cs, applied,
-                                               rx_server)
-        acc = self.executor.evaluate(self.strategy, merged, self.data.x_test,
+        merged = self.executor.apply_merge(
+            self.strategy, new_sub, applied, rx_server, sub_cs,
+            None if self.scheduler.all_arrive else arrive)
+        if in_order:
+            cs, assignment = merged, applied
+        else:
+            cs = type(merged)(*(a.index_put((idx,), m) for a, m in
+                                zip(state.client_state, merged)))
+            assignment = torch.full((self.n, applied.shape[1]), -1,
+                                    dtype=torch.int32, device=self.device
+                                    ).index_put((idx,), applied)
+        acc = self.executor.evaluate(self.strategy, cs, self.data.x_test,
                                      self.data.y_test)
         rep = RoundReport(
             round_idx=r, mean_accuracy=acc.mean(), per_client_accuracy=acc,
-            assignment=applied, cluster_counts=counts, participation=part,
-            upload_bytes=up_bytes, download_bytes_broadcast=down_bc,
+            assignment=assignment, cluster_counts=counts,
+            participation=part, upload_bytes=up_bytes,
+            download_bytes_broadcast=down_bc,
             download_bytes_per_client=down_pc,
-            aggregated_uploads=int((slots >= 0).sum()))
+            aggregated_uploads=int((slots[arrive] >= 0).sum()))
         new_state = EngineState(round_idx=state.round_idx + 1,
-                                client_state=merged, server=server)
+                                client_state=cs, server=server)
         return new_state, rep
 
     # -- the wire ----------------------------------------------------------
 
-    def _wire_uplink(self, vecs, slots):
-        """Encode every upload to a real frame, meter it (slot id <i4 +
-        payload) and decode what the aggregator sees.  Slot −1 sends no
-        frame."""
+    def _wire_uplink(self, vecs, slots, active):
+        """Encode every upload of a surviving client to a real frame,
+        meter it (slot id <i4 + payload) and decode what the aggregator
+        sees.  A straggler's frame was sent, so it is metered; a dropped
+        client and slot −1 send none."""
         np_vecs = vecs.detach().cpu().numpy().astype(np.float32)
         np_slots = slots.cpu().numpy()
+        np_active = active.cpu().numpy()
         dec = np.zeros_like(np_vecs)
         total = 0
         for c in range(np_vecs.shape[0]):
+            if not np_active[c]:
+                continue
             for j in range(np_vecs.shape[1]):
                 if np_slots[c, j] < 0:
                     continue

@@ -1,9 +1,10 @@
 """Where a round's compute runs: in this process, on one device.
 
 Counterpart of the in-process half of ``repro/fl/runtime/executors.py``.
-Client training, the masked per-slot mean and broadcast-apply plus
-evaluation each run once for the whole stacked cohort; on the GPU the
-training and evaluation are one kernel launch per stage.  The
+Client training, the masked per-slot mean, broadcast-apply with the
+merge that keeps non-receivers' old state, and evaluation each run once
+for the whole stacked cohort; on the GPU the training and evaluation
+are one kernel launch per stage.  The
 shard-mapped executor becomes ``torch.distributed`` in a later slice.
 """
 from __future__ import annotations
@@ -13,13 +14,13 @@ import torch
 from repro_torch.core import clustering
 
 
-def applied_slots(slots: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """The slots pushed back to each client this round: it shared the
-    slot, and the slot received an aggregate (a never-fed slot row must
-    not overwrite fresh local training).  Every client arrives: the port
-    runs full participation only."""
+def applied_slots(slots: torch.Tensor, counts: torch.Tensor,
+                  arrive: torch.Tensor) -> torch.Tensor:
+    """The slots pushed back to each client this round: it arrived, it
+    shared the slot, and the slot received an aggregate (a never-fed
+    slot row must not overwrite fresh local training)."""
     fed = counts[slots.clamp(min=0).long()] > 0
-    return torch.where((slots >= 0) & fed, slots, -1)
+    return torch.where(arrive[:, None] & (slots >= 0) & fed, slots, -1)
 
 
 class InProcessExecutor:
@@ -30,18 +31,28 @@ class InProcessExecutor:
                                                      sub_data, keys)
         return new_sub, upload.vecs, upload.slots      # (K,j,d), (K,j)
 
-    def masked_mean(self, strategy, dec, slots):
-        """The Alg. 2 masked mean over the uploads (slot −1 contributes
-        nothing); returns the raw per-slot mean (zeros where empty) and
-        the counts — retention is the server update's decision."""
+    def masked_mean(self, strategy, dec, slots, arrive):
+        """The Alg. 2 masked mean over the uploads that arrived (slot −1
+        contributes nothing); returns the raw per-slot mean (zeros where
+        empty) and the counts — retention is the server update's
+        decision."""
+        masked = torch.where(arrive[:, None], slots, -1)
         res = clustering.aggregate(dec.reshape(-1, strategy.vec_dim),
-                                   slots.reshape(-1), strategy.n_slots)
+                                   masked.reshape(-1), strategy.n_slots)
         return res.cluster_weights, res.counts
 
-    def apply_broadcast(self, strategy, new_sub, applied, rx_server):
+    def apply_merge(self, strategy, new_sub, applied, rx_server, old_sub,
+                    recv):
         """Phase D: each client takes the decoded rows of the slots
-        applied to it."""
-        return strategy.apply_broadcast(new_sub, applied, rx_server)
+        applied to it; clients that receive nothing (dropped, late)
+        go back to their state from before the round.  ``recv`` is None
+        when every client of the cohort arrived: nothing goes back."""
+        bc = strategy.apply_broadcast(new_sub, applied, rx_server)
+        if recv is None:
+            return bc
+        return type(bc)(*(torch.where(
+            recv.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+            for new, old in zip(bc, old_sub)))
 
     def evaluate(self, strategy, cs, x_test, y_test):
         return strategy.fused_evaluate(cs, x_test, y_test)

@@ -1,6 +1,7 @@
-"""TPFL as a federated strategy: Alg. 1 on the clients, Phase D back.
+"""TPFL and FedTM as federated strategies on the Tsetlin Machine.
 
-Counterpart of the TPFL part of ``repro/fl/runtime/strategy.py``.  A
+Counterpart of the TPFL and FedTM parts of
+``repro/fl/runtime/strategy.py``.  A
 round's contribution is ``j`` flat float32 vectors per client, each
 tagged with a server slot (slot = cluster = class; −1 = nothing shared);
 the engine meters them on the wire and averages them per slot.
@@ -9,7 +10,7 @@ The JAX strategy has a per-client ``client_step`` that executors vmap
 and a client-batched ``fused_client_step`` for the kernel path.  Here
 every hook is written for the whole stacked cohort (leading client axis
 N) and runs the kernels on CUDA tensors, so only the batched forms
-exist.  The MLP baselines, FLIS and FedTM come in later slices.
+exist.  The MLP baselines and FLIS come in later slices.
 """
 from __future__ import annotations
 
@@ -120,4 +121,60 @@ class TPFLStrategy:
                         x: torch.Tensor) -> torch.Tensor:
         """Stacked per-client predictions (N, B, o) → (N, B): one
         fused-votes launch for a whole mixed-cluster batch."""
+        return tm.predict_batched(cs, x, self.tm_cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class FedTMStrategy:
+    """FedTM: the same TM as TPFL, but every client uploads its full
+    (C, m) weight block into one global slot and applies the rounded
+    global mean: no confidence pass, no selective upload."""
+
+    tm_cfg: tm.TMConfig
+    local_epochs: int = 10
+
+    n_slots: int = dataclasses.field(default=1, init=False)
+    j_slots: int = dataclasses.field(default=1, init=False)
+
+    @property
+    def vec_dim(self) -> int:
+        return self.tm_cfg.n_classes * self.tm_cfg.n_clauses
+
+    def init(self, key: torch.Tensor, n_clients: int,
+             data: ClientData | None = None):
+        del data
+        params = tm.init_params(self.tm_cfg, rnd.split(key, n_clients))
+        server = torch.zeros((1, self.vec_dim), dtype=torch.float32,
+                             device=key.device)
+        return params, ServerState(server)
+
+    def fused_client_step(self, cs: tm.TMParams, slots: torch.Tensor,
+                          d: ClientData, keys: torch.Tensor):
+        """Local training; each client uploads its whole weight block
+        (N, 1, C·m) to slot 0."""
+        del slots            # clients hold last round's global weights
+        params = tm.train_batched(cs, d.x_train, d.y_train, keys,
+                                  self.tm_cfg, epochs=self.local_epochs)
+        n = params.weights.shape[0]
+        vecs = params.weights.to(torch.float32).reshape(n, 1, -1)
+        return params, Upload(vecs, torch.zeros((n, 1), dtype=torch.int32,
+                                                device=vecs.device))
+
+    def apply_broadcast(self, cs: tm.TMParams, slots: torch.Tensor,
+                        slot_matrix: torch.Tensor) -> tm.TMParams:
+        """Clients whose slot is ≥ 0 take the global row, rounded half
+        to even, as their weights."""
+        cfg = self.tm_cfg
+        new_w = torch.round(slot_matrix[0]).to(torch.int32).reshape(
+            cfg.n_classes, cfg.n_clauses)
+        w = torch.where((slots[:, 0] >= 0)[:, None, None], new_w,
+                        cs.weights)
+        return cs._replace(weights=w)
+
+    def fused_evaluate(self, cs: tm.TMParams, x: torch.Tensor,
+                       y: torch.Tensor) -> torch.Tensor:
+        return tm.accuracy_batched(cs, x, y, self.tm_cfg)
+
+    def predict_batched(self, cs: tm.TMParams,
+                        x: torch.Tensor) -> torch.Tensor:
         return tm.predict_batched(cs, x, self.tm_cfg)

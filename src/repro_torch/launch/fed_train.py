@@ -1,18 +1,22 @@
-"""Run a TPFL federation on the port: the scenario runner's CLI.
+"""Run a TPFL or FedTM federation on the port: the scenario runner's CLI.
 
 Counterpart of ``repro/launch/fed_train.py``'s CLI for the configuration
-this slice of the port supports: TPFL, sync, full participation, the
-float32 wire, in process (the reference's other knobs come with later
-slices, ROADMAP.md):
+this slice of the port supports: TPFL or FedTM, sync, the float32 wire,
+in process, under the reference's scheduler flags (the reference's other
+knobs come with later slices, ROADMAP.md):
 
   PYTHONPATH=src python -m repro_torch.launch.fed_train \\
-      --dataset mnist --clauses 300 --clients 20 --rounds 2
+      --dataset mnist --clauses 300 --clients 20 --rounds 2 \\
+      [--strategy fedtm] [--participation P | --active K] \\
+      [--sampling uniform|weighted|round_robin] [--dropout D] \\
+      [--straggler S --max-staleness M]
 
 runs on the GPU; ``--device cpu`` runs the kernels' plain versions.  It
-prints the same per-round ``acc= … up= … down_bc= … down_pc=`` lines and
-totals line as the reference CLI.  ``--ckpt-dir D --ckpt-every k`` saves
-the engine state every k rounds; ``--resume`` continues from the newest
-checkpoint in D and completes the requested ``--rounds`` in total.
+prints the same per-round ``acc= … up= … down_bc= … down_pc= …
+active=a/K`` lines and totals line as the reference CLI.  ``--ckpt-dir D
+--ckpt-every k`` saves the engine state every k rounds; ``--resume``
+continues from the newest checkpoint in D and completes the requested
+``--rounds`` in total.
 """
 from __future__ import annotations
 
@@ -24,7 +28,11 @@ from repro_torch import device as devices
 from repro_torch import random as rnd
 from repro_torch.core import federation, tm
 from repro_torch.data import partition, synthetic
-from repro_torch.fl.runtime import Engine, RuntimeConfig, checkpointing
+from repro_torch.fl.runtime import (Engine, FedTMStrategy, RuntimeConfig,
+                                    SchedulerConfig, checkpointing)
+from repro_torch.fl.runtime.scheduler import SAMPLING
+
+STRATEGY_CHOICES = ("tpfl", "fedtm")
 
 
 def accuracy_deciles(per_client_accuracy) -> list[float]:
@@ -41,7 +49,8 @@ def worst_decile_mean(per_client_accuracy) -> float:
 
 def build_scenario(*, dataset: str, clients: int = 20, clauses: int = 48,
                    seed: int = 0, experiment: int = 5, rounds: int = 5,
-                   local_epochs: int = 2, device=None):
+                   local_epochs: int = 2, strategy: str = "tpfl",
+                   device=None):
     """(partitioned client data, TM config, fed config, strategy), with
     the reference scenario's settings: a 6000-sample pool, 80 / 40 / 40
     train / test / confidence samples per client, n_states=63, s=5, T=40.
@@ -56,22 +65,36 @@ def build_scenario(*, dataset: str, clients: int = 20, clauses: int = 48,
                          T=40)
     fed_cfg = federation.FedConfig(n_clients=clients, rounds=rounds,
                                    local_epochs=local_epochs)
-    return data, tm_cfg, fed_cfg, federation.tpfl_strategy(tm_cfg, fed_cfg)
+    if strategy == "fedtm":
+        strat = FedTMStrategy(tm_cfg, local_epochs=local_epochs)
+    else:
+        strat = federation.tpfl_strategy(tm_cfg, fed_cfg)
+    return data, tm_cfg, fed_cfg, strat
 
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(
-        description="TPFL federation on PyTorch (GPU by default)")
+        description="TPFL / FedTM federation on PyTorch (GPU by default)")
     ap.add_argument("--dataset", default="synthmnist",
                     choices=synthetic.DATASETS,
                     help="synthmnist = 12x12 pool, mnist = 28x28 pool")
+    ap.add_argument("--strategy", default="tpfl", choices=STRATEGY_CHOICES)
     ap.add_argument("--clients", type=int, default=20)
+    ap.add_argument("--active", type=int, default=None, metavar="K",
+                    help="sample K clients per round (sets "
+                         "--participation K/N)")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--local-epochs", type=int, default=2)
     ap.add_argument("--clauses", type=int, default=48)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--experiment", type=int, default=5,
                     help="paper setup 1..5 (fraction of non-IID clients)")
+    # scheduler knobs
+    ap.add_argument("--participation", type=float, default=1.0)
+    ap.add_argument("--sampling", default="uniform", choices=SAMPLING)
+    ap.add_argument("--dropout", type=float, default=0.0)
+    ap.add_argument("--straggler", type=float, default=0.0)
+    ap.add_argument("--max-staleness", type=int, default=2)
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain versions)")
     ap.add_argument("--ckpt-dir", default=None)
@@ -79,14 +102,25 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
 
-    rt_cfg = RuntimeConfig(rounds=args.rounds, checkpoint_dir=args.ckpt_dir,
-                           checkpoint_every=args.ckpt_every)
+    participation = args.participation
+    if args.active is not None:
+        if not 0 < args.active <= args.clients:
+            raise SystemExit(f"--active must be in [1, {args.clients}]")
+        participation = args.active / args.clients
+    rt_cfg = RuntimeConfig(
+        rounds=args.rounds,
+        scheduler=SchedulerConfig(
+            participation=participation, sampling=args.sampling,
+            dropout=args.dropout, straggler=args.straggler,
+            max_staleness=args.max_staleness),
+        checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every)
     device = (devices.default_device() if args.device == "cuda"
               else devices.resolve(args.device))
     data, tm_cfg, fed_cfg, strategy = build_scenario(
         dataset=args.dataset, clients=args.clients, clauses=args.clauses,
         seed=args.seed, experiment=args.experiment, rounds=args.rounds,
-        local_epochs=args.local_epochs, device=device)
+        local_epochs=args.local_epochs, strategy=args.strategy,
+        device=device)
     engine = Engine(strategy, data, rt_cfg)
     state, remaining = None, None
     if args.resume and args.ckpt_dir:
@@ -105,11 +139,16 @@ def main(argv: list[str] | None = None) -> dict:
                         "upload_bytes": 0,
                         "download_bytes_broadcast": 0,
                         "download_bytes_per_client": 0}
-    print(f"tpfl on {args.dataset} "
+    print(f"{args.strategy} on {args.dataset} "
           f"[{tm_cfg.n_features}f, m={tm_cfg.n_clauses}] "
           f"exp{args.experiment}: {args.clients} clients, "
-          f"K={engine.scheduler.k}/round, codec=float32, mode=sync, "
-          f"device={device}", flush=True)
+          f"K={engine.scheduler.k}/round, dropout={args.dropout}, "
+          f"codec=float32, mode=sync, device={device}", flush=True)
+    if engine.scheduler.p is not None:
+        p = engine.scheduler.p
+        print(f"weighted sampling from partition sizes: "
+              f"p in [{float(p.min()):.4f}, {float(p.max()):.4f}]",
+              flush=True)
     state, reports = engine.run(rnd.PRNGKey(args.seed, device), state=state,
                                 rounds=remaining)
 
@@ -125,7 +164,7 @@ def main(argv: list[str] | None = None) -> dict:
               f"up={rep.upload_bytes}B "
               f"down_bc={rep.download_bytes_broadcast}B "
               f"down_pc={rep.download_bytes_per_client}B "
-              f"active={rep.participation.idx.numel()}"
+              f"active={int(rep.participation.active.sum())}"
               f"/{engine.scheduler.k}", flush=True)
     print(f"totals: upload={up}B ({up/1e6:.4f}MB) "
           f"download_broadcast={down_bc}B ({down_bc/1e6:.4f}MB) "

@@ -12,7 +12,14 @@ Bit-exact to ``jax.random`` with its default threefry implementation in
 * ``uniform`` keeps the top 23 bits as an f32 mantissa in [1, 2) and
   subtracts 1; ``bernoulli`` is ``uniform < p``; ``randint`` draws two
   words per value (from ``split(key)``) and folds them into the span with
-  jax's modular recipe.
+  jax's modular recipe;
+* ``permutation`` is jax's sort-based shuffle (stable sorts of the ids by
+  fresh 32-bit words, ``ceil(3·ln n / ln(2**32 - 1))`` rounds);
+  ``gumbel`` is ``-log(-log(uniform(minval=tiny)))`` in jax's default
+  ("low") mode; ``choice`` without replacement is a permutation's head,
+  or with weights the top k of ``gumbel + log(p)``.  The two ``log``
+  calls are XLA:CPU's float32 ``log`` (:mod:`repro_torch.xla_f32`),
+  bit for bit, not torch's.
 
 torch has no uint32 arithmetic.  Keys and ``bits`` hold uint32 words in
 int64 tensors; the hash itself runs on int32 tensors, whose adds wrap
@@ -21,7 +28,7 @@ hashed a chunk of counters at a time, so a caller never holds more than
 a chunk of temporaries at once.
 
 Not ported yet: ``jax_threefry_partitionable=False`` mode, ``dirichlet``,
-``categorical`` and ``choice`` (see ROADMAP.md).
+``categorical`` and ``choice`` with replacement (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import math
 import torch
 
 from repro_torch import device as devices
+from repro_torch import xla_f32
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -175,3 +183,50 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int
     off = (((higher % span) * mult) & _M32) + (lower % span)
     off = (off & _M32) % span
     return (minval + off).to(torch.int32)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: (..., 2) → (..., n) int32.
+
+    jax's ``_shuffle``: each round splits the key, draws one 32-bit word
+    per id from the subkey and stable-sorts the ids by them."""
+    x = torch.arange(n, device=key.device).expand(key.shape[:-1] + (n,))
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_M32))
+    for _ in range(rounds):
+        ks = split(key)
+        key = ks[..., 0, :]
+        order = torch.sort(bits(ks[..., 1, :], (n,)), dim=-1,
+                           stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x.to(torch.int32)
+
+
+def gumbel(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, jax's default ("low") mode:
+    ``-log(-log(u))``, u uniform on [tiny, 1), with XLA:CPU's ``log``."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = (uniform(key, shape) + tiny).clamp_min(tiny)
+    return -xla_f32.log(-xla_f32.log(u))
+
+
+def choice(key: torch.Tensor, n: int, k: int, replace: bool = False,
+           p: torch.Tensor | None = None) -> torch.Tensor:
+    """``jax.random.choice(key, n, (k,), replace=False, p=p)``:
+    (..., 2) → (..., k) int32 ids of ``arange(n)``.
+
+    Uniform: the head of :func:`permutation`.  Weighted: the Gumbel
+    top-k, the k largest of ``gumbel(key, (n,)) + log(p)``, ties to the
+    lower id as ``lax.top_k`` breaks them."""
+    if replace:
+        raise NotImplementedError("choice: sampling with replacement")
+    if not 0 < k <= n:
+        raise ValueError(f"choice: cannot take {k} of {n} without "
+                         f"replacement")
+    if p is None:
+        return permutation(key, n)[..., :k]
+    p = torch.as_tensor(p, dtype=torch.float32, device=key.device)
+    if p.shape != (n,):
+        raise ValueError(f"choice: p has shape {tuple(p.shape)}, not ({n},)")
+    g = gumbel(key, (n,)) + xla_f32.log(p)
+    top = torch.sort(g, dim=-1, descending=True, stable=True).indices
+    return top[..., :k].to(torch.int32)

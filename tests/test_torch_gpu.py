@@ -14,9 +14,12 @@ import torch
 
 from repro_torch import convert
 from repro_torch import random as tr
+from repro_torch import xla_f32
 from repro_torch.core import tm as ttm
 from repro_torch.data import partition, synthetic
-from repro_torch.fl.runtime import Engine, RuntimeConfig, TPFLStrategy
+from repro_torch.fl.runtime import (Engine, FedTMStrategy, RuntimeConfig,
+                                    Scheduler, SchedulerConfig,
+                                    TPFLStrategy)
 from repro_torch.kernels import draws, ops, ref
 
 VOTE_SHAPES = [  # (N, C, m, L, B): test_kernels.py's, and C·m = 99, L = 130
@@ -494,3 +497,81 @@ def test_gpu_serve_matches_cpu_serve(cuda, tmp_path):
     assert ops.LAUNCHES["fused_votes"] - before["fused_votes"] == 4
     assert ops.LAUNCHES["fused_votes_batched"] \
         - before["fused_votes_batched"] == 3 + 1
+
+
+@pytest.mark.gpu
+def test_xla_log_same_on_gpu_and_cpu(cuda):
+    """XLA:CPU's float32 log, emulated in torch ops, gives the same bits
+    on the card as on the CPU (the FMAs run in float64 there too)."""
+    rng = np.random.default_rng(0)
+    x = np.exp(rng.uniform(np.log(1e-38), np.log(3e38), 2_000_000)
+               ).astype(np.float32)
+    x[:9] = [0.0, -0.0, 1e-40, -1e-40, -1.0, np.inf, np.nan,
+             np.finfo(np.float32).tiny, 1.0]
+    a = xla_f32.log(torch.from_numpy(x))
+    b = xla_f32.log(torch.from_numpy(x).to(cuda)).cpu()
+    assert torch.equal(a.isnan(), b.isnan())
+    ok = ~a.isnan()
+    assert torch.equal(a[ok].view(torch.int32), b[ok].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    dict(participation=0.5, dropout=0.2, straggler=0.3),
+    dict(participation=0.5, sampling="weighted", dropout=0.2),
+    dict(participation=1.0, sampling="weighted"),
+    dict(participation=0.35, sampling="round_robin", straggler=0.3)])
+def test_scheduler_same_on_gpu_and_cpu(cuda, kw):
+    sizes = torch.as_tensor(np.random.default_rng(1).integers(1, 900, 20),
+                            dtype=torch.int32)
+    cfg = SchedulerConfig(**kw)
+    on_cpu = Scheduler(cfg, 20, sizes)
+    on_gpu = Scheduler(cfg, 20, sizes.to(cuda))
+    for r in range(50):
+        key = tr.fold_in(tr.PRNGKey(7, "cpu"), r)
+        a = on_cpu.sample(r, key)
+        # the draw itself on the card, and the host's draw moved there
+        for b in (on_gpu.draw(r, key.to(cuda)),
+                  on_gpu.sample(r, key.to(cuda))):
+            for f in ("idx", "active", "staleness"):
+                assert getattr(b, f).is_cuda, (r, f)
+                assert torch.equal(getattr(a, f), getattr(b, f).cpu()), (r, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy,sched", [
+    ("tpfl", dict(participation=0.5, dropout=0.3, straggler=0.3)),
+    ("fedtm", dict(participation=0.5, sampling="weighted", dropout=0.3))])
+def test_gpu_partial_round_matches_cpu_round(cuda, strategy, sched):
+    """Half the clients a round, with drops and stragglers: the cohort's
+    fused epochs (one launch per local epoch) and the population's
+    evaluation (one fused-votes launch; TPFL adds its confidence pass)
+    on the card equal the plain path on the CPU."""
+    x, y, _ = synthetic.make_pool("synthmnist", 400, seed=0)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        data = partition.partition(x, y, 10, n_clients=6, experiment=5,
+                                   seed=1, n_train=16, n_test=8, n_conf=8,
+                                   device=dev)
+        cls = FedTMStrategy if strategy == "fedtm" else TPFLStrategy
+        eng = Engine(cls(ttm.TMConfig(**TM), local_epochs=2), data,
+                     RuntimeConfig(rounds=2,
+                                   scheduler=SchedulerConfig(**sched)))
+        before = dict(ops.LAUNCHES)
+        runs.append(eng.run(tr.PRNGKey(3, "cpu")))
+        launched = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+    assert launched["train_epoch_fused"] == 2 * 2
+    assert launched["fused_votes_batched"] == 2 * (
+        1 if strategy == "fedtm" else 2)
+    (s0, r0), (s1, r1) = runs
+    for a, b in zip(convert.to_numpy([*s0.client_state, s0.server.slots]),
+                    convert.to_numpy([*s1.client_state, s1.server.slots])):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(r0, r1):
+        for f in ("per_client_accuracy", "assignment", "cluster_counts"):
+            assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+        for f in ("idx", "active", "staleness"):
+            assert torch.equal(getattr(a.participation, f),
+                               getattr(b.participation, f).cpu()), f
+        assert (a.upload_bytes, a.aggregated_uploads) == (
+            b.upload_bytes, b.aggregated_uploads)

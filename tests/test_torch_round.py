@@ -1,24 +1,33 @@
-"""A 2-round TPFL federation on the JAX engine (sync, in process,
-``tm_backend="ref"``) and on the port, from one numpy-built ClientData
-and the same seed: reports and final state are bit-identical.
+"""2-round TPFL and FedTM federations on the JAX engine (sync, in
+process, ``tm_backend="ref"``) and on the port, from one ClientData
+handed across and the same seed, at full and partial participation
+(uniform, weighted and round-robin sampling, dropout, stragglers):
+reports, byte totals and final state are bit-identical.
 
 ``mean_accuracy`` is compared within 1e-6: it is a float32 mean over the
 clients whose summation order XLA and torch choose independently; every
 other float (per-client accuracy, server rows) is held bit for bit."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import tm as jtm
 from repro.data.partition import ClientData as JClientData
 from repro.fl.runtime import Engine as JEngine
 from repro.fl.runtime import RuntimeConfig as JRuntimeConfig
+from repro.fl.runtime import SchedulerConfig as JSchedulerConfig
 from repro.fl.runtime import TPFLStrategy as JTPFLStrategy
+from repro.fl.runtime.strategy import FedTMStrategy as JFedTMStrategy
 from repro_torch import convert
 from repro_torch.core import tm as ttm
 from repro_torch.data import partition, synthetic
-from repro_torch.fl.runtime import Engine, RuntimeConfig, TPFLStrategy
+from repro_torch.fl.runtime import (Engine, FedTMStrategy, RuntimeConfig,
+                                    SchedulerConfig, TPFLStrategy,
+                                    checkpointing)
 from repro_torch.launch import fed_train
 from test_torch_gpu import one_torch_thread  # noqa: F401
 
@@ -26,22 +35,31 @@ TM = dict(n_classes=10, n_clauses=16, n_features=144, n_states=63, s=5.0,
           T=40)
 
 
-def _engines(rounds, **strategy_kw):
+def _engines(rounds, strategy="tpfl", sched=None, **strategy_kw):
     """The JAX engine and the port's engine over one numpy-built
-    population, with the same TPFL settings."""
+    population (its pool shares ``sizes`` included), with the same
+    strategy and scheduler settings."""
     x, y, _ = synthetic.make_pool("synthmnist", 600, seed=0)
     data = partition.partition(x, y, 10, n_clients=6, experiment=5, seed=1,
                                n_train=24, n_test=12, n_conf=12, device="cpu")
     fields = convert.to_numpy(data._asdict())
     jdata = JClientData(**{k: None if v is None else jnp.asarray(v)
                            for k, v in fields.items()})
-    jeng = JEngine(JTPFLStrategy(jtm.TMConfig(**TM), local_epochs=2,
-                                 **strategy_kw),
-                   jdata, JRuntimeConfig(rounds=rounds, tm_backend="ref"))
-    teng = Engine(TPFLStrategy(ttm.TMConfig(**TM), local_epochs=2,
-                               **strategy_kw),
-                  convert.client_data_from_numpy(fields, "cpu"),
-                  RuntimeConfig(rounds=rounds))
+    if strategy == "fedtm":
+        jstrat = JFedTMStrategy(jtm.TMConfig(**TM), local_epochs=2)
+        tstrat = FedTMStrategy(ttm.TMConfig(**TM), local_epochs=2)
+    else:
+        jstrat = JTPFLStrategy(jtm.TMConfig(**TM), local_epochs=2,
+                               **strategy_kw)
+        tstrat = TPFLStrategy(ttm.TMConfig(**TM), local_epochs=2,
+                              **strategy_kw)
+    sched = sched or {}
+    jeng = JEngine(jstrat, jdata, JRuntimeConfig(
+        rounds=rounds, scheduler=JSchedulerConfig(**sched),
+        tm_backend="ref"))
+    teng = Engine(tstrat, convert.client_data_from_numpy(fields, "cpu"),
+                  RuntimeConfig(rounds=rounds,
+                                scheduler=SchedulerConfig(**sched)))
     return jeng, teng
 
 
@@ -61,9 +79,8 @@ def _same(a, b):
     np.testing.assert_array_equal(a, b)
 
 
-def test_reports_bit_identical(both_runs):
-    _, jreps, _, treps, _, _ = both_runs
-    assert len(jreps) == len(treps) == 2
+def _same_reports(jreps, treps):
+    assert len(jreps) == len(treps)
     for a, b in zip(jreps, treps):
         assert a.round_idx == b.round_idx
         for f in ("assignment", "cluster_counts", "per_client_accuracy"):
@@ -72,7 +89,21 @@ def test_reports_bit_identical(both_runs):
                   "download_bytes_per_client", "aggregated_uploads"):
             assert getattr(a, f) == getattr(b, f), f
         assert abs(float(a.mean_accuracy) - float(b.mean_accuracy)) <= 1e-6
-        _same(a.participation.idx, b.participation.idx)
+        for f in ("idx", "active", "staleness"):
+            _same(getattr(a.participation, f), getattr(b.participation, f))
+
+
+def _same_state(jstate, tstate):
+    assert int(jstate.round_idx) == int(tstate.round_idx)
+    _same(jstate.client_state.ta_state, tstate.client_state.ta_state)
+    _same(jstate.client_state.weights, tstate.client_state.weights)
+    _same(jstate.server.slots, tstate.server.slots)
+
+
+def test_reports_bit_identical(both_runs):
+    _, jreps, _, treps, _, _ = both_runs
+    assert len(jreps) == 2
+    _same_reports(jreps, treps)
 
 
 def test_final_state_bit_identical(both_runs):
@@ -140,11 +171,10 @@ def test_unsupported_runtime_configs_raise(kw):
         RuntimeConfig(rounds=1, **kw)
 
 
-def test_partial_participation_is_a_later_slice(capsys):
+def test_async_codecs_and_other_strategies_are_a_later_slice(capsys):
     """The CLI has no flag for what the port does not run yet, and a
-    strategy other than TPFL is refused by the engine."""
-    for flags in (["--participation", "0.5"], ["--mode", "async"],
-                  ["--codec", "int8"], ["--strategy", "fedtm"]):
+    strategy without the fused hooks is refused by the engine."""
+    for flags in (["--mode", "async"], ["--codec", "int8"]):
         with pytest.raises(SystemExit) as exc:
             fed_train.main(["--device", "cpu", *flags])
         assert exc.value.code == 2
@@ -154,3 +184,97 @@ def test_partial_participation_is_a_later_slice(capsys):
                                n_train=4, n_test=4, n_conf=4, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         Engine(object(), data, RuntimeConfig(rounds=1))
+
+
+# -- partial participation, sampling, dropout, stragglers; FedTM ----------
+
+SCHEDULES = {
+    "uniform_dropout": dict(participation=0.5, dropout=0.3),
+    "weighted_stragglers": dict(participation=0.5, sampling="weighted",
+                                straggler=0.4),
+    "round_robin_both": dict(participation=0.5, sampling="round_robin",
+                             dropout=0.2, straggler=0.3, max_staleness=3),
+    # every sampled upload arrives: the merge back is skipped
+    "weighted_all_arrive": dict(participation=0.5, sampling="weighted"),
+    # the whole population in order, nothing gathered, with drops merged
+    "full_dropout": dict(dropout=0.3),
+}
+STRATEGIES = {"tpfl": ("tpfl", {}),
+              "tpfl_thresh": ("tpfl", dict(conf_threshold=2.0)),
+              "fedtm": ("fedtm", {})}
+
+
+@pytest.mark.parametrize("sched", SCHEDULES)
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_partial_participation_round_bit_identical(strategy, sched):
+    """K of 6 clients a round (3 at participation 0.5): the sampled
+    ids, dropout and staleness draws, the gathered cohort's training,
+    the arrival-masked aggregation, the merge that keeps non-receivers'
+    state, the scatter and the population's evaluation all equal the
+    reference's."""
+    name, kw = STRATEGIES[strategy]
+    cfg = SCHEDULES[sched]
+    jeng, teng = _engines(rounds=2, strategy=name, sched=cfg, **kw)
+    key = jax.random.PRNGKey(3)
+    jstate, jreps = jeng.run(key)
+    tstate, treps = teng.run(convert.key_from_numpy(key, "cpu"))
+    _same_reports(jreps, treps)
+    _same_state(jstate, tstate)
+    # the draw exercised what the case names
+    parts = [r.participation for r in treps]
+    k = round(cfg.get("participation", 1.0) * 6)
+    assert all(p.idx.numel() == k for p in parts)
+    if cfg.get("dropout"):
+        assert any(not bool(p.active.all()) for p in parts)
+    if cfg.get("straggler"):
+        assert any(bool((p.staleness > 0).any()) for p in parts)
+    # clients outside the cohort keep −1 and are still evaluated
+    assert all(int((r.assignment[:, 0] >= 0).sum()) <= k for r in treps)
+    assert all(r.per_client_accuracy.shape == (6,) for r in treps)
+
+
+def test_partial_participation_resumes_bit_for_bit(tmp_path):
+    """A checkpoint after round 1 at participation 0.5 restores into a
+    run whose round 2 equals the uninterrupted run's."""
+    sched = dict(participation=0.5, dropout=0.3, straggler=0.3)
+    _, teng = _engines(rounds=2, sched=sched)
+    key = convert.key_from_numpy(jax.random.PRNGKey(3), "cpu")
+    full, full_reps = teng.run(key)
+    _, ceng = _engines(rounds=1, sched=sched)
+    ceng = Engine(ceng.strategy, ceng.data, dataclasses.replace(
+        ceng.cfg, checkpoint_dir=str(tmp_path), checkpoint_every=1))
+    ceng.run(key)
+    like = ceng.init(convert.key_from_numpy(jax.random.PRNGKey(0), "cpu"))
+    resumed = checkpointing.restore(checkpointing.latest(tmp_path), like)
+    assert int(resumed.round_idx) == 1
+    state, (rep,) = teng.run(key, state=resumed, rounds=1)
+    _same_reports(convert.to_numpy(full_reps[1:]), [rep])
+    for a, b in zip((*full.client_state, full.server.slots),
+                    (*state.client_state, state.server.slots)):
+        assert torch.equal(a, b)
+
+
+def test_fed_train_cli_scheduler_flags(capsys):
+    """--strategy fedtm --active K --sampling weighted --dropout
+    --straggler: the banner, one round line a round with
+    active=<survivors>/K, and upload bytes metered over the survivors."""
+    out = fed_train.main([
+        "--device", "cpu", "--clients", "6", "--rounds", "2", "--clauses",
+        "8", "--local-epochs", "1", "--strategy", "fedtm", "--active", "3",
+        "--sampling", "weighted", "--dropout", "0.3", "--straggler", "0.3",
+        "--max-staleness", "3"])
+    text = capsys.readouterr().out
+    assert text.startswith("fedtm on synthmnist")
+    assert "K=3/round" in text and "weighted sampling from partition" in text
+    d = 10 * 8                                  # FedTM: C·m floats a frame
+    for rep in out["reports"]:
+        n_active = int(rep.participation.active.sum())
+        assert f"active={n_active}/3" in text
+        assert rep.upload_bytes == n_active * (4 + 4 * d)
+        arrive = rep.participation.active & (rep.participation.staleness == 0)
+        assert rep.aggregated_uploads == int(arrive.sum())
+    with pytest.raises(SystemExit, match="--active must be in"):
+        fed_train.main(["--device", "cpu", "--clients", "4", "--active",
+                        "5"])
+    with pytest.raises(ValueError, match="participation"):
+        fed_train.main(["--device", "cpu", "--participation", "0"])

@@ -18,17 +18,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ±T) and at tile-unaligned shapes (L = 130, m = 33; the vote kernels
    also at B = 130, two passes over the samples, with weights up to
    2**15);
-4. the training path: the port's ``fed_train`` at full width (mnist
-   28x28, 300 clauses, 20 clients, 2 rounds of 2 local epochs, a
-   checkpoint after each round) with the launch counters set to 0 just
-   before, printing its round lines, and check its output;
-5. require every kernel of that path to have launched (the fused epoch
+4. the data path on the card, each step timed: the 6000-sample 28x28
+   pool, the offline mirror's IDX files written and read back through
+   the registry (``build/chip_smoke/data``), and the full-width
+   partition (20 clients of 80 / 40 / 40), whose ClientData sha256 must
+   equal ``FULL_WIDTH_SHA256`` (the reference's, pinned by
+   ``tests/test_torch_data.py``); then a 6-client partition drawn on
+   the card and on the CPU, bit for bit;
+5. the training path: the port's ``fed_train`` at full width (mnist
+   28x28 through the mirror's files, 300 clauses, 20 clients, 2 rounds
+   of 2 local epochs, a checkpoint after each round) with the launch
+   counters set to 0 just before, printing its round lines, and check
+   its output;
+6. require every kernel of that path to have launched (the fused epoch
    once per local epoch);
-6. path (A), serving: ``fed_serve`` publishes the newest checkpoint,
+7. path (A), serving: ``fed_serve`` publishes the newest checkpoint,
    serves 8 mixed-cluster batches of 32 and checks all 20 clients
    against ``tm.predict`` (counters zeroed just before: 8 + 1 batched
    fused-votes launches, 20 single-model ones, 0 mismatches);
-7. path (B), the unit-weight TM: one round of one local epoch of a
+8. path (B), the unit-weight TM: one round of one local epoch of a
    20-client ``weighted=False`` federation through the per-sample scan
    (clause outputs once and the keyed TA transition once per sample
    step),
@@ -41,11 +49,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    cohort, the fused votes once per round over all 20 clients), its
    round lines and round times, and each round's active and aggregated
    counts against the scheduler's draw recomputed on the card;
-8. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
+9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM) and a small checkpoint + serve on
    the card against the same on the CPU, bit for bit;
-9. time each kernel at its path's shapes with CUDA events, beside its
+10. time each kernel at its path's shapes with CUDA events, beside its
    plain version, a one-call PyTorch yardstick where one exists, and the
    bound from bytes and operations; print each kernel's device time
    alone (profiler), without its wrapper's host work; the vote kernels
@@ -60,7 +68,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    TA transition at path (B)'s last step (its launch plan, its Type I
    and Type II rows, bytes against hashing, and its time with no row
    listed);
-10. profile one more full-width round of the training path, one of
+11. profile one more full-width round of the training path, one of
    path (B) and one of path (C) (device busy share, top ops; path (B)'s
    round also without the profiler), then print the kernel times as one
    JSON line.
@@ -104,8 +112,10 @@ EITHER_PIPE = ("VIADD", "VIADDMNMX", "VIMNMX")  # sm_90 ops, pipe unstated
 K1_KW = dict(n_states=63, T=40, p_inc=0.8, p_dec=0.2)
 
 RUN_DIR = ROOT / "build" / "chip_smoke"          # checkpoints, registry
-SCENARIO = ["--dataset", "mnist", "--clauses", "300", "--clients", "20",
-            "--local-epochs", "2", "--device", "cuda"]
+DATA_DIR = RUN_DIR / "data"                      # the IDX mirror's files
+SCENARIO = ["--dataset", "mnist", "--data-dir", str(DATA_DIR), "--clauses",
+            "300", "--clients", "20", "--local-epochs", "2", "--device",
+            "cuda"]
 MAIN_ARGS = SCENARIO + ["--rounds", "2", "--ckpt-dir", str(RUN_DIR / "ckpt"),
                         "--ckpt-every", "1"]
 SERVE_ARGS = SCENARIO + ["--ckpt-dir", str(RUN_DIR / "ckpt"), "--batch",
@@ -117,6 +127,11 @@ PATH_C_ARGS = SCENARIO + ["--rounds", "2", "--strategy", "fedtm",
                           "--dropout", "0.1", "--straggler", "0.2",
                           "--max-staleness", "2"]
 TA_P = (0.9, 0.7)   # float32(p) < p: a float64 compare would differ
+# partition.sha256 of the full-width scenario's ClientData (mnist through
+# the mirror, seed 0, 20 clients, experiment 5): the reference's draw,
+# pinned to the live reference by tests/test_torch_data.py
+FULL_WIDTH_SHA256 = \
+    "128c0854eed28842732a3466b44679a1c740d327264909df5a78b030d2e90f5c"
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -390,6 +405,7 @@ def main() -> int:
     from repro_torch import random as rnd
     from repro_torch.core import tm
     from repro_torch.data import partition, synthetic
+    from repro_torch.data.ingest import mirror, natural, registry
     from repro_torch.fl.runtime import (Engine, FedTMStrategy,
                                         RuntimeConfig, Scheduler,
                                         SchedulerConfig, TPFLStrategy)
@@ -485,8 +501,49 @@ def main() -> int:
     torch.cuda.synchronize()
     del include, lits, wpol, inc, args, want, ta, got
 
-    # 4. the training path at full width, through the CLI entry point
+    # 4. the data path, each step timed on the card
     shutil.rmtree(RUN_DIR, ignore_errors=True)
+    setup = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        setup[name] = time.perf_counter() - t
+        return out
+
+    timed("pool_draw", lambda: synthetic.make_dataset(
+        "synthmnist", 6000, rnd.PRNGKey(0, dev), side=28))
+    timed("mirror_write", lambda: mirror.write_idx_mirror(
+        DATA_DIR / "mnist", "synthmnist", 6000, 28, 0, device=dev))
+    pool = timed("mirror_read_encode", lambda: registry.load(
+        "mnist", DATA_DIR, n_samples=6000, side=12, seed=0, device=dev))
+    full = [timed(f"partition_{i}", lambda: natural.partition_pool(
+        pool, n_clients=20, n_train=80, n_test=40, n_conf=40,
+        key=rnd.PRNGKey(1, dev), experiment=5)) for i in (1, 2)]
+    print("data path set-up (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in setup.items()), flush=True)
+    digests = {partition.sha256(d) for d in full}
+    print(f"check full-width partition: sha256 {sorted(digests)} "
+          f"(reference {FULL_WIDTH_SHA256})", flush=True)
+    if digests != {FULL_WIDTH_SHA256}:
+        raise SystemExit("the full-width partition drawn on the card is "
+                         "not the reference's")
+    small_parts = []
+    for d in ("cpu", dev):
+        x6, y6, _ = synthetic.make_dataset("synthmnist", 600,
+                                           rnd.PRNGKey(0, d), side=12)
+        small_parts.append(partition.sha256(partition.partition(
+            x6, y6, 10, n_clients=6, experiment=3, key=rnd.PRNGKey(42, d),
+            n_train=16, n_test=8, n_conf=8)))
+    if small_parts[0] != small_parts[1]:
+        raise SystemExit("the 6-client partition differs between the card "
+                         "and the CPU")
+    print("check 6-client partition: GPU == CPU bit for bit", flush=True)
+    del pool, full
+
+    # 5. the training path at full width, through the CLI entry point
     round_s = []
     run_round = Engine.run_round
 
@@ -515,7 +572,7 @@ def main() -> int:
           f"{[round(s, 3) for s in round_s]} s), peak device memory "
           f"{peak / 2**30:.2f} GiB, launches {launches}", flush=True)
 
-    # 5. the path went through its kernels, and its output is sane
+    # 6. the path went through its kernels, and its output is sane
     for name in ("fused_votes_batched", "train_epoch_fused"):
         if launches[name] <= 0:
             raise SystemExit(f"{name} never launched on the training path")
@@ -535,7 +592,8 @@ def main() -> int:
 
     # Alg. 1 as written, and the §7 multi-cluster, thresholded,
     # weighted-confidence variant
-    x, y, _ = synthetic.make_pool("synthmnist", 400, seed=0)
+    x, y, _ = synthetic.make_dataset("synthmnist", 400, rnd.PRNGKey(0, "cpu"),
+                                     side=12)
     small_cfg = tm.TMConfig(n_classes=10, n_clauses=16, n_features=144,
                             n_states=63, s=5.0, T=40)
     for kw in ({}, dict(top_classes=2, conf_threshold=2.0,
@@ -543,8 +601,8 @@ def main() -> int:
         small = []
         for d in ("cpu", "cuda"):
             data = partition.partition(x, y, 10, n_clients=4, experiment=5,
-                                       seed=1, n_train=16, n_test=8,
-                                       n_conf=8, device=d)
+                                   key=rnd.PRNGKey(1, d), n_train=16,
+                                   n_test=8, n_conf=8)
             eng = Engine(TPFLStrategy(small_cfg, local_epochs=2, **kw),
                          data, RuntimeConfig(rounds=2))
             st, reps = eng.run(rnd.PRNGKey(5, d))
@@ -559,7 +617,7 @@ def main() -> int:
         print(f"check small federation {kw}: GPU == CPU bit for bit",
               flush=True)
 
-    # 6. path (A): serve the training path's newest checkpoint
+    # 7. path (A): serve the training path's newest checkpoint
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
     t0 = time.perf_counter()
@@ -590,10 +648,11 @@ def main() -> int:
               f"(us) {[round(t * 1e6) for t in out['latencies_s']]}",
               flush=True)
 
-    # 7. path (B): the unit-weight TM through the per-sample scan, then
+    # 8. path (B): the unit-weight TM through the per-sample scan, then
     # the single-model API on one client
     data, cfg, _, _ = fed_train.build_scenario(
-        dataset="mnist", clients=20, clauses=300, device=dev)
+        dataset="mnist", data_dir=str(DATA_DIR), clients=20, clauses=300,
+        device=dev)
     unit = dataclasses.replace(cfg, weighted=False)
     eng_b = Engine(TPFLStrategy(unit, local_epochs=1), data,
                    RuntimeConfig(rounds=1))
@@ -674,8 +733,8 @@ def main() -> int:
     # the scheduler's draw, recomputed on the card from the same keys
     # (the engine's ``sample`` draws on the host)
     data_c, _, _, fedtm = fed_train.build_scenario(
-        dataset="mnist", clients=20, clauses=300, strategy="fedtm",
-        device=dev)
+        dataset="mnist", data_dir=str(DATA_DIR), clients=20, clauses=300,
+        strategy="fedtm", device=dev)
     sched_c = Scheduler(SchedulerConfig(**PATH_C), 20, data_c.sizes)
     k_rounds = rnd.split(rnd.PRNGKey(0, dev))[1]
     for rep in result_c["reports"]:
@@ -703,13 +762,13 @@ def main() -> int:
             or st_c.server.slots.shape != (1, 3000):
         raise SystemExit("path (C): final state out of range")
 
-    # 8. small runs on the card against the same on the CPU: the
+    # 9. small runs on the card against the same on the CPU: the
     # unit-weight federation, and a checkpoint and its serving
     small = []
     for d in ("cpu", "cuda"):
         part = partition.partition(x, y, 10, n_clients=4, experiment=5,
-                                   seed=1, n_train=8, n_test=8, n_conf=8,
-                                   device=d)
+                                   key=rnd.PRNGKey(1, d), n_train=8,
+                                   n_test=8, n_conf=8)
         st, reps = Engine(TPFLStrategy(dataclasses.replace(
             small_cfg, weighted=False), local_epochs=2), part,
             RuntimeConfig(rounds=2)).run(rnd.PRNGKey(5, d))
@@ -730,8 +789,8 @@ def main() -> int:
         small = []
         for d in ("cpu", "cuda"):
             part = partition.partition(x, y, 10, n_clients=6, experiment=5,
-                                       seed=1, n_train=16, n_test=8,
-                                       n_conf=8, device=d)
+                                   key=rnd.PRNGKey(1, d), n_train=16,
+                                   n_test=8, n_conf=8)
             cls = FedTMStrategy if name == "fedtm" else TPFLStrategy
             rt = RuntimeConfig(rounds=2, scheduler=SchedulerConfig(**sched))
             st, reps = Engine(cls(small_cfg, local_epochs=2), part,
@@ -774,11 +833,12 @@ def main() -> int:
     print("check small checkpoint + serve: checkpoints byte-identical, "
           "predictions GPU == CPU", flush=True)
 
-    # 9. times at each path's shapes
+    # 10. times at each path's shapes
     cfg = tm.TMConfig(n_classes=10, n_clauses=300, n_features=784,
                       n_states=63, s=5.0, T=40)
     data, _, _, strategy = fed_train.build_scenario(
-        dataset="mnist", clients=20, clauses=300, device=dev)
+        dataset="mnist", data_dir=str(DATA_DIR), clients=20, clauses=300,
+        device=dev)
     include = tm.include_mask(state.client_state, cfg)
     lits = tm.literals(data.x_test)
     wpol = tm.clause_polarity(cfg, dev) * state.client_state.weights
@@ -1052,7 +1112,7 @@ def main() -> int:
           f"p50={served['p50_s'] * 1e6:.0f}us p99={served['p99_s'] * 1e6:.0f}"
           f"us per batch of 32; unit-weight round {unit_s:.3f}s", flush=True)
 
-    # 10. one more full-width round of the training path and of path (B)
+    # 11. one more full-width round of the training path and of path (B)
     # under torch.profiler; path (B)'s also without it, by host clock
     del epoch
     profile_round(Engine(strategy, data, RuntimeConfig(rounds=1)), state,

@@ -1,7 +1,7 @@
 """Federated serving CLI: personalized inference as a service.
 
 Counterpart of ``repro/launch/fed_serve.py`` for what the port supports:
-TPFL over a resident population.  ``fed_train --ckpt-dir D --ckpt-every
+TPFL or FedTM over a resident population.  ``fed_train --ckpt-dir D --ckpt-every
 k`` leaves round checkpoints behind; this CLI stands up the serving
 plane over them:
 
@@ -17,8 +17,8 @@ plane over them:
    each batch is one ``predict_batched`` call (one fused-votes-batched
    launch on the GPU).  Between batches the plane polls ``refresh()``.
 
-The scenario flags (``--dataset --clients --clauses --seed ...``) must
-repeat the training run's.  ``--verify-offline`` then serves one
+The scenario flags (``--strategy --dataset --data-dir --encoding
+--clients --clauses --seed ...``) must repeat the training run's.  ``--verify-offline`` then serves one
 covering batch (every client once) and checks each client's served
 prediction against ``tm.predict`` on its resolved row (one fused-votes
 launch per client); the process exits 1 on any mismatch.
@@ -42,10 +42,10 @@ import torch
 from repro_torch import device as devices
 from repro_torch import random as rnd
 from repro_torch.core import tm
-from repro_torch.data import synthetic
+from repro_torch.data.ingest import registry as datasets
 from repro_torch.fl.runtime import Engine, RuntimeConfig, checkpointing
 from repro_torch.fl.serve import ModelRegistry, ServeTelemetry, ServingPlane
-from repro_torch.launch.fed_train import build_scenario
+from repro_torch.launch.fed_train import STRATEGY_CHOICES, build_scenario
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -53,8 +53,11 @@ def main(argv: list[str] | None = None) -> dict:
         description="Federated serving plane on PyTorch: personalized "
                     "inference from a versioned model registry")
     # scenario — must match the training run (rebuilds its layout)
+    ap.add_argument("--strategy", default="tpfl", choices=STRATEGY_CHOICES)
     ap.add_argument("--dataset", default="synthmnist",
-                    choices=synthetic.DATASETS)
+                    choices=datasets.names())
+    ap.add_argument("--data-dir", default=None)
+    ap.add_argument("--encoding", default="bool", metavar="SPEC")
     ap.add_argument("--experiment", type=int, default=5)
     ap.add_argument("--clients", type=int, default=20)
     ap.add_argument("--clauses", type=int, default=48)
@@ -90,9 +93,11 @@ def main(argv: list[str] | None = None) -> dict:
         pathlib.Path(args.ckpt_dir) / "registry")
 
     data, tm_cfg, _, strategy = build_scenario(
-        dataset=args.dataset, clients=args.clients, clauses=args.clauses,
+        dataset=args.dataset, data_dir=args.data_dir,
+        encoding=args.encoding, clients=args.clients, clauses=args.clauses,
         seed=args.seed, experiment=args.experiment,
-        local_epochs=args.local_epochs, device=device)
+        local_epochs=args.local_epochs, strategy=args.strategy,
+        device=device)
     engine = Engine(strategy, data, RuntimeConfig())
     # the engine's key chain is k_init, k_rounds = split(PRNGKey(seed))
     k_init = rnd.split(rnd.PRNGKey(args.seed, device))[0]
@@ -118,7 +123,8 @@ def main(argv: list[str] | None = None) -> dict:
     plane.refresh()
     n = args.clients
     n_test = int(data.x_test.shape[1])
-    print(f"serving tpfl version {plane.active_version} [{device}] over "
+    print(f"serving {args.strategy} version {plane.active_version} "
+          f"[{device}] over "
           f"{n} clients (store=resident): {args.requests} batches of "
           f"{args.batch}", flush=True)
 

@@ -2,12 +2,14 @@
 
 Counterpart of ``repro/launch/fed_train.py``'s CLI for the configuration
 this slice of the port supports: TPFL or FedTM, sync, the float32 wire,
-in process, under the reference's scheduler flags (the reference's other
-knobs come with later slices, ROADMAP.md):
+in process, under the reference's scheduler flags, on the reference's
+data path (the reference's other knobs come with later slices,
+ROADMAP.md):
 
   PYTHONPATH=src python -m repro_torch.launch.fed_train \\
-      --dataset mnist --clauses 300 --clients 20 --rounds 2 \\
-      [--strategy fedtm] [--participation P | --active K] \\
+      --dataset mnist --data-dir DATA --clauses 300 --clients 20 \\
+      --rounds 2 [--encoding thermometer:2] [--strategy fedtm] \\
+      [--participation P | --active K] \\
       [--sampling uniform|weighted|round_robin] [--dropout D] \\
       [--straggler S --max-staleness M]
 
@@ -27,7 +29,7 @@ import numpy as np
 from repro_torch import device as devices
 from repro_torch import random as rnd
 from repro_torch.core import federation, tm
-from repro_torch.data import partition, synthetic
+from repro_torch.data.ingest import natural, registry
 from repro_torch.fl.runtime import (Engine, FedTMStrategy, RuntimeConfig,
                                     SchedulerConfig, checkpointing)
 from repro_torch.fl.runtime.scheduler import SAMPLING
@@ -47,21 +49,25 @@ def worst_decile_mean(per_client_accuracy) -> float:
     return float(acc[:max(1, int(np.ceil(acc.size / 10)))].mean())
 
 
-def build_scenario(*, dataset: str, clients: int = 20, clauses: int = 48,
-                   seed: int = 0, experiment: int = 5, rounds: int = 5,
-                   local_epochs: int = 2, strategy: str = "tpfl",
-                   device=None):
-    """(partitioned client data, TM config, fed config, strategy), with
-    the reference scenario's settings: a 6000-sample pool, 80 / 40 / 40
-    train / test / confidence samples per client, n_states=63, s=5, T=40.
-    The data lies on ``device``, the GPU unless the caller names another.
-    """
-    x, y, dcfg = synthetic.make_pool(dataset, 6000, seed)
-    data = partition.partition(
-        x, y, dcfg.n_classes, n_clients=clients, experiment=experiment,
-        seed=seed + 1, n_train=80, n_test=40, n_conf=40, device=device)
-    tm_cfg = tm.TMConfig(n_classes=dcfg.n_classes, n_clauses=clauses,
-                         n_features=dcfg.n_features, n_states=63, s=5.0,
+def build_scenario(*, dataset: str, data_dir: str | None = None,
+                   encoding: str = "bool", clients: int = 20,
+                   clauses: int = 48, seed: int = 0, experiment: int = 5,
+                   rounds: int = 5, local_epochs: int = 2,
+                   strategy: str = "tpfl", device=None):
+    """(partitioned client data, TM config, fed config, strategy), as the
+    reference builds them: the registry's pool (``n_samples=6000``,
+    ``side=12``, from ``seed``; through the IDX mirror under
+    ``data_dir``), split by ``partition_pool`` from ``PRNGKey(seed + 1)``
+    into 80 / 40 / 40 train / test / confidence samples a client, and a
+    TM with n_states=63, s=5, T=40.  The data lies on ``device``, the
+    GPU unless the caller names another."""
+    pool = registry.load(dataset, data_dir, encoding=encoding,
+                         n_samples=6000, side=12, seed=seed, device=device)
+    data = natural.partition_pool(
+        pool, n_clients=clients, n_train=80, n_test=40, n_conf=40,
+        key=rnd.PRNGKey(seed + 1, pool.x.device), experiment=experiment)
+    tm_cfg = tm.TMConfig(n_classes=pool.n_classes, n_clauses=clauses,
+                         n_features=pool.n_features, n_states=63, s=5.0,
                          T=40)
     fed_cfg = federation.FedConfig(n_clients=clients, rounds=rounds,
                                    local_epochs=local_epochs)
@@ -76,8 +82,15 @@ def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(
         description="TPFL / FedTM federation on PyTorch (GPU by default)")
     ap.add_argument("--dataset", default="synthmnist",
-                    choices=synthetic.DATASETS,
-                    help="synthmnist = 12x12 pool, mnist = 28x28 pool")
+                    choices=registry.names())
+    ap.add_argument("--data-dir", default=None,
+                    help="dataset cache (IDX files; the offline mirror "
+                         "populates it, real files are used as they "
+                         "are).  Required for the real flavours; synth* "
+                         "fall back to in-memory generation without it")
+    ap.add_argument("--encoding", default="bool", metavar="SPEC",
+                    help="feature encoding: bool[:threshold] | "
+                         "thermometer[:levels] | quantile[:levels]")
     ap.add_argument("--strategy", default="tpfl", choices=STRATEGY_CHOICES)
     ap.add_argument("--clients", type=int, default=20)
     ap.add_argument("--active", type=int, default=None, metavar="K",
@@ -117,7 +130,8 @@ def main(argv: list[str] | None = None) -> dict:
     device = (devices.default_device() if args.device == "cuda"
               else devices.resolve(args.device))
     data, tm_cfg, fed_cfg, strategy = build_scenario(
-        dataset=args.dataset, clients=args.clients, clauses=args.clauses,
+        dataset=args.dataset, data_dir=args.data_dir,
+        encoding=args.encoding, clients=args.clients, clauses=args.clauses,
         seed=args.seed, experiment=args.experiment, rounds=args.rounds,
         local_epochs=args.local_epochs, strategy=args.strategy,
         device=device)
@@ -140,7 +154,7 @@ def main(argv: list[str] | None = None) -> dict:
                         "download_bytes_broadcast": 0,
                         "download_bytes_per_client": 0}
     print(f"{args.strategy} on {args.dataset} "
-          f"[{tm_cfg.n_features}f, m={tm_cfg.n_clauses}] "
+          f"[{args.encoding}, {tm_cfg.n_features}f, m={tm_cfg.n_clauses}] "
           f"exp{args.experiment}: {args.clients} clients, "
           f"K={engine.scheduler.k}/round, dropout={args.dropout}, "
           f"codec=float32, mode=sync, device={device}", flush=True)

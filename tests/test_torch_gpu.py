@@ -45,6 +45,34 @@ def cuda():
     return torch.device("cuda")
 
 
+def _population(dev, n_clients, n_train, n_test=8, n_conf=8):
+    """Pool seed 0 (400 synthmnist samples) split from key 1, both drawn
+    on ``dev``."""
+    x, y, _ = synthetic.make_dataset("synthmnist", 400, tr.PRNGKey(0, dev),
+                                     side=12)
+    return partition.partition(x, y, 10, n_clients=n_clients, experiment=5,
+                               key=tr.PRNGKey(1, dev), n_train=n_train,
+                               n_test=n_test, n_conf=n_conf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flavour,n_classes", [("synthmnist", 10),
+                                               ("synthfemnist", 62)])
+def test_gpu_data_path_matches_cpu(cuda, flavour, n_classes):
+    """The pool and the Dirichlet partition (gamma loops, XLA's float32
+    functions, the Gumbel row pick), drawn on the card, equal the CPU's
+    draw bit for bit."""
+    runs = []
+    for dev in ("cpu", cuda):
+        x, y, _ = synthetic.make_dataset(flavour, 600, tr.PRNGKey(0, dev),
+                                         side=12)
+        data = partition.partition(x, y, n_classes, n_clients=6,
+                                   experiment=3, key=tr.PRNGKey(42, dev),
+                                   n_train=16, n_test=8, n_conf=8)
+        runs.append(partition.sha256(data))
+    assert runs[0] == runs[1]
+
+
 def _vote_inputs(rng, N, C, m, L, B, banks="mixed", wmax=7):
     """Sparse include planes, random literals and weights in
     [-wmax, wmax].  ``banks``: "mixed" (every fifth clause empty),
@@ -236,12 +264,9 @@ def test_gpu_round_matches_cpu_round(cuda, strategy_kw):
     """The kernel path on the card equals the plain path on the CPU, for
     Alg. 1 as written and for the §7 multi-cluster, thresholded and
     weighted-confidence variant."""
-    x, y, _ = synthetic.make_pool("synthmnist", 400, seed=0)
     runs = []
     for dev in ("cpu", "cuda"):
-        data = partition.partition(x, y, 10, n_clients=4, experiment=5,
-                                   seed=1, n_train=16, n_test=8, n_conf=8,
-                                   device=dev)
+        data = _population(dev, 4, n_train=16)
         eng = Engine(TPFLStrategy(ttm.TMConfig(**TM), local_epochs=2,
                                   **strategy_kw),
                      data, RuntimeConfig(rounds=2))
@@ -409,12 +434,9 @@ def test_ta_update_kernel_refuses_equal_classes(cuda):
 def test_gpu_unweighted_round_matches_cpu_round(cuda):
     """weighted=False trains through the per-sample scan: on the card it
     launches clause_outputs once and ta_update once per sample step."""
-    x, y, _ = synthetic.make_pool("synthmnist", 400, seed=0)
     runs = []
     for dev in ("cpu", "cuda"):
-        data = partition.partition(x, y, 10, n_clients=4, experiment=5,
-                                   seed=1, n_train=6, n_test=8, n_conf=8,
-                                   device=dev)
+        data = _population(dev, 4, n_train=6)
         eng = Engine(TPFLStrategy(ttm.TMConfig(**TM, weighted=False),
                                   local_epochs=2),
                      data, RuntimeConfig(rounds=2))
@@ -438,9 +460,7 @@ def test_gpu_unweighted_round_draws_no_plane(cuda, monkeypatch):
     with repro_torch.random's uniform and mantissa_bits refusing any draw
     of more than m values a key, a round still runs, through one
     ta_update launch a sample step."""
-    x, y, _ = synthetic.make_pool("synthmnist", 400, seed=0)
-    data = partition.partition(x, y, 10, n_clients=4, experiment=5, seed=1,
-                               n_train=6, n_test=8, n_conf=8, device=cuda)
+    data = _population(cuda, 4, n_train=6)
     cfg = ttm.TMConfig(**TM, weighted=False)
     eng = Engine(TPFLStrategy(cfg, local_epochs=1), data,
                  RuntimeConfig(rounds=1))
@@ -516,6 +536,26 @@ def test_xla_log_same_on_gpu_and_cpu(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["exp", "log1p", "sqrt", "rsqrt",
+                                  "erf_inv", "reduce_sum"])
+def test_xla_functions_same_on_gpu_and_cpu(cuda, name):
+    """The data path's other XLA:CPU float32 functions give the same bits
+    on the card as on the CPU."""
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal(1_000_000)
+         * np.exp(rng.uniform(-10, 5, 1_000_000))).astype(np.float32)
+    if name == "erf_inv":
+        x = np.tanh(x).astype(np.float32)
+    x[:8] = [0.0, -0.0, 1e-40, -1e-40, np.inf, np.nan, 1.0, -1.0]
+    x = torch.from_numpy(x).reshape(-1, 40 if name == "reduce_sum" else 1)
+    fn = getattr(xla_f32, name)
+    a, b = fn(x), fn(x.to(cuda)).cpu()
+    assert torch.equal(a.isnan(), b.isnan())
+    ok = ~a.isnan()
+    assert torch.equal(a[ok].view(torch.int32), b[ok].view(torch.int32))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kw", [
     dict(participation=0.5, dropout=0.2, straggler=0.3),
     dict(participation=0.5, sampling="weighted", dropout=0.2),
@@ -547,12 +587,9 @@ def test_gpu_partial_round_matches_cpu_round(cuda, strategy, sched):
     fused epochs (one launch per local epoch) and the population's
     evaluation (one fused-votes launch; TPFL adds its confidence pass)
     on the card equal the plain path on the CPU."""
-    x, y, _ = synthetic.make_pool("synthmnist", 400, seed=0)
     runs = []
     for dev in ("cpu", "cuda"):
-        data = partition.partition(x, y, 10, n_clients=6, experiment=5,
-                                   seed=1, n_train=16, n_test=8, n_conf=8,
-                                   device=dev)
+        data = _population(dev, 6, n_train=16)
         cls = FedTMStrategy if strategy == "fedtm" else TPFLStrategy
         eng = Engine(cls(ttm.TMConfig(**TM), local_epochs=2), data,
                      RuntimeConfig(rounds=2,

@@ -69,17 +69,26 @@ def test_default_device_refuses_a_gpu_less_host(monkeypatch):
         fed_serve.main(["--clients", "2", "--ckpt-dir", "unused"])
 
 
-def _host_value_makers():
+def _host_value_makers(tmp_path):
     from repro_torch import convert
     from repro_torch import random as tr
     from repro_torch.data import partition, synthetic
+    from repro_torch.data.ingest import mirror, registry
     from repro_torch.launch import fed_train
-    x, y, _ = synthetic.make_pool("synthmnist", 50, seed=0)
+    x, y, _ = synthetic.make_dataset("synthmnist", 50, tr.PRNGKey(0, "cpu"),
+                                     side=12)
     return {
         "PRNGKey": lambda: tr.PRNGKey(0),
         "partition": lambda: partition.partition(
-            x, y, 10, n_clients=2, experiment=1, seed=1, n_train=2,
-            n_test=2, n_conf=2),
+            x.numpy(), y.numpy(), 10, n_clients=2, experiment=1,
+            key=tr.PRNGKey(1), n_train=2, n_test=2, n_conf=2),
+        "make_dataset": lambda: synthetic.make_dataset(
+            "synthmnist", 50, tr.PRNGKey(0), side=12),
+        "registry.load": lambda: registry.load("synthmnist", n_samples=50),
+        "registry.load_mirror": lambda: registry.load(
+            "mnist", tmp_path, n_samples=50),
+        "write_idx_mirror": lambda: mirror.write_idx_mirror(
+            tmp_path, "synthmnist", 50, 12, 0),
         "build_scenario": lambda: fed_train.build_scenario(
             dataset="synthmnist", clients=2),
         "key_from_numpy": lambda: convert.key_from_numpy([0, 1]),
@@ -90,15 +99,20 @@ def _host_value_makers():
     }
 
 
-@pytest.mark.parametrize("name", ["PRNGKey", "partition", "build_scenario",
-                                  "key_from_numpy", "tm_params_from_numpy",
-                                  "engine_state_from_numpy"])
-def test_tensors_from_host_values_default_to_the_gpu(monkeypatch, name):
+@pytest.mark.parametrize("name", [
+    "PRNGKey", "partition", "make_dataset", "registry.load",
+    "registry.load_mirror", "write_idx_mirror", "build_scenario",
+    "key_from_numpy", "tm_params_from_numpy", "engine_state_from_numpy"])
+def test_tensors_from_host_values_default_to_the_gpu(monkeypatch, tmp_path,
+                                                     name):
+    """The partition draws on its key's device, so a GPU default for the
+    key (``PRNGKey``) is the partition's too."""
     import torch
-    make = _host_value_makers()[name]
+    make = _host_value_makers(tmp_path)[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
+    assert not any(tmp_path.iterdir())   # nothing written before refusing
 
 
 def test_codec_copy_is_byte_identical():

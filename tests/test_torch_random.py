@@ -1,5 +1,8 @@
 """repro_torch.random is bit-equal to jax.random (threefry, partitionable
-mode) over several seeds and shapes, including batched keys."""
+mode) over several seeds and shapes, including batched keys: bits,
+uniform (also with bounds), bernoulli, randint, and the float draws of
+the data path — normal, exponential, loggamma, dirichlet at the alphas
+the partition uses (10000, 0.05, 1.0) and 0.3, and categorical."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -82,3 +85,75 @@ def test_chunked_hash_matches_one_pass(monkeypatch):
     whole = tr.bits(tk, (41, 37))
     monkeypatch.setitem(tr._CHUNK, "cpu", 50)
     torch.testing.assert_close(tr.bits(tk, (41, 37)), whole, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_uniform_with_bounds(seed):
+    jk, tk = _key(seed)
+    for lo, hi in ((-1.0, 3.0), (0.1, 0.7), (-0.99999994, 1.0)):
+        _eq(jax.random.uniform(jk, (500,), minval=lo, maxval=hi),
+            tr.uniform(tk, (500,), lo, hi))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", [(), (7,), (40, 50)])
+def test_normal_exponential(seed, shape):
+    jk, tk = _key(seed)
+    _eq(jax.random.normal(jk, shape), tr.normal(tk, shape))
+    _eq(jax.random.exponential(jk, shape), tr.exponential(tk, shape))
+
+
+ALPHAS = [10000.0, 0.05, 1.0, 0.3]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("alpha", ALPHAS + [2.5])
+def test_loggamma(seed, alpha):
+    """400 lanes a call: the boost below 1, rejections, and the inner
+    redraw of v <= 0 (frequent at alpha near 1) all occur."""
+    jk, tk = _key(seed)
+    a = np.full((400,), alpha, np.float32)
+    _eq(jax.random.loggamma(jk, jnp.asarray(a)),
+        tr.loggamma(tk, torch.from_numpy(a)))
+    _eq(jax.random.loggamma(jk, jnp.float32(alpha), (3, 5)),
+        tr.loggamma(tk, alpha, (3, 5)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("alpha", ALPHAS)
+@pytest.mark.parametrize("n_classes,shape", [
+    (10, (20,)), (10, (6,)), (62, (5,)), (20, None), (6, None)])
+def test_dirichlet(seed, alpha, n_classes, shape):
+    """Client mixtures (n, C) and pool shares (C,), as the partition
+    draws them; 62 classes sum in XLA's windowed order."""
+    jk, tk = _key(seed)
+    a = np.full((n_classes,), alpha, np.float32)
+    _eq(jax.random.dirichlet(jk, jnp.asarray(a), shape),
+        tr.dirichlet(tk, torch.from_numpy(a), shape))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_categorical(seed):
+    """Unbatched, and with a batch of keys and logits (the written-out
+    vmap of the partition's label draw), from log(p + 1e-9)."""
+    jk, tk = _key(seed)
+    rng = np.random.default_rng(seed % 1000)
+    p = rng.dirichlet(np.full(10, 0.3), 4).astype(np.float32)
+    logits = np.asarray(jnp.log(jnp.asarray(p) + 1e-9))
+    _eq(jax.random.categorical(jk, jnp.asarray(logits[0]), shape=(300,)),
+        tr.categorical(tk, torch.from_numpy(logits[0]), (300,)))
+    jks, tks = jax.random.split(jk, 4), tr.split(tk, 4)
+    _eq(jax.vmap(lambda k, lg: jax.random.categorical(k, lg, shape=(50,)))(
+        jks, jnp.asarray(logits)),
+        tr.categorical(tks, torch.from_numpy(logits), (50,)))
+
+
+def test_gumbel_at_equals_gumbel():
+    """The gumbel values at chosen flat positions, row by row with a key
+    a row, are those of the whole draw."""
+    tks = tr.split(tr.PRNGKey(9, "cpu"), 3)
+    whole = tr.gumbel(tks, (4, 25))
+    ctr = torch.tensor([[0, 7, 99], [3, 3, 50], [98, 1, 2]])
+    got = tr.gumbel_at(tks, ctr)
+    want = torch.gather(whole.reshape(3, 100), 1, ctr)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

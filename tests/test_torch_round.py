@@ -1,6 +1,7 @@
 """2-round TPFL and FedTM federations on the JAX engine (sync, in
-process, ``tm_backend="ref"``) and on the port, from one ClientData
-handed across and the same seed, at full and partial participation
+process, ``tm_backend="ref"``) and on the port, each on the ClientData
+its own partition draws from the same seeds, at full and partial
+participation
 (uniform, weighted and round-robin sampling, dropout, stragglers):
 reports, byte totals and final state are bit-identical.
 
@@ -8,21 +9,24 @@ reports, byte totals and final state are bit-identical.
 clients whose summation order XLA and torch choose independently; every
 other float (per-client accuracy, server rows) is held bit for bit."""
 import dataclasses
+import re
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core import tm as jtm
-from repro.data.partition import ClientData as JClientData
+from repro.data import partition as jpartition
+from repro.data import synthetic as jsynthetic
 from repro.fl.runtime import Engine as JEngine
 from repro.fl.runtime import RuntimeConfig as JRuntimeConfig
 from repro.fl.runtime import SchedulerConfig as JSchedulerConfig
 from repro.fl.runtime import TPFLStrategy as JTPFLStrategy
 from repro.fl.runtime.strategy import FedTMStrategy as JFedTMStrategy
+from repro.launch import fed_train as jfed_train
 from repro_torch import convert
+from repro_torch import random as tr
 from repro_torch.core import tm as ttm
 from repro_torch.data import partition, synthetic
 from repro_torch.fl.runtime import (Engine, FedTMStrategy, RuntimeConfig,
@@ -35,16 +39,21 @@ TM = dict(n_classes=10, n_clauses=16, n_features=144, n_states=63, s=5.0,
           T=40)
 
 
+SPLIT = dict(n_clients=6, experiment=5, n_train=24, n_test=12, n_conf=12)
+
+
 def _engines(rounds, strategy="tpfl", sched=None, **strategy_kw):
-    """The JAX engine and the port's engine over one numpy-built
-    population (its pool shares ``sizes`` included), with the same
-    strategy and scheduler settings."""
-    x, y, _ = synthetic.make_pool("synthmnist", 600, seed=0)
-    data = partition.partition(x, y, 10, n_clients=6, experiment=5, seed=1,
-                               n_train=24, n_test=12, n_conf=12, device="cpu")
-    fields = convert.to_numpy(data._asdict())
-    jdata = JClientData(**{k: None if v is None else jnp.asarray(v)
-                           for k, v in fields.items()})
+    """The JAX engine and the port's engine, each over the population
+    its own package draws from pool seed 0 and partition seed 1 (the
+    same bits, pool shares ``sizes`` included: tests/test_torch_data.py),
+    with the same strategy and scheduler settings."""
+    x, y, _ = synthetic.make_dataset("synthmnist", 600, tr.PRNGKey(0, "cpu"),
+                                     side=12)
+    data = partition.partition(x, y, 10, key=tr.PRNGKey(1, "cpu"), **SPLIT)
+    jx, jy, _ = jsynthetic.make_dataset("synthmnist", 600,
+                                        jax.random.PRNGKey(0), side=12)
+    jdata = jpartition.partition(jx, jy, 10, key=jax.random.PRNGKey(1),
+                                 **SPLIT)
     if strategy == "fedtm":
         jstrat = JFedTMStrategy(jtm.TMConfig(**TM), local_epochs=2)
         tstrat = FedTMStrategy(ttm.TMConfig(**TM), local_epochs=2)
@@ -57,9 +66,8 @@ def _engines(rounds, strategy="tpfl", sched=None, **strategy_kw):
     jeng = JEngine(jstrat, jdata, JRuntimeConfig(
         rounds=rounds, scheduler=JSchedulerConfig(**sched),
         tm_backend="ref"))
-    teng = Engine(tstrat, convert.client_data_from_numpy(fields, "cpu"),
-                  RuntimeConfig(rounds=rounds,
-                                scheduler=SchedulerConfig(**sched)))
+    teng = Engine(tstrat, data, RuntimeConfig(
+        rounds=rounds, scheduler=SchedulerConfig(**sched)))
     return jeng, teng
 
 
@@ -179,9 +187,11 @@ def test_async_codecs_and_other_strategies_are_a_later_slice(capsys):
             fed_train.main(["--device", "cpu", *flags])
         assert exc.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
-    x, y, _ = synthetic.make_pool("synthmnist", 200, seed=0)
-    data = partition.partition(x, y, 10, n_clients=4, experiment=1, seed=1,
-                               n_train=4, n_test=4, n_conf=4, device="cpu")
+    x, y, _ = synthetic.make_dataset("synthmnist", 200, tr.PRNGKey(0, "cpu"),
+                                     side=12)
+    data = partition.partition(x, y, 10, n_clients=4, experiment=1,
+                               key=tr.PRNGKey(1, "cpu"), n_train=4, n_test=4,
+                               n_conf=4)
     with pytest.raises(NotImplementedError, match="later slice"):
         Engine(object(), data, RuntimeConfig(rounds=1))
 
@@ -278,3 +288,42 @@ def test_fed_train_cli_scheduler_flags(capsys):
                         "5"])
     with pytest.raises(ValueError, match="participation"):
         fed_train.main(["--device", "cpu", "--participation", "0"])
+
+
+CLI_FLAGS = {
+    "tpfl": ["--clients", "6", "--rounds", "2", "--clauses", "16",
+             "--local-epochs", "1"],
+    "fedtm_weighted": ["--clients", "6", "--rounds", "2", "--clauses", "8",
+                       "--local-epochs", "1", "--strategy", "fedtm",
+                       "--active", "3", "--sampling", "weighted",
+                       "--dropout", "0.2", "--straggler", "0.3",
+                       "--max-staleness", "3", "--seed", "4",
+                       "--experiment", "3"],
+}
+
+
+def _report_lines(text: str) -> list[str]:
+    """The round lines without their mean accuracy, the totals line,
+    the weighted-sampling banner and the final deciles."""
+    keep = ("round ", "totals:", "weighted sampling", "final per-client")
+    return [re.sub(r" acc=\S+", "", line) for line in text.splitlines()
+            if line.startswith(keep)]
+
+
+@pytest.mark.parametrize("case", CLI_FLAGS)
+def test_fed_train_cli_prints_the_reference_lines(case, capsys):
+    """The two CLIs, given the same flags, each draw their own pool and
+    partition and print the same round, totals, sampling and decile
+    lines; the mean accuracy is held within 1e-6 (queue C item 3)."""
+    flags = CLI_FLAGS[case]
+    ours = fed_train.main(["--device", "cpu", *flags])
+    port_text = capsys.readouterr().out
+    ref = jfed_train.main(flags)
+    ref_text = capsys.readouterr().out
+    assert _report_lines(port_text) == _report_lines(ref_text)
+    assert len(_report_lines(port_text)) == 2 + 2 + (case != "tpfl")
+    np.testing.assert_allclose(ours["acc_per_round"], ref["acc_per_round"],
+                               rtol=0, atol=1e-6)
+    for key in ("upload_bytes", "download_bytes_broadcast",
+                "download_bytes_per_client"):
+        assert ours[key] == ref[key]

@@ -12,12 +12,14 @@
   checkpoint returns the JAX plane's predictions;
 * ``fed_train --ckpt-every 1`` then ``--resume`` equals the
   uninterrupted run, and ``fed_serve --device cpu --verify-offline``
-  passes on a port-trained run.
+  passes on a port-trained run, TPFL or FedTM (``--strategy fedtm``),
+  on the synthetic pool or through ``--data-dir`` and ``--encoding``;
+  the port's plane on a JAX-trained FedTM checkpoint returns the JAX
+  plane's predictions.
 """
 import json
 
 import jax
-import jax.numpy as jnp
 import msgpack
 import numpy as np
 import pytest
@@ -25,10 +27,12 @@ import torch
 
 from repro.checkpoint import ckpt as jckpt
 from repro.core import tm as jtm
-from repro.data.partition import ClientData as JClientData
+from repro.data import partition as jpartition
+from repro.data import synthetic as jsynthetic
 from repro.fl.runtime import Engine as JEngine
 from repro.fl.runtime import RuntimeConfig as JRuntimeConfig
 from repro.fl.runtime import TPFLStrategy as JTPFLStrategy
+from repro.fl.runtime.strategy import FedTMStrategy as JFedTMStrategy
 from repro.fl.runtime import checkpointing as jcheckpointing
 from repro.fl.serve import ModelRegistry as JModelRegistry
 from repro.fl.serve import ServingPlane as JServingPlane
@@ -37,8 +41,8 @@ from repro_torch import random as tr
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import tm as ttm
 from repro_torch.data import partition, synthetic
-from repro_torch.fl.runtime import (Engine, RuntimeConfig, TPFLStrategy,
-                                    checkpointing)
+from repro_torch.fl.runtime import (Engine, FedTMStrategy, RuntimeConfig,
+                                    TPFLStrategy, checkpointing)
 from repro_torch.fl.serve import (ChecksumError, ModelRegistry,
                                   RegistryError, ServeTelemetry,
                                   ServingPlane)
@@ -51,14 +55,27 @@ TM = dict(n_classes=10, n_clauses=12, n_features=144, n_states=63, s=5.0,
 N_CLIENTS = 6
 
 
+SPLIT = dict(n_clients=N_CLIENTS, experiment=5, n_train=16, n_test=8,
+             n_conf=8)
+
+
 @pytest.fixture(scope="module")
 def fields():
-    """One numpy-built population, as ClientData field arrays."""
-    x, y, _ = synthetic.make_pool("synthmnist", 600, seed=0)
-    data = partition.partition(x, y, 10, n_clients=N_CLIENTS, experiment=5,
-                               seed=1, n_train=16, n_test=8, n_conf=8,
-                               device="cpu")
+    """The port's population, as ClientData field arrays."""
+    x, y, _ = synthetic.make_dataset("synthmnist", 600, tr.PRNGKey(0, "cpu"),
+                                     side=12)
+    data = partition.partition(x, y, 10, key=tr.PRNGKey(1, "cpu"), **SPLIT)
     return convert.to_numpy(data._asdict())
+
+
+@pytest.fixture(scope="module")
+def jdata():
+    """The reference's own population from the same seeds (the same
+    bits as ``fields``: tests/test_torch_data.py)."""
+    jx, jy, _ = jsynthetic.make_dataset("synthmnist", 600,
+                                        jax.random.PRNGKey(0), side=12)
+    return jpartition.partition(jx, jy, 10, key=jax.random.PRNGKey(1),
+                                **SPLIT)
 
 
 def _engine(fields, cfg=None, **tm_kw):
@@ -120,12 +137,10 @@ def test_checkpoint_file_is_the_reference_encoding(tmp_path, trained):
     assert path.read_bytes() == msgpack.packb(payload)
 
 
-def test_port_restores_a_jax_checkpoint(tmp_path, fields):
+def test_port_restores_a_jax_checkpoint(tmp_path, fields, jdata):
     """The JAX engine's checkpoint holds nine leaves the port's state
     lacks (async lanes, sparse refs, error feedback); restore walks the
     port's template and ignores them."""
-    jdata = JClientData(**{k: None if v is None else jnp.asarray(v)
-                           for k, v in fields.items()})
     jeng = JEngine(JTPFLStrategy(jtm.TMConfig(**TM), local_epochs=1), jdata,
                    JRuntimeConfig(rounds=1, checkpoint_dir=str(tmp_path),
                                   checkpoint_every=1))
@@ -346,12 +361,10 @@ def test_served_equals_offline(tmp_path, fields, trained):
 
 @pytest.mark.parametrize("tm_backend", ["ref", "pallas"])
 def test_port_plane_serves_a_jax_checkpoint_as_the_jax_plane(
-        tmp_path, fields, tm_backend):
+        tmp_path, fields, jdata, tm_backend):
     """A JAX-trained population, published into both packages'
     registries: the port's plane returns the JAX plane's predictions for
     the same ids and rows."""
-    jdata = JClientData(**{k: None if v is None else jnp.asarray(v)
-                           for k, v in fields.items()})
     jeng = JEngine(JTPFLStrategy(jtm.TMConfig(**TM), local_epochs=1), jdata,
                    JRuntimeConfig(rounds=2, checkpoint_dir=str(tmp_path / "c"),
                                   checkpoint_every=2, tm_backend=tm_backend))
@@ -419,3 +432,53 @@ def test_fed_serve_verifies_offline_on_cpu(tmp_path, capsys):
              (tmp_path / "tel" / "serve_events.jsonl").read_text()
              .splitlines()]
     assert kinds == ["publish", "swap"] + ["batch"] * 4
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--dataset", "synthfashion", "--data-dir", "DATA", "--encoding",
+         "thermometer:2"]], ids=["synthmnist", "data_dir_thermometer"])
+def test_fed_serve_fedtm_verifies_offline_on_cpu(tmp_path, capsys, extra):
+    """A FedTM run served through ``--strategy fedtm``: every client's
+    served prediction equals its row's offline prediction; the scenario
+    flags (``--data-dir``, ``--encoding``) pass through to the serving
+    process's rebuild."""
+    extra = [str(tmp_path / "data") if a == "DATA" else a for a in extra]
+    flags = FLAGS + ["--strategy", "fedtm", *extra]
+    fed_train.main(flags + ["--rounds", "2", "--ckpt-dir", str(tmp_path),
+                            "--ckpt-every", "2"])
+    out = fed_serve.main(flags + ["--ckpt-dir", str(tmp_path), "--batch",
+                                  "8", "--requests", "2",
+                                  "--verify-offline"])
+    text = capsys.readouterr().out
+    assert "serving fedtm version 2" in text
+    assert "offline parity: OK (4 clients" in text
+    assert out["verified_clients"] == 4 and out["mismatches"] == 0
+    if extra:
+        assert (tmp_path / "data" / "synthfashion").is_dir()
+
+
+def test_port_plane_serves_a_jax_fedtm_checkpoint_as_the_jax_plane(
+        tmp_path, fields, jdata):
+    """A JAX-trained FedTM population, published into both packages'
+    registries: the port's plane returns the JAX plane's predictions."""
+    jeng = JEngine(JFedTMStrategy(jtm.TMConfig(**TM), local_epochs=1), jdata,
+                   JRuntimeConfig(rounds=2, checkpoint_dir=str(tmp_path / "c"),
+                                  checkpoint_every=2))
+    jeng.run(jax.random.PRNGKey(0))
+    src = jcheckpointing.latest(tmp_path / "c")
+    jreg = JModelRegistry(tmp_path / "jreg")
+    jreg.publish(src)
+    jlike = jeng.init(jax.random.split(jax.random.PRNGKey(0))[0])
+    jplane = JServingPlane(jeng.strategy, jreg, jlike)
+    jplane.refresh()
+    reg = ModelRegistry(tmp_path / "treg")
+    reg.publish(src)
+    engine = Engine(FedTMStrategy(ttm.TMConfig(**TM), local_epochs=1),
+                    convert.client_data_from_numpy(fields, "cpu"),
+                    RuntimeConfig())
+    plane = ServingPlane(engine.strategy, reg, _like(engine))
+    plane.refresh()
+    ids, x = _mixed_batch(fields)
+    np.testing.assert_array_equal(plane.predict(ids, x),
+                                  np.asarray(jplane.predict(ids, x)))
+    assert plane.active_version == jplane.active_version == 2

@@ -48,11 +48,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    before: the fused epoch once per local epoch over the 10-client
    cohort, the fused votes once per round over all 20 clients), its
    round lines and round times, and each round's active and aggregated
-   counts against the scheduler's draw recomputed on the card;
+   counts against the scheduler's draw recomputed on the card; then
+   path (D), the lossy wire: ``fed_train --codec int8 --sparse
+   --index-coding vrle --error-feedback --telemetry-dir`` at the
+   training path's width, 2 rounds of 2 local epochs (counters zeroed
+   just before: the fused epoch once per local epoch, the fused votes
+   twice a round), each round's ``up=`` / ``down_bc=`` / ``down_pc=``
+   beside the training path's float32 figures and held to the frames'
+   sizes, the round times and the medians of the spans recorded in
+   ``events.jsonl``;
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
-   and with weighted sampling; FedTM) and a small checkpoint + serve on
-   the card against the same on the CPU, bit for bit;
+   and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
+   sparse + error feedback, TPFL int4 + varint+RLE, FedTM int4 + error
+   feedback on 3 of 6 clients with drops and stragglers) and a small
+   checkpoint + serve on the card against the same on the CPU, bit for
+   bit; ``aggregate`` of 20 non-integer uploads three times on the card
+   against the CPU, bit for bit;
 10. time each kernel at its path's shapes with CUDA events, beside its
    plain version, a one-call PyTorch yardstick where one exists, and the
    bound from bytes and operations; print each kernel's device time
@@ -69,9 +81,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and Type II rows, bytes against hashing, and its time with no row
    listed);
 11. profile one more full-width round of the training path, one of
-   path (B) and one of path (C) (device busy share, top ops; path (B)'s
-   round also without the profiler), then print the kernel times as one
-   JSON line.
+   path (B), one of path (C) and one of path (D) (device busy share, top
+   ops; path (B)'s round also without the profiler), then print the
+   kernel times as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero
@@ -126,6 +138,17 @@ PATH_C_ARGS = SCENARIO + ["--rounds", "2", "--strategy", "fedtm",
                           "--active", "10", "--sampling", "weighted",
                           "--dropout", "0.1", "--straggler", "0.2",
                           "--max-staleness", "2"]
+PATH_D_WIRE = dict(name="int8", sparse=True, index_coding="vrle",
+                   error_feedback=True)
+PATH_D_ARGS = SCENARIO + ["--rounds", "2", "--codec", "int8", "--sparse",
+                          "--index-coding", "vrle", "--error-feedback",
+                          "--telemetry-dir", str(RUN_DIR / "telemetry_d")]
+# the small lossy federations held GPU == CPU: 6 clients, m = 16
+SMALL_LOSSY = (
+    ["--codec", "int8", "--sparse", "--error-feedback"],
+    ["--codec", "int4", "--sparse", "--index-coding", "vrle"],
+    ["--strategy", "fedtm", "--codec", "int4", "--error-feedback",
+     "--active", "3", "--dropout", "0.2", "--straggler", "0.3"])
 TA_P = (0.9, 0.7)   # float32(p) < p: a float64 compare would differ
 # partition.sha256 of the full-width scenario's ClientData (mnist through
 # the mirror, seed 0, 20 clients, experiment 5): the reference's draw,
@@ -406,7 +429,9 @@ def main() -> int:
     from repro_torch.core import tm
     from repro_torch.data import partition, synthetic
     from repro_torch.data.ingest import mirror, natural, registry
-    from repro_torch.fl.runtime import (Engine, FedTMStrategy,
+    from repro_torch.core import clustering
+    from repro_torch.fl import obs
+    from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
                                         RuntimeConfig, Scheduler,
                                         SchedulerConfig, TPFLStrategy)
     from repro_torch.fl.serve import ModelRegistry, ServingPlane
@@ -762,6 +787,79 @@ def main() -> int:
             or st_c.server.slots.shape != (1, 3000):
         raise SystemExit("path (C): final state out of range")
 
+    # path (D): the lossy wire (int8, sparse delta, varint+RLE indices,
+    # error feedback) at the training path's width, through the CLI entry
+    # point, with telemetry recorded
+    round_d = []
+
+    def timed_round_d(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_round(self, *a, **kw)
+        torch.cuda.synchronize()
+        round_d.append(time.perf_counter() - t)
+        return out
+
+    Engine.run_round = timed_round_d
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    try:
+        result_d = fed_train.main(PATH_D_ARGS)
+        torch.cuda.synchronize()
+    finally:
+        Engine.run_round = run_round
+    wall_d = time.perf_counter() - t0
+    launches_d = dict(ops.LAUNCHES)
+    print(f"path (D) lossy wire: {wall_d:.2f}s wall for 2 rounds (rounds "
+          f"{[round(t, 4) for t in round_d]} s), launches {launches_d}",
+          flush=True)
+    if launches_d["train_epoch_fused"] != 2 * 2 \
+            or launches_d["fused_votes_batched"] != 2 * 2:
+        raise SystemExit("path (D) did not launch the fused epoch once per "
+                         "local epoch and the fused votes twice a round")
+    # a dense int8 frame is 4 (scale) + m bytes, a sparse frame 1 more
+    # (its flag), an upload 4 more (its slot id); float32: 4·m
+    for rep_d, rep_f in zip(result_d["reports"], result["reports"]):
+        sent = int(rep_d.participation.active.sum())
+        populated = int((rep_d.cluster_counts > 0).sum())
+        applied = int((rep_d.assignment >= 0).sum())
+        print(f"path (D) round {rep_d.round_idx}: up={rep_d.upload_bytes}B "
+              f"down_bc={rep_d.download_bytes_broadcast}B "
+              f"down_pc={rep_d.download_bytes_per_client}B against "
+              f"float32 up={rep_f.upload_bytes}B "
+              f"down_bc={rep_f.download_bytes_broadcast}B "
+              f"down_pc={rep_f.download_bytes_per_client}B", flush=True)
+        if not 0 < rep_d.upload_bytes <= sent * (4 + 1 + 4 + 300) \
+                or rep_d.download_bytes_broadcast != populated * (4 + 300) \
+                or rep_d.download_bytes_per_client != applied * (4 + 300) \
+                or rep_f.upload_bytes != sent * (4 + 4 * 300):
+            raise SystemExit(f"path (D) round {rep_d.round_idx}: metered "
+                             f"bytes out of their frames' sizes")
+        acc = rep_d.per_client_accuracy
+        if acc.shape != (20,) or not bool(((acc >= 0) & (acc <= 1)).all()):
+            raise SystemExit(f"path (D) round {rep_d.round_idx}: bad "
+                             f"accuracies {acc}")
+    st_d = result_d["state"]
+    if st_d.ref_vecs.shape != (20, 10, 300) \
+            or st_d.ef_residual.shape != (20, 10, 300) \
+            or not bool(torch.isfinite(st_d.server.slots).all()) \
+            or not bool((st_d.ef_residual != 0).any()) \
+            or int((st_d.ref_round == 1).sum()) == 0:
+        raise SystemExit("path (D): the wire's lanes are not as expected")
+    events_d = obs.read_events(RUN_DIR / "telemetry_d" / "events.jsonl")
+    if [e["bytes"]["upload"] for e in events_d] != \
+            [r.upload_bytes for r in result_d["reports"]]:
+        raise SystemExit("path (D): events.jsonl disagrees with the reports")
+    print("path (D) span medians (ms): " + ", ".join(
+        f"{k} {v * 1e3:.3f}" for k, v in sorted(
+            obs.phase_medians(events_d).items(), key=lambda kv: -kv[1])),
+        flush=True)
+    for e in events_d:
+        print(f"path (D) round {e['round']} spans (ms): " + ", ".join(
+            f"{k} {v * 1e3:.3f}" for k, v in e["phases"].items()),
+            flush=True)
+
     # 9. small runs on the card against the same on the CPU: the
     # unit-weight federation, and a checkpoint and its serving
     small = []
@@ -806,6 +904,45 @@ def main() -> int:
                              f"runs disagree")
         print(f"check small federation {name} {sched}: GPU == CPU bit for "
               f"bit", flush=True)
+    # the lossy wire: the codec on the host, non-integer aggregates in
+    # row order on the card
+    for flags in SMALL_LOSSY:
+        small = []
+        for d in ("cpu", "cuda"):
+            out = fed_train.main(["--clients", "6", "--clauses", "16",
+                                  "--rounds", "2", "--local-epochs", "2",
+                                  "--device", d, *flags])
+            st = out["state"]
+            small.append(convert.to_numpy(
+                [*st.client_state, st.server.slots, st.ref_vecs,
+                 st.ref_round, st.ef_residual,
+                 *(r.per_client_accuracy for r in out["reports"]),
+                 *(r.assignment for r in out["reports"])])
+                + [[(r.upload_bytes, r.download_bytes_broadcast,
+                     r.download_bytes_per_client, r.aggregated_uploads)
+                    for r in out["reports"]]])
+        if not all(np.array_equal(a, b) for a, b in zip(*small)):
+            raise SystemExit(f"small lossy federation {flags}: GPU and CPU "
+                             f"runs disagree")
+        print(f"check small lossy federation {' '.join(flags)}: GPU == CPU "
+              f"bit for bit", flush=True)
+    agg_gen = np.random.default_rng(0)
+    for n_slots, m in ((10, 300), (1, 3000)):
+        up = (agg_gen.integers(-127, 128, (20, m)).astype(np.float32)
+              * np.float32(0.37)).astype(np.float32)
+        ids = torch.as_tensor(agg_gen.integers(-1, n_slots, 20)
+                              .astype(np.int32))
+        want = clustering.aggregate(torch.as_tensor(up), ids, n_slots)
+        runs = [clustering.aggregate(torch.as_tensor(up, device=dev),
+                                     ids.to(dev), n_slots)
+                for _ in range(3)]
+        if not all(torch.equal(r.cluster_weights.cpu(),
+                               want.cluster_weights) for r in runs):
+            raise SystemExit(f"aggregate of non-integer uploads ({n_slots} "
+                             f"slots, m={m}): three runs on the card and "
+                             f"the CPU disagree")
+        print(f"check aggregate of 20 non-integer uploads ({n_slots} slots, "
+              f"m={m}): three GPU runs == CPU bit for bit", flush=True)
     small = []
     flags = ["--clients", "4", "--clauses", "16", "--local-epochs", "1"]
     for d in ("cpu", "cuda"):
@@ -1127,6 +1264,9 @@ def main() -> int:
     eng_c = Engine(fedtm, data_c, RuntimeConfig(
         rounds=1, scheduler=SchedulerConfig(**PATH_C)))
     profile_round(eng_c, st_c, rnd.PRNGKey(8, dev), "path (C) round")
+    eng_d = Engine(strategy, data, RuntimeConfig(
+        rounds=1, codec=CodecConfig(**PATH_D_WIRE)))
+    profile_round(eng_d, st_d, rnd.PRNGKey(9, dev), "path (D) round")
 
     kernels = [
         kernel_entry("fused_votes_batched", "clause_eval.cu",

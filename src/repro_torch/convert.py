@@ -49,13 +49,22 @@ def client_data_from_numpy(fields: Mapping[str, Any],
 
 
 def engine_state_from_numpy(round_idx, ta_state, weights, server_slots,
-                            device=None) -> EngineState:
-    """The sync engine state: round index, the clients' TM parameters
-    and the server slot matrix."""
+                            device=None, *, ref_vecs=None, ref_round=None,
+                            ef_residual=None) -> EngineState:
+    """The sync engine state: round index, the clients' TM parameters,
+    the server slot matrix and the wire's lanes (``ref_vecs``,
+    ``ref_round``, ``ef_residual``; None = the zero-size placeholder of
+    a wire that does not track them)."""
+    def lane(a, dtype, empty):
+        return _t(np.zeros(empty, dtype) if a is None else a, dtype, device)
+
     return EngineState(
         round_idx=_t(round_idx, np.int32, device),
         client_state=tm_params_from_numpy(ta_state, weights, device),
-        server=ServerState(_t(server_slots, np.float32, device)))
+        server=ServerState(_t(server_slots, np.float32, device)),
+        ref_vecs=lane(ref_vecs, np.float32, (0, 0, 0)),
+        ref_round=lane(ref_round, np.int32, (0,)),
+        ef_residual=lane(ef_residual, np.float32, (0, 0, 0)))
 
 
 def to_numpy(tree):

@@ -1,15 +1,21 @@
 """Phase-span tracing: host wall time of named spans, with fences.
 
-Counterpart of ``repro/fl/obs/tracer.py``, the part serving uses.  A
-:class:`PhaseTracer` times named spans; ``fence(values)`` waits for the
-device (``torch.cuda.synchronize()``) when any value holds a CUDA
-tensor, so a span's wall time covers the device work it launched and
-not only the Python dispatch.  With telemetry off, a
-:class:`NullTracer`'s hooks do nothing.  Tracing only reads: it never feeds a value back, so traced
-and untraced runs compute the same results.
+Counterpart of ``repro/fl/obs/tracer.py``.  A :class:`PhaseTracer`
+times named spans around the round's stages (and serving's);
+``fence(values)`` waits for the device (``torch.cuda.synchronize()``)
+when any value holds a CUDA tensor, so a span's wall time covers the
+device work it launched and not only the Python dispatch.  With
+telemetry off, a :class:`NullTracer`'s hooks do nothing.  Tracing only
+reads: it never feeds a value back, so traced and untraced runs compute
+the same results.
+
+:func:`profile_trace` wraps a run in a ``torch.profiler`` capture and
+writes its Chrome trace (``trace.json``) into ``--profile-dir``.
 """
 from __future__ import annotations
 
+import contextlib
+import pathlib
 import time
 
 import torch
@@ -98,3 +104,21 @@ class PhaseTracer:
         spans, self._spans = self._spans, {}
         return spans
 
+
+@contextlib.contextmanager
+def profile_trace(profile_dir: str | pathlib.Path | None):
+    """A ``torch.profiler`` capture (host, and the GPU when there is one)
+    scoped to a ``with`` block, written to ``profile_dir/trace.json``; a
+    no-op when ``profile_dir`` is None."""
+    if profile_dir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = pathlib.Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / "trace.json"))

@@ -4,8 +4,9 @@ Counterpart of ``repro/fl/runtime``: ``scheduler`` (who takes part),
 ``strategy`` (what a round means), ``codec`` (the bytes on the wire),
 ``executors`` (where the compute runs), ``engine`` (the round) and
 ``checkpointing`` (round checkpoints).  The port runs TPFL and FedTM,
-sync, under any scheduler setting, on the float32 wire, in process.
+sync, under any scheduler setting, on every wire codec, in process.
 """
+from repro_torch.fl.runtime.codec import CodecConfig          # noqa: F401
 from repro_torch.fl.runtime.engine import (                   # noqa: F401
     Engine, EngineState, RoundReport, RuntimeConfig)
 from repro_torch.fl.runtime.scheduler import (                # noqa: F401

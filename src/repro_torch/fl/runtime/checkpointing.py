@@ -2,11 +2,12 @@
 
 Counterpart of ``repro/fl/runtime/checkpointing.py`` over
 :mod:`repro_torch.checkpoint.ckpt`: an :class:`EngineState` (round
-counter, client population, server slots) is one tree, so a checkpoint
-is one msgpack tensor store named by the round it starts.  The engine
-keys round r with ``fold_in(k_rounds, r)`` on the absolute round index,
-so a resumed run is bit-identical to the uninterrupted one.  No manifest
-rides along: the telemetry plane that writes one is not ported.
+counter, client population, server slots, the sparse wire's reference
+lanes and the error-feedback residuals) is one tree, so a checkpoint is
+one msgpack tensor store named by the round it starts.  The engine keys
+round r with ``fold_in(k_rounds, r)`` on the absolute round index, so a
+resumed run, lossy wire included, is bit-identical to the uninterrupted
+one.  A telemetry run's manifest rides along as ``manifest.json``.
 
     engine = Engine(strategy, data, cfg)
     like = engine.init(rnd.PRNGKey(0, device))      # structure template
@@ -19,6 +20,7 @@ import pathlib
 import re
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.fl.obs.manifest import write_manifest
 
 _PAT = re.compile(r"round_(\d+)\.msgpack$")
 
@@ -27,10 +29,15 @@ def path_for(directory: str | pathlib.Path, round_idx: int) -> pathlib.Path:
     return pathlib.Path(directory) / f"round_{round_idx:06d}.msgpack"
 
 
-def save(directory: str | pathlib.Path, state) -> pathlib.Path:
-    """Persist ``state``; the filename records the next round to run."""
+def save(directory: str | pathlib.Path, state,
+         manifest: dict | None = None) -> pathlib.Path:
+    """Persist ``state``; the filename records the next round to run.
+    ``manifest`` (the telemetry run manifest) is written beside it as
+    ``manifest.json``: provenance only, ``restore`` never reads it."""
     path = path_for(directory, int(state.round_idx))
     ckpt.save(path, state)
+    if manifest is not None:
+        write_manifest(path.parent, manifest)
     return path
 
 

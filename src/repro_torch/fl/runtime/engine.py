@@ -1,42 +1,58 @@
 """The federated round engine, sync path on one device.
 
 Counterpart of ``repro/fl/runtime/engine.py`` for the configuration this
-slice of the port supports: sync barrier, the dense float32 wire, the
-resident client population and the in-process executor, under any
-scheduler setting (partial participation; uniform, weighted or
-round-robin sampling; dropout; stragglers).  :class:`RuntimeConfig`
-therefore holds the number of rounds, the scheduler and the checkpoint
-cadence; the reference's other runtime settings (async aggregation, the
-shard-mapped backend, the mmap client store, transports, other codecs)
-come with later slices (ROADMAP.md, queue A).
+slice of the port supports: sync barrier, every wire codec of the
+reference (float32, int8, int4; sparse delta with ``<u2`` or varint+RLE
+indices; error feedback), the resident client population and the
+in-process executor, under any scheduler setting (partial
+participation; uniform, weighted or round-robin sampling; dropout;
+stragglers).  :class:`RuntimeConfig` therefore holds the number of
+rounds, the scheduler, the codec and the checkpoint cadence; the
+reference's other runtime settings (async aggregation, the shard-mapped
+backend, the mmap client store, transports) come with later slices
+(ROADMAP.md, queue A) and are refused, as unknown fields.
 
-Round anatomy (``run_round``), as in the reference's staged sync path:
+Round anatomy (``run_round``), as in the reference's staged sync path,
+each stage in a telemetry span of the reference's name:
 
-1. ``scheduler.sample``: K sampled ids, dropout survival, staleness; an
-   upload arrives when its client survived and is on time (a missed
-   sync barrier counts as a drop);
-2. the sampled clients' state and data are gathered (not under uniform
+1. ``schedule``: K sampled ids, dropout survival, staleness; an upload
+   arrives when its client survived and is on time (a missed sync
+   barrier counts as a drop);
+2. ``gather``: the sampled clients' state and data (not under uniform
    full participation, where the cohort is the population in order),
    with per-client keys ``split(round_key, N)[idx]``;
-3. the strategy's ``fused_client_step`` on the cohort: local training
-   (one fused-epoch kernel launch per local epoch), for TPFL confidence
-   (one fused-votes launch) and the top-class pick;
-4. the uplink: every upload of a surviving client (stragglers too) is
-   encoded to a real float32 frame, metered (4-byte slot id + payload)
-   and decoded;
-5. the masked per-slot mean over the arrived uploads and the Alg. 2
-   server update (empty slots keep their row);
-6. the downlink: slot rows are encoded, metered and decoded, then
-   applied to the arrived clients that shared them (Phase D); the
-   others keep their state from before the round;
-7. the cohort is scattered back and every client of the population is
-   evaluated (one fused-votes launch).
+3. ``broadcast_encode``: the server rows as clients hold them, each
+   roundtripped through the dense codec (the identity on float32;
+   computed once per server matrix, cached from the last downlink);
+4. ``client_step``: the strategy's ``fused_client_step`` on the cohort
+   from those rows: local training (one fused-epoch launch per local
+   epoch), for TPFL confidence (one fused-votes launch) and the
+   top-class pick;
+5. ``uplink_codec``: every upload of a surviving client (stragglers
+   too) is encoded to a real frame, metered (4-byte slot id + frame)
+   and decoded on the host; sparse deltas run against the client's
+   tracked broadcast reference, error feedback adds and advances its
+   residual.  Only the K sampled reference and residual rows leave the
+   device.  The float32 dense wire is the identity: metered
+   arithmetically, nothing leaves the device;
+6. ``aggregate``, ``server_update``: the masked per-slot mean over the
+   arrived uploads, summed in row order, and the Alg. 2 server update
+   (empty slots keep their row);
+7. ``downlink``: slot rows are encoded, metered and decoded;
+   ``apply_merge``: the arrived clients that shared a slot apply its
+   decoded row (Phase D), the others keep their state from before the
+   round; ``ref_track``: the arrived clients' references advance to the
+   rows they applied;
+8. ``eval``: the cohort is scattered back and every client of the
+   population is evaluated (one fused-votes launch).
 
 The key chain matches the reference: ``k_init, k_rounds = split(key)``,
 round r runs under ``fold_in(k_rounds, r)``.  With the same data and key
-every report field and the final state are bit-identical to the JAX
-engine, except ``mean_accuracy``, a float32 mean whose summation order
-may differ in the last place.
+every report field and the final state (client state, server rows,
+``ref_vecs`` / ``ref_round`` / ``ef_residual``) are bit-identical to the
+JAX engine, except ``mean_accuracy``, a float32 mean whose summation
+order may differ in the last place, and a lossy aggregate where XLA's
+dot does not add in row order (``core/clustering.py``).
 """
 from __future__ import annotations
 
@@ -48,8 +64,9 @@ import torch
 
 from repro_torch import random as rnd
 from repro_torch.data.partition import ClientData
+from repro_torch.fl.obs.recorder import NULL as NULL_TELEMETRY
 from repro_torch.fl.runtime import checkpointing
-from repro_torch.fl.runtime.codec import decode, encode
+from repro_torch.fl.runtime.codec import CodecConfig, decode, ef_encode, encode
 from repro_torch.fl.runtime.executors import InProcessExecutor, applied_slots
 from repro_torch.fl.runtime.scheduler import (Participation, Scheduler,
                                               SchedulerConfig)
@@ -63,6 +80,7 @@ _LATER = "ROADMAP.md, queue A"
 class RuntimeConfig:
     rounds: int = 10
     scheduler: SchedulerConfig = SchedulerConfig()
+    codec: CodecConfig = CodecConfig()
     checkpoint_dir: str | None = None
     checkpoint_every: int = 0         # 0 = never
 
@@ -71,6 +89,14 @@ class EngineState(NamedTuple):
     round_idx: torch.Tensor     # () int32 — next round to run
     client_state: Any           # strategy state, leading axis = clients
     server: ServerState         # (n_slots, d) slot matrix
+    # per-client broadcast references of the sparse-delta wire: the
+    # server rows each client last received (zeros = never synced) and
+    # the round it received them (−1 = never); zero-size when dense
+    ref_vecs: torch.Tensor      # (n, n_slots, d) float32, or (0, 0, 0)
+    ref_round: torch.Tensor     # (n,) int32, or (0,)
+    # error-feedback residuals: the quantization error each client's
+    # last frame for each slot left behind; zero-size when EF is off
+    ef_residual: torch.Tensor   # (n, n_slots, d) float32, or (0, 0, 0)
 
 
 class RoundReport(NamedTuple):
@@ -89,7 +115,8 @@ class RoundReport(NamedTuple):
 class Engine:
     """Round orchestrator for one strategy over one client population."""
 
-    def __init__(self, strategy, data: ClientData, cfg: RuntimeConfig):
+    def __init__(self, strategy, data: ClientData, cfg: RuntimeConfig,
+                 telemetry=None):
         if not hasattr(strategy, "fused_client_step"):
             raise NotImplementedError(
                 f"{type(strategy).__name__}: the port runs TPFL and FedTM "
@@ -104,19 +131,34 @@ class Engine:
         # shares: clients holding more data are sampled more often
         self.scheduler = Scheduler(cfg.scheduler, self.n, data.sizes)
         self.executor = InProcessExecutor()
+        # spans, fences and the per-round event sink; read-only, so
+        # telemetry on and off give the same bits
+        self.obs = telemetry if telemetry is not None else NULL_TELEMETRY
+        # (server, roundtripped rows) of the latest broadcast, reused by
+        # _wire_tx_server so a lossy codec roundtrips each server once
+        self._tx_cache = None
 
     def init(self, key: torch.Tensor) -> EngineState:
         cs, server = self.strategy.init(key.to(self.device), self.n)
+        shape = (self.n, self.strategy.n_slots, self.strategy.vec_dim)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        codec = self.cfg.codec
         return EngineState(
-            round_idx=torch.zeros((), dtype=torch.int32, device=self.device),
-            client_state=cs, server=server)
+            round_idx=torch.zeros((), **i32), client_state=cs, server=server,
+            ref_vecs=torch.zeros(shape if codec.sparse else (0, 0, 0), **f32),
+            ref_round=(torch.full((self.n,), -1, **i32) if codec.sparse
+                       else torch.zeros((0,), **i32)),
+            ef_residual=torch.zeros(
+                shape if codec.error_feedback else (0, 0, 0), **f32))
 
     def run(self, key: torch.Tensor, state: EngineState | None = None,
             rounds: int | None = None
             ) -> tuple[EngineState, list[RoundReport]]:
         """Run ``cfg.rounds`` rounds (or ``rounds``), continuing from
         ``state`` if given.  With a checkpoint directory, the state after
-        round r is saved when ``(r + 1) % checkpoint_every == 0``."""
+        round r is saved when ``(r + 1) % checkpoint_every == 0``, with
+        the telemetry manifest beside it when there is one."""
         k_init, k_rounds = rnd.split(key.to(self.device)).unbind(0)
         if state is None:
             state = self.init(k_init)
@@ -124,99 +166,234 @@ class Engine:
         start = int(state.round_idx)
         n_rounds = self.cfg.rounds if rounds is None else rounds
         for r in range(start, start + n_rounds):
-            state, rep = self.run_round(state, rnd.fold_in(k_rounds, r))
+            with self.obs.span("round"):
+                state, rep = self.run_round(state, rnd.fold_in(k_rounds, r))
+                self.obs.fence(state)
+            self.obs.on_round(rep)
             reports.append(rep)
             every = self.cfg.checkpoint_every
             if self.cfg.checkpoint_dir and every and (r + 1) % every == 0:
-                checkpointing.save(self.cfg.checkpoint_dir, state)
+                checkpointing.save(self.cfg.checkpoint_dir, state,
+                                   manifest=self.obs.manifest)
         return state, reports
 
     def run_round(self, state: EngineState, round_key: torch.Tensor
                   ) -> tuple[EngineState, RoundReport]:
+        obs = self.obs            # telemetry spans/fences — no-ops when off
         r = int(state.round_idx)
-        part = self.scheduler.sample(r, round_key)
-        arrive = part.active & (part.staleness == 0)
-        keys = rnd.split(round_key, self.n)
+        with obs.span("schedule"):
+            part = self.scheduler.sample(r, round_key)
+            arrive = part.active & (part.staleness == 0)
         # the cohort is the population in order: nothing is gathered
         in_order = self.scheduler.full_in_order
-        if in_order:
-            sub_cs, sub_data = state.client_state, self.data
-        else:
-            idx = part.idx.long()
-            keys = keys[idx]
-            sub_cs = type(state.client_state)(
-                *(a[idx] for a in state.client_state))
-            sub_data = type(self.data)(
-                *(None if a is None else a[idx] for a in self.data))
-        new_sub, vecs, slots = self.executor.train(
-            self.strategy, sub_cs, state.server.slots, sub_data, keys)
-        dec, up_bytes = self._wire_uplink(vecs, slots, part.active)
-        agg, counts = self.executor.masked_mean(self.strategy, dec, slots,
-                                                arrive)
-        server = default_server_update(state.server, agg, counts)
-        applied = applied_slots(slots, counts, arrive)
-        rx_server, down_bc, down_pc = self._wire_downlink(server.slots,
-                                                          counts, applied)
-        merged = self.executor.apply_merge(
-            self.strategy, new_sub, applied, rx_server, sub_cs,
-            None if self.scheduler.all_arrive else arrive)
-        if in_order:
-            cs, assignment = merged, applied
-        else:
-            cs = type(merged)(*(a.index_put((idx,), m) for a, m in
-                                zip(state.client_state, merged)))
-            assignment = torch.full((self.n, applied.shape[1]), -1,
-                                    dtype=torch.int32, device=self.device
-                                    ).index_put((idx,), applied)
-        acc = self.executor.evaluate(self.strategy, cs, self.data.x_test,
-                                     self.data.y_test)
+        with obs.span("gather"):
+            keys = rnd.split(round_key, self.n)
+            if in_order:
+                sub_cs, sub_data = state.client_state, self.data
+            else:
+                idx = part.idx.long()
+                keys = keys[idx]
+                sub_cs = type(state.client_state)(
+                    *(a[idx] for a in state.client_state))
+                sub_data = type(self.data)(
+                    *(None if a is None else a[idx] for a in self.data))
+            obs.fence(keys)
+        # local work starts from the rows a client holds after the
+        # (possibly lossy) broadcast, not the server's own precision
+        with obs.span("broadcast_encode"):
+            tx_server = self._wire_tx_server(state.server.slots)
+            obs.fence(tx_server)
+        with obs.span("client_step"):
+            new_sub, vecs, slots = self.executor.train(
+                self.strategy, sub_cs, tx_server, sub_data, keys)
+            obs.fence(new_sub, vecs, slots)
+        with obs.span("uplink_codec"):
+            dec, up_bytes, ef = self._wire_uplink(state, vecs, slots, part)
+            obs.fence(dec)
+        with obs.span("aggregate"):
+            agg, counts = self.executor.masked_mean(self.strategy, dec,
+                                                    slots, arrive)
+            obs.fence(agg, counts)
+        with obs.span("server_update"):
+            server = default_server_update(state.server, agg, counts)
+            obs.fence(server)
+        with obs.span("downlink"):
+            applied = applied_slots(slots, counts, arrive)
+            rx_server, down_bc, down_pc = self._wire_downlink(
+                server.slots, counts, arrive, applied)
+            obs.fence(rx_server)
+        with obs.span("apply_merge"):
+            merged = self.executor.apply_merge(
+                self.strategy, new_sub, applied, rx_server, sub_cs,
+                None if self.scheduler.all_arrive else arrive)
+            obs.fence(merged)
+        with obs.span("ref_track"):
+            refs = self._update_refs(state, part, arrive, applied,
+                                     rx_server, r)
+            obs.fence(refs)
+        n_agg = int((slots[arrive] >= 0).sum())
+        with obs.span("eval"):
+            if in_order:
+                cs, assignment = merged, applied
+            else:
+                cs = type(merged)(*(a.index_put((idx,), m) for a, m in
+                                    zip(state.client_state, merged)))
+                assignment = torch.full(
+                    (self.n, applied.shape[1]), -1, dtype=torch.int32,
+                    device=self.device).index_put((idx,), applied)
+            acc = self.executor.evaluate(self.strategy, cs,
+                                         self.data.x_test, self.data.y_test)
+            obs.fence(acc)
         rep = RoundReport(
             round_idx=r, mean_accuracy=acc.mean(), per_client_accuracy=acc,
             assignment=assignment, cluster_counts=counts,
             participation=part, upload_bytes=up_bytes,
             download_bytes_broadcast=down_bc,
-            download_bytes_per_client=down_pc,
-            aggregated_uploads=int((slots[arrive] >= 0).sum()))
-        new_state = EngineState(round_idx=state.round_idx + 1,
-                                client_state=cs, server=server)
+            download_bytes_per_client=down_pc, aggregated_uploads=n_agg)
+        new_state = EngineState(
+            round_idx=state.round_idx + 1, client_state=cs, server=server,
+            ref_vecs=refs[0], ref_round=refs[1], ef_residual=ef)
         return new_state, rep
 
     # -- the wire ----------------------------------------------------------
 
-    def _wire_uplink(self, vecs, slots, active):
+    def _wire_is_identity(self) -> bool:
+        """Dense float32 encode→decode is a bit-exact identity (pinned by
+        the codec tests): the round needs no host codec boundary."""
+        return self.cfg.codec.name == "float32" and not self.cfg.codec.sparse
+
+    def _wire_uplink(self, state: EngineState, vecs, slots,
+                     part: Participation):
         """Encode every upload of a surviving client to a real frame,
-        meter it (slot id <i4 + payload) and decode what the aggregator
-        sees.  A straggler's frame was sent, so it is metered; a dropped
-        client and slot −1 send none."""
-        np_vecs = vecs.detach().cpu().numpy().astype(np.float32)
+        meter it (slot id <i4 + frame) and decode what the aggregator
+        sees; returns ``(decoded, bytes, ef_residual)``.  A dropped
+        client and slot −1 send nothing; a straggler's frame was sent,
+        so it is metered and its residual advances.  Sparse deltas are
+        encoded against the client's tracked reference row; only the K
+        sampled reference and residual rows leave the device."""
+        cfg = self.cfg.codec
         np_slots = slots.cpu().numpy()
-        np_active = active.cpu().numpy()
+        active = part.active.cpu().numpy()
+        if self._wire_is_identity():
+            d = self.strategy.vec_dim
+            return (vecs, int((np_slots[active] >= 0).sum()) * (4 + 4 * d),
+                    state.ef_residual)
+        idx = part.idx.long()
+        np_vecs = np.asarray(vecs.detach().cpu().numpy(), np.float32)
+        np_refs = (state.ref_vecs[idx].cpu().numpy() if cfg.sparse
+                   else None)
+        sub_ef = (np.array(state.ef_residual[idx].cpu().numpy())
+                  if cfg.error_feedback else None)
         dec = np.zeros_like(np_vecs)
         total = 0
         for c in range(np_vecs.shape[0]):
-            if not np_active[c]:
-                continue
+            if not active[c]:
+                continue                    # lost mid-round: nothing sent
             for j in range(np_vecs.shape[1]):
-                if np_slots[c, j] < 0:
-                    continue
-                frame = encode(np_vecs[c, j])
+                s = int(np_slots[c, j])
+                if s < 0:
+                    continue                # nothing shared in this slot
+                ref = np_refs[c, s] if cfg.sparse else None
+                if sub_ef is not None:
+                    frame, sub_ef[c, s] = ef_encode(
+                        np_vecs[c, j], cfg, sub_ef[c, s], ref=ref)
+                else:
+                    frame = encode(np_vecs[c, j], cfg, ref=ref)
                 total += 4 + len(frame)
-                dec[c, j] = decode(frame, np_vecs.shape[2])
-        return torch.as_tensor(dec, device=vecs.device), total
+                dec[c, j] = decode(frame, np_vecs.shape[2], cfg, ref=ref)
+        ef = state.ef_residual
+        if sub_ef is not None:
+            ef = ef.index_put((idx,), torch.as_tensor(sub_ef,
+                                                      device=ef.device))
+        return torch.as_tensor(dec, device=vecs.device), total, ef
 
-    def _wire_downlink(self, server, counts, applied):
-        """Encode, meter and decode every slot row; clients apply the
-        decoded rows.  ``down_bc`` is one frame per populated slot,
-        ``down_pc`` the frames receiving clients apply."""
+    def _update_refs(self, state: EngineState, part: Participation, arrive,
+                     applied, rx_server, r: int):
+        """Advance the per-client broadcast references: every arrived
+        participant now holds the decoded rows it was just sent (its
+        applied slots, or the whole matrix under ``all_slots``).  Only
+        the K sampled rows cross to the host and back."""
+        if not self.cfg.codec.sparse:
+            return state.ref_vecs, state.ref_round
+        idx = part.idx.long()
+        sub = state.ref_vecs[idx].cpu().numpy()
+        sub_rounds = state.ref_round[idx].cpu().numpy()
+        self._advance_ref_rows(
+            sub, sub_rounds, arrive.cpu().numpy(), applied.cpu().numpy(),
+            rx_server.cpu().numpy(), r,
+            getattr(self.strategy, "downloads", "assigned"))
+        dev = state.ref_vecs.device
+        return (state.ref_vecs.index_put((idx,),
+                                         torch.as_tensor(sub, device=dev)),
+                state.ref_round.index_put(
+                    (idx,), torch.as_tensor(sub_rounds, device=dev)))
+
+    @staticmethod
+    def _advance_ref_rows(sub, sub_rounds, arrive, applied, rx, r,
+                          downloads):
+        """Advance K sampled reference rows in place (numpy)."""
+        for c in range(sub.shape[0]):
+            if not arrive[c]:
+                continue
+            if downloads == "all_slots":
+                sub[c] = rx
+                sub_rounds[c] = r
+            else:
+                got = False
+                for j in range(applied.shape[1]):
+                    s = int(applied[c, j])
+                    if s >= 0:
+                        sub[c, s] = rx[s]
+                        got = True
+                if got:
+                    sub_rounds[c] = r
+        return sub, sub_rounds
+
+    def _roundtrip_rows(self, server):
+        """Encode→decode every server row through the *dense* codec
+        (delta coding is upload-only): what any receiver of a broadcast
+        holds.  Returns ``(rx_rows, frame_lengths)``; float32 is the
+        identity, metered arithmetically (4·d bytes a frame)."""
+        dense = CodecConfig(self.cfg.codec.name, sparse=False)
+        if dense.name == "float32":
+            return server, [4 * int(server.shape[1])] * int(server.shape[0])
         np_server = server.cpu().numpy()
         rx = np.zeros_like(np_server)
         frame_len = []
         for s in range(np_server.shape[0]):
-            frame = encode(np_server[s])
+            frame = encode(np_server[s], dense)
             frame_len.append(len(frame))
-            rx[s] = decode(frame, np_server.shape[1])
+            rx[s] = decode(frame, np_server.shape[1], dense)
+        return torch.as_tensor(rx, device=server.device), frame_len
+
+    def _wire_tx_server(self, server):
+        """The server matrix as the clients hold it: every row
+        roundtripped through the dense codec.  ``state.server.slots``
+        entering round r+1 is the very tensor the downlink of round r
+        roundtripped, so that result is cached by identity; after a
+        restore the cache misses and the same rows are recomputed."""
+        if self._wire_is_identity():
+            return server
+        cached = self._tx_cache
+        if cached is not None and cached[0] is server:
+            return cached[1]
+        rx, _ = self._roundtrip_rows(server)
+        self._tx_cache = (server, rx)
+        return rx
+
+    def _wire_downlink(self, server, counts, arrive, applied):
+        """Encode, meter and decode every slot row; clients apply the
+        decoded rows.  ``down_bc`` is one frame per populated slot,
+        ``down_pc`` the frames receiving clients apply (every frame to
+        each arrived client under ``all_slots``)."""
+        rx, frame_len = self._roundtrip_rows(server)
+        if not self._wire_is_identity():
+            self._tx_cache = (server, rx)      # next round trains from it
         np_counts = counts.cpu().numpy()
         down_bc = sum(n for n, c in zip(frame_len, np_counts) if c > 0)
-        down_pc = sum(frame_len[s] for s in applied.cpu().numpy().ravel()
-                      if s >= 0)
-        return torch.as_tensor(rx, device=server.device), down_bc, down_pc
+        if getattr(self.strategy, "downloads", "assigned") == "all_slots":
+            down_pc = int(arrive.sum()) * sum(frame_len)
+        else:
+            down_pc = sum(frame_len[s] for s in applied.cpu().numpy().ravel()
+                          if s >= 0)
+        return rx, down_bc, down_pc

@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import random as rnd
@@ -59,6 +60,23 @@ class Participation(NamedTuple):
     idx: torch.Tensor        # (K,) int32 — sampled client ids
     active: torch.Tensor     # (K,) bool  — survived dropout
     staleness: torch.Tensor  # (K,) int32 — 0 = on time, s ≥ 1 = straggler
+
+    def summary(self) -> dict:
+        """Host-side gauges for the telemetry plane, as the reference's:
+        sampled / dropped / on-time / straggler counts and the staleness
+        histogram of surviving uploads (index = rounds of delay)."""
+        active = self.active.cpu().numpy()
+        stale = self.staleness.cpu().numpy()
+        surviving = stale[active]
+        hist = (np.bincount(surviving) if surviving.size
+                else np.zeros(1, np.int64))
+        return {
+            "sampled": int(active.shape[0]),
+            "dropped": int((~active).sum()),
+            "arrived_on_time": int((active & (stale == 0)).sum()),
+            "stragglers": int((active & (stale > 0)).sum()),
+            "staleness_hist": hist.tolist(),
+        }
 
 
 class Scheduler:

@@ -18,7 +18,9 @@ plane over them:
    launch on the GPU).  Between batches the plane polls ``refresh()``.
 
 The scenario flags (``--strategy --dataset --data-dir --encoding
---clients --clauses --seed ...``) must repeat the training run's.  ``--verify-offline`` then serves one
+--clients --clauses --seed ...``) must repeat the training run's, and
+so must the structural codec flags (``--codec --sparse
+--error-feedback``), which shape the checkpointed wire lanes.  ``--verify-offline`` then serves one
 covering batch (every client once) and checks each client's served
 prediction against ``tm.predict`` on its resolved row (one fused-votes
 launch per client); the process exits 1 on any mismatch.
@@ -43,7 +45,9 @@ from repro_torch import device as devices
 from repro_torch import random as rnd
 from repro_torch.core import tm
 from repro_torch.data.ingest import registry as datasets
-from repro_torch.fl.runtime import Engine, RuntimeConfig, checkpointing
+from repro_torch.fl.runtime import (CodecConfig, Engine, RuntimeConfig,
+                                    checkpointing)
+from repro_torch.fl.runtime.codec import CODECS
 from repro_torch.fl.serve import ModelRegistry, ServeTelemetry, ServingPlane
 from repro_torch.launch.fed_train import STRATEGY_CHOICES, build_scenario
 
@@ -65,6 +69,11 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain versions)")
+    # structural knobs that shape the checkpointed engine state
+    ap.add_argument("--codec", default="float32", choices=CODECS)
+    ap.add_argument("--sparse", action="store_true")
+    ap.add_argument("--error-feedback", action="store_true",
+                    dest="error_feedback")
     # registry / serving
     ap.add_argument("--ckpt-dir", default=None,
                     help="training checkpoint directory; its newest "
@@ -98,7 +107,8 @@ def main(argv: list[str] | None = None) -> dict:
         seed=args.seed, experiment=args.experiment,
         local_epochs=args.local_epochs, strategy=args.strategy,
         device=device)
-    engine = Engine(strategy, data, RuntimeConfig())
+    engine = Engine(strategy, data, RuntimeConfig(codec=CodecConfig(
+        args.codec, sparse=args.sparse, error_feedback=args.error_feedback)))
     # the engine's key chain is k_init, k_rounds = split(PRNGKey(seed))
     k_init = rnd.split(rnd.PRNGKey(args.seed, device))[0]
     like = engine.init(k_init)

@@ -1,52 +1,46 @@
 """Run a TPFL or FedTM federation on the port: the scenario runner's CLI.
 
 Counterpart of ``repro/launch/fed_train.py``'s CLI for the configuration
-this slice of the port supports: TPFL or FedTM, sync, the float32 wire,
-in process, under the reference's scheduler flags, on the reference's
-data path (the reference's other knobs come with later slices,
-ROADMAP.md):
+this slice of the port supports: TPFL or FedTM, sync, in process, under
+the reference's scheduler and wire codec flags, on the reference's data
+path (the reference's other knobs come with later slices, ROADMAP.md):
 
   PYTHONPATH=src python -m repro_torch.launch.fed_train \\
       --dataset mnist --data-dir DATA --clauses 300 --clients 20 \\
       --rounds 2 [--encoding thermometer:2] [--strategy fedtm] \\
       [--participation P | --active K] \\
       [--sampling uniform|weighted|round_robin] [--dropout D] \\
-      [--straggler S --max-staleness M]
+      [--straggler S --max-staleness M] \\
+      [--codec float32|int8|int4 --sparse --index-coding u2|vrle \\
+       --error-feedback] [--telemetry-dir RUN_DIR --profile-dir DIR]
 
 runs on the GPU; ``--device cpu`` runs the kernels' plain versions.  It
 prints the same per-round ``acc= … up= … down_bc= … down_pc= …
 active=a/K`` lines and totals line as the reference CLI.  ``--ckpt-dir D
 --ckpt-every k`` saves the engine state every k rounds; ``--resume``
 continues from the newest checkpoint in D and completes the requested
-``--rounds`` in total.
+``--rounds`` in total.  ``--telemetry-dir`` records a manifest and one
+event a round (render with ``python -m repro_torch.fl.obs summarize
+RUN_DIR``); ``--profile-dir`` adds a ``torch.profiler`` trace.
+Telemetry never changes what the run computes.
 """
 from __future__ import annotations
 
 import argparse
 
-import numpy as np
-
 from repro_torch import device as devices
 from repro_torch import random as rnd
 from repro_torch.core import federation, tm
 from repro_torch.data.ingest import natural, registry
-from repro_torch.fl.runtime import (Engine, FedTMStrategy, RuntimeConfig,
-                                    SchedulerConfig, checkpointing)
+from repro_torch.fl import obs
+from repro_torch.fl.obs.events import accuracy_deciles, worst_decile_mean
+from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
+                                    RuntimeConfig, SchedulerConfig,
+                                    checkpointing)
+from repro_torch.fl.runtime.codec import CODECS, INDEX_CODINGS
 from repro_torch.fl.runtime.scheduler import SAMPLING
 
 STRATEGY_CHOICES = ("tpfl", "fedtm")
-
-
-def accuracy_deciles(per_client_accuracy) -> list[float]:
-    """The 11 decile quantiles (worst client … best) of the accuracies."""
-    acc = np.asarray(per_client_accuracy, np.float64).ravel()
-    return [float(q) for q in np.quantile(acc, np.linspace(0.0, 1.0, 11))]
-
-
-def worst_decile_mean(per_client_accuracy) -> float:
-    """Mean accuracy of the worst 10 % of clients (at least one)."""
-    acc = np.sort(np.asarray(per_client_accuracy, np.float64).ravel())
-    return float(acc[:max(1, int(np.ceil(acc.size / 10)))].mean())
 
 
 def build_scenario(*, dataset: str, data_dir: str | None = None,
@@ -108,11 +102,31 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--dropout", type=float, default=0.0)
     ap.add_argument("--straggler", type=float, default=0.0)
     ap.add_argument("--max-staleness", type=int, default=2)
+    # wire codec
+    ap.add_argument("--codec", default="float32", choices=CODECS)
+    ap.add_argument("--sparse", action="store_true",
+                    help="sparse delta encoding of uploads")
+    ap.add_argument("--error-feedback", action="store_true",
+                    dest="error_feedback",
+                    help="per-client error-feedback residuals on the "
+                         "lossy int8/int4 uplink (carried in the engine "
+                         "state and its checkpoints)")
+    ap.add_argument("--index-coding", default="u2", dest="index_coding",
+                    choices=INDEX_CODINGS,
+                    help="sparse-delta index stream: u2 = raw uint16 "
+                         "indices, vrle = varint gap/run-length pairs "
+                         "(requires --sparse)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain versions)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--telemetry-dir", default=None, metavar="RUN_DIR",
+                    help="record the run: manifest.json + one event a "
+                         "round in events.jsonl; render with `python -m "
+                         "repro_torch.fl.obs summarize RUN_DIR`")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="also write a torch.profiler trace of the run")
     args = ap.parse_args(argv)
 
     participation = args.participation
@@ -126,6 +140,9 @@ def main(argv: list[str] | None = None) -> dict:
             participation=participation, sampling=args.sampling,
             dropout=args.dropout, straggler=args.straggler,
             max_staleness=args.max_staleness),
+        codec=CodecConfig(args.codec, sparse=args.sparse,
+                          error_feedback=args.error_feedback,
+                          index_coding=args.index_coding),
         checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every)
     device = (devices.default_device() if args.device == "cuda"
               else devices.resolve(args.device))
@@ -135,7 +152,18 @@ def main(argv: list[str] | None = None) -> dict:
         seed=args.seed, experiment=args.experiment, rounds=args.rounds,
         local_epochs=args.local_epochs, strategy=args.strategy,
         device=device)
-    engine = Engine(strategy, data, rt_cfg)
+    telemetry = None
+    if args.telemetry_dir or args.profile_dir:
+        telemetry = obs.RunRecorder(run_dir=args.telemetry_dir,
+                                    profile_dir=args.profile_dir)
+    engine = Engine(strategy, data, rt_cfg, telemetry=telemetry)
+    if telemetry is not None:
+        telemetry.start(obs.build_manifest(
+            config=rt_cfg, seed=args.seed, device=device,
+            extra={"strategy": args.strategy, "dataset": args.dataset,
+                   "encoding": args.encoding, "n_clients": args.clients,
+                   "client_store": "resident", "rounds": args.rounds,
+                   "argv": argv}))
     state, remaining = None, None
     if args.resume and args.ckpt_dir:
         latest = checkpointing.latest(args.ckpt_dir)
@@ -157,24 +185,28 @@ def main(argv: list[str] | None = None) -> dict:
           f"[{args.encoding}, {tm_cfg.n_features}f, m={tm_cfg.n_clauses}] "
           f"exp{args.experiment}: {args.clients} clients, "
           f"K={engine.scheduler.k}/round, dropout={args.dropout}, "
-          f"codec=float32, mode=sync, device={device}", flush=True)
+          f"codec={args.codec}{'+sparse' if args.sparse else ''}, "
+          f"mode=sync, device={device}", flush=True)
     if engine.scheduler.p is not None:
         p = engine.scheduler.p
         print(f"weighted sampling from partition sizes: "
               f"p in [{float(p.min()):.4f}, {float(p.max()):.4f}]",
               flush=True)
-    state, reports = engine.run(rnd.PRNGKey(args.seed, device), state=state,
-                                rounds=remaining)
+    try:
+        state, reports = engine.run(rnd.PRNGKey(args.seed, device),
+                                    state=state, rounds=remaining)
+    finally:
+        if telemetry is not None:
+            telemetry.close()
 
     up = down_bc = down_pc = 0
     for rep in reports:
         up += rep.upload_bytes
         down_bc += rep.download_bytes_broadcast
         down_pc += rep.download_bytes_per_client
-        acc = rep.per_client_accuracy.cpu().numpy()
         print(f"round {rep.round_idx:3d}: "
               f"acc={float(rep.mean_accuracy):.4f} "
-              f"w10%={worst_decile_mean(acc):.4f} "
+              f"w10%={worst_decile_mean(rep.per_client_accuracy):.4f} "
               f"up={rep.upload_bytes}B "
               f"down_bc={rep.download_bytes_broadcast}B "
               f"down_pc={rep.download_bytes_per_client}B "
@@ -184,10 +216,14 @@ def main(argv: list[str] | None = None) -> dict:
           f"download_broadcast={down_bc}B ({down_bc/1e6:.4f}MB) "
           f"download_per_client={down_pc}B ({down_pc/1e6:.4f}MB)",
           flush=True)
-    deciles = accuracy_deciles(reports[-1].per_client_accuracy.cpu())
+    deciles = accuracy_deciles(reports[-1].per_client_accuracy)
     print("final per-client accuracy deciles: "
           + " ".join(f"p{10 * i}={d:.3f}" for i, d in enumerate(deciles)),
           flush=True)
+    if args.telemetry_dir:
+        print(f"telemetry: {args.telemetry_dir} — render with "
+              f"`python -m repro_torch.fl.obs summarize "
+              f"{args.telemetry_dir}`", flush=True)
     return {"final_accuracy": float(reports[-1].mean_accuracy),
             "acc_per_round": [float(r.mean_accuracy) for r in reports],
             "final_accuracy_deciles": deciles,

@@ -16,10 +16,11 @@ from repro_torch import convert
 from repro_torch import random as tr
 from repro_torch import xla_f32
 from repro_torch.core import tm as ttm
+from repro_torch.core import clustering
 from repro_torch.data import partition, synthetic
-from repro_torch.fl.runtime import (Engine, FedTMStrategy, RuntimeConfig,
-                                    Scheduler, SchedulerConfig,
-                                    TPFLStrategy)
+from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
+                                    RuntimeConfig, Scheduler,
+                                    SchedulerConfig, TPFLStrategy)
 from repro_torch.kernels import draws, ops, ref
 
 VOTE_SHAPES = [  # (N, C, m, L, B): test_kernels.py's, and C·m = 99, L = 130
@@ -612,3 +613,63 @@ def test_gpu_partial_round_matches_cpu_round(cuda, strategy, sched):
                                getattr(b.participation, f).cpu()), f
         assert (a.upload_bytes, a.aggregated_uploads) == (
             b.upload_bytes, b.aggregated_uploads)
+
+
+LOSSY = {  # the chip smoke's small lossy federations
+    "tpfl_int8_sparse_ef": ("tpfl", dict(name="int8", sparse=True,
+                                         error_feedback=True), {}),
+    "tpfl_int4_vrle": ("tpfl", dict(name="int4", sparse=True,
+                                    index_coding="vrle"), {}),
+    "fedtm_int4_ef_partial": ("fedtm", dict(name="int4",
+                                            error_feedback=True),
+                              dict(participation=0.5, dropout=0.2,
+                                   straggler=0.3)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LOSSY)
+def test_gpu_lossy_round_matches_cpu_round(cuda, case):
+    """Two rounds on a lossy wire: the codec runs on the host, the
+    aggregate of non-integer uploads sums in row order on the card, and
+    the round (client state, server rows, the reference and residual
+    lanes, every report field) equals the CPU's bit for bit."""
+    strategy, wire, sched = LOSSY[case]
+    runs = []
+    for dev in ("cpu", "cuda"):
+        data = _population(dev, 6, n_train=16)
+        cls = FedTMStrategy if strategy == "fedtm" else TPFLStrategy
+        eng = Engine(cls(ttm.TMConfig(**TM), local_epochs=2), data,
+                     RuntimeConfig(rounds=2, codec=CodecConfig(**wire),
+                                   scheduler=SchedulerConfig(**sched)))
+        runs.append(eng.run(tr.PRNGKey(3, "cpu")))
+    (s0, r0), (s1, r1) = runs
+    assert s1.server.slots.is_cuda and s1.ef_residual.is_cuda
+    lanes = [(*s.client_state, s.server.slots, s.ref_vecs, s.ref_round,
+              s.ef_residual) for s in (s0, s1)]
+    for a, b in zip(*convert.to_numpy(lanes)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(r0, r1):
+        for f in ("per_client_accuracy", "assignment", "cluster_counts"):
+            assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+        assert (a.upload_bytes, a.download_bytes_broadcast,
+                a.download_bytes_per_client, a.aggregated_uploads) == (
+            b.upload_bytes, b.download_bytes_broadcast,
+            b.download_bytes_per_client, b.aggregated_uploads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_clusters,m", [(10, 300), (1, 3000)])
+def test_aggregate_deterministic_on_gpu(cuda, n_clusters, m):
+    """Non-integer uploads (decoded int8 rows, 20 of them): three runs on
+    the card give the same bits, and the CPU's."""
+    rng = np.random.default_rng(0)
+    up = (rng.integers(-127, 128, (20, m)).astype(np.float32)
+          * np.float32(0.37)).astype(np.float32)
+    ids = torch.as_tensor(rng.integers(-1, n_clusters, 20).astype(np.int32))
+    want = clustering.aggregate(torch.as_tensor(up), ids, n_clusters)
+    for _ in range(3):
+        got = clustering.aggregate(torch.as_tensor(up, device=cuda),
+                                   ids.to(cuda), n_clusters)
+        assert torch.equal(got.cluster_weights.cpu(), want.cluster_weights)
+        assert torch.equal(got.counts.cpu(), want.counts)

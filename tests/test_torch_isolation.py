@@ -117,17 +117,28 @@ def test_tensors_from_host_values_default_to_the_gpu(monkeypatch, tmp_path,
 
 def test_codec_copy_is_byte_identical():
     """The port meters and decodes the very frames the reference codec
-    writes for the float32 wire."""
+    writes for the float32 wire (every other codec:
+    tests/test_torch_codec.py)."""
     from repro.fl.runtime import codec as jcodec
     from repro_torch.fl.runtime import codec
     rng = np.random.default_rng(0)
     for vec in (np.zeros(0, np.float32), rng.normal(size=7),
                 rng.integers(0, 9, 300).astype(np.float32),
                 np.array([np.inf, -0.0, 1e-45, np.nan], np.float32)):
-        frame = codec.encode(vec)
+        frame = codec.encode(vec, codec.CodecConfig())
         assert frame == jcodec.encode(vec, jcodec.CodecConfig())
-        back = codec.decode(frame, len(vec))
+        back = codec.decode(frame, len(vec), codec.CodecConfig())
         want = jcodec.decode(frame, len(vec), jcodec.CodecConfig())
         assert back.dtype == np.float32
         np.testing.assert_array_equal(back.view(np.int32),
                                       want.view(np.int32))
+
+
+def test_codec_is_the_references_numpy_code():
+    """Below its docstring the port's codec is the reference module's
+    code, line for line: every float step is the same numpy operation."""
+    def body(path):
+        tree = ast.parse(path.read_text())
+        return [ast.dump(node) for node in tree.body[1:]]
+    ref = ROOT / "src" / "repro" / "fl" / "runtime" / "codec.py"
+    assert body(PKG / "fl" / "runtime" / "codec.py") == body(ref)

@@ -2,8 +2,11 @@
 process, ``tm_backend="ref"``) and on the port, each on the ClientData
 its own partition draws from the same seeds, at full and partial
 participation
-(uniform, weighted and round-robin sampling, dropout, stragglers):
-reports, byte totals and final state are bit-identical.
+(uniform, weighted and round-robin sampling, dropout, stragglers) and
+on every wire codec (int8 / int4, sparse delta with ``<u2`` or
+varint+RLE indices, error feedback): reports, byte totals and final
+state (the wire's reference and residual lanes included) are
+bit-identical, and so are resumes from either package's checkpoints.
 
 ``mean_accuracy`` is compared within 1e-6: it is a float32 mean over the
 clients whose summation order XLA and torch choose independently; every
@@ -19,6 +22,7 @@ import torch
 from repro.core import tm as jtm
 from repro.data import partition as jpartition
 from repro.data import synthetic as jsynthetic
+from repro.fl.runtime import CodecConfig as JCodecConfig
 from repro.fl.runtime import Engine as JEngine
 from repro.fl.runtime import RuntimeConfig as JRuntimeConfig
 from repro.fl.runtime import SchedulerConfig as JSchedulerConfig
@@ -29,9 +33,10 @@ from repro_torch import convert
 from repro_torch import random as tr
 from repro_torch.core import tm as ttm
 from repro_torch.data import partition, synthetic
-from repro_torch.fl.runtime import (Engine, FedTMStrategy, RuntimeConfig,
-                                    SchedulerConfig, TPFLStrategy,
-                                    checkpointing)
+from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
+                                    RuntimeConfig, SchedulerConfig,
+                                    TPFLStrategy, checkpointing)
+from repro_torch.fl.runtime import codec as tcodec
 from repro_torch.launch import fed_train
 from test_torch_gpu import one_torch_thread  # noqa: F401
 
@@ -42,11 +47,13 @@ TM = dict(n_classes=10, n_clauses=16, n_features=144, n_states=63, s=5.0,
 SPLIT = dict(n_clients=6, experiment=5, n_train=24, n_test=12, n_conf=12)
 
 
-def _engines(rounds, strategy="tpfl", sched=None, **strategy_kw):
+def _engines(rounds, strategy="tpfl", sched=None, wire=None, ckpt=None,
+             **strategy_kw):
     """The JAX engine and the port's engine, each over the population
     its own package draws from pool seed 0 and partition seed 1 (the
     same bits, pool shares ``sizes`` included: tests/test_torch_data.py),
-    with the same strategy and scheduler settings."""
+    with the same strategy, scheduler and codec settings (``ckpt``: the
+    JAX engine checkpoints there after every round)."""
     x, y, _ = synthetic.make_dataset("synthmnist", 600, tr.PRNGKey(0, "cpu"),
                                      side=12)
     data = partition.partition(x, y, 10, key=tr.PRNGKey(1, "cpu"), **SPLIT)
@@ -62,12 +69,14 @@ def _engines(rounds, strategy="tpfl", sched=None, **strategy_kw):
                                **strategy_kw)
         tstrat = TPFLStrategy(ttm.TMConfig(**TM), local_epochs=2,
                               **strategy_kw)
-    sched = sched or {}
+    sched, wire = sched or {}, wire or {}
     jeng = JEngine(jstrat, jdata, JRuntimeConfig(
         rounds=rounds, scheduler=JSchedulerConfig(**sched),
-        tm_backend="ref"))
+        codec=JCodecConfig(**wire), tm_backend="ref",
+        checkpoint_dir=ckpt, checkpoint_every=1 if ckpt else 0))
     teng = Engine(tstrat, data, RuntimeConfig(
-        rounds=rounds, scheduler=SchedulerConfig(**sched)))
+        rounds=rounds, scheduler=SchedulerConfig(**sched),
+        codec=CodecConfig(**wire)))
     return jeng, teng
 
 
@@ -106,6 +115,8 @@ def _same_state(jstate, tstate):
     _same(jstate.client_state.ta_state, tstate.client_state.ta_state)
     _same(jstate.client_state.weights, tstate.client_state.weights)
     _same(jstate.server.slots, tstate.server.slots)
+    for lane in ("ref_vecs", "ref_round", "ef_residual"):
+        _same(getattr(jstate, lane), getattr(tstate, lane))
 
 
 def test_reports_bit_identical(both_runs):
@@ -171,7 +182,7 @@ def test_fed_train_cli_on_cpu(capsys):
 @pytest.mark.parametrize("kw", [
     dict(aggregation="async"), dict(backend="shardmap"),
     dict(client_store="mmap"), dict(transport="socket"),
-    dict(codec="int8"), dict(tm_backend="pallas")])
+    dict(tm_backend="pallas")])
 def test_unsupported_runtime_configs_raise(kw):
     """The reference's other runtime settings are not accepted at all:
     a config written for them fails, it does not run as sync/float32."""
@@ -182,7 +193,8 @@ def test_unsupported_runtime_configs_raise(kw):
 def test_async_codecs_and_other_strategies_are_a_later_slice(capsys):
     """The CLI has no flag for what the port does not run yet, and a
     strategy without the fused hooks is refused by the engine."""
-    for flags in (["--mode", "async"], ["--codec", "int8"]):
+    for flags in (["--mode", "async"], ["--transport", "socket"],
+                  ["--client-store", "mmap"]):
         with pytest.raises(SystemExit) as exc:
             fed_train.main(["--device", "cpu", *flags])
         assert exc.value.code == 2
@@ -299,6 +311,15 @@ CLI_FLAGS = {
                        "--dropout", "0.2", "--straggler", "0.3",
                        "--max-staleness", "3", "--seed", "4",
                        "--experiment", "3"],
+    "tpfl_int8_sparse_vrle_ef": [
+        "--clients", "6", "--rounds", "2", "--clauses", "16",
+        "--local-epochs", "1", "--codec", "int8", "--sparse",
+        "--index-coding", "vrle", "--error-feedback"],
+    "fedtm_int4_ef_partial": [
+        "--clients", "6", "--rounds", "2", "--clauses", "8",
+        "--local-epochs", "1", "--strategy", "fedtm", "--active", "3",
+        "--dropout", "0.2", "--straggler", "0.3", "--codec", "int4",
+        "--error-feedback"],
 }
 
 
@@ -321,9 +342,154 @@ def test_fed_train_cli_prints_the_reference_lines(case, capsys):
     ref = jfed_train.main(flags)
     ref_text = capsys.readouterr().out
     assert _report_lines(port_text) == _report_lines(ref_text)
-    assert len(_report_lines(port_text)) == 2 + 2 + (case != "tpfl")
+    assert len(_report_lines(port_text)) == 2 + 2 + ("weighted" in case)
     np.testing.assert_allclose(ours["acc_per_round"], ref["acc_per_round"],
                                rtol=0, atol=1e-6)
     for key in ("upload_bytes", "download_bytes_broadcast",
                 "download_bytes_per_client"):
         assert ours[key] == ref[key]
+
+
+# -- the lossy wire ---------------------------------------------------------
+
+WIRES = {
+    "int8": dict(name="int8"),
+    "int4": dict(name="int4"),
+    "f32_sparse": dict(name="float32", sparse=True),
+    "int8_sparse": dict(name="int8", sparse=True),
+    "int8_sparse_vrle_ef": dict(name="int8", sparse=True,
+                                index_coding="vrle", error_feedback=True),
+    "int4_ef": dict(name="int4", error_feedback=True),
+}
+PARTICIPATION = {
+    "full": {},
+    "partial": dict(participation=0.5, dropout=0.2, straggler=0.3,
+                    max_staleness=3),
+}
+
+
+@pytest.mark.parametrize("sched", PARTICIPATION)
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("strategy", ["tpfl", "fedtm"])
+def test_lossy_wire_round_bit_identical(strategy, wire, sched):
+    """Two rounds on the wire: every report field (metered bytes
+    included), the client weights and TA states, the server slots and the
+    ``ref_vecs`` / ``ref_round`` / ``ef_residual`` lanes equal the JAX
+    engine's; ``mean_accuracy`` within 1e-6."""
+    jeng, teng = _engines(rounds=2, strategy=strategy,
+                          sched=PARTICIPATION[sched], wire=WIRES[wire])
+    key = jax.random.PRNGKey(3)
+    jstate, jreps = jeng.run(key)
+    tstate, treps = teng.run(convert.key_from_numpy(key, "cpu"))
+    _same_reports(jreps, treps)
+    _same_state(jstate, tstate)
+    cfg = WIRES[wire]
+    if cfg.get("sparse"):
+        assert int((tstate.ref_round >= 0).sum()) > 0
+    else:
+        assert tstate.ref_vecs.shape == (0, 0, 0)
+    if cfg.get("error_feedback"):
+        assert bool((tstate.ef_residual != 0).any())
+    else:
+        assert tstate.ef_residual.shape == (0, 0, 0)
+    if cfg["name"] != "float32":   # a lossy downlink: non-integer rows
+        server = tstate.server.slots
+        assert bool((server != torch.round(server)).any())
+
+
+def test_lossy_resume_bit_identical(tmp_path):
+    """A sparse + error-feedback run checkpointed after round 1 and
+    resumed (the broadcast cache empty, recomputed from the restored
+    rows) equals the uninterrupted run, lanes included."""
+    wire = dict(name="int8", sparse=True, error_feedback=True)
+    sched = dict(participation=0.5, dropout=0.2, straggler=0.3)
+    _, teng = _engines(rounds=3, sched=sched, wire=wire)
+    key = convert.key_from_numpy(jax.random.PRNGKey(3), "cpu")
+    full, full_reps = teng.run(key)
+    _, ceng = _engines(rounds=1, sched=sched, wire=wire)
+    ceng = Engine(ceng.strategy, ceng.data, dataclasses.replace(
+        ceng.cfg, checkpoint_dir=str(tmp_path), checkpoint_every=1))
+    ceng.run(key)
+    _, reng = _engines(rounds=2, sched=sched, wire=wire)
+    like = reng.init(convert.key_from_numpy(jax.random.PRNGKey(0), "cpu"))
+    resumed = checkpointing.restore(checkpointing.latest(tmp_path), like)
+    assert int(resumed.round_idx) == 1 and reng._tx_cache is None
+    state, reps = reng.run(key, state=resumed)
+    _same_reports(convert.to_numpy(full_reps[1:]), reps)
+    for a, b in zip((*full.client_state, full.server.slots, full.ref_vecs,
+                     full.ref_round, full.ef_residual),
+                    (*state.client_state, state.server.slots, state.ref_vecs,
+                     state.ref_round, state.ef_residual)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("strategy", ["tpfl", "fedtm"])
+def test_port_resumes_a_jax_lossy_checkpoint(strategy, tmp_path):
+    """The JAX engine's checkpoint after round 1 (int4, sparse with vrle
+    indices, error feedback, partial participation) restores into the
+    port with its ``ref_vecs`` / ``ref_round`` / ``ef_residual``, and the
+    port's round 2 equals the JAX engine's; so does a start from the JAX
+    state handed over with ``convert.engine_state_from_numpy``."""
+    wire = dict(name="int4", sparse=True, index_coding="vrle",
+                error_feedback=True)
+    sched = dict(participation=0.5, dropout=0.2)
+    jeng, teng = _engines(rounds=2, strategy=strategy, sched=sched,
+                          wire=wire, ckpt=str(tmp_path))
+    key = jax.random.PRNGKey(3)
+    jeng.run(key, rounds=1)
+    ck = tmp_path / "round_000001.msgpack"
+    like = teng.init(convert.key_from_numpy(jax.random.PRNGKey(0), "cpu"))
+    restored = checkpointing.restore(ck, like)
+    assert bool((restored.ef_residual != 0).any())
+    assert int((restored.ref_round == 0).sum()) > 0
+    jstate1 = jeng.init(jax.random.PRNGKey(0))
+    from repro.fl.runtime import checkpointing as jcheckpointing
+    jstate1 = jcheckpointing.restore(ck, jstate1)
+    _same_state(jstate1, restored)
+    handed = convert.engine_state_from_numpy(
+        *(np.asarray(a) for a in (jstate1.round_idx,
+                                  jstate1.client_state.ta_state,
+                                  jstate1.client_state.weights,
+                                  jstate1.server.slots)), device="cpu",
+        ref_vecs=np.asarray(jstate1.ref_vecs),
+        ref_round=np.asarray(jstate1.ref_round),
+        ef_residual=np.asarray(jstate1.ef_residual))
+    jstate2, jreps = jeng.run(key, state=jstate1, rounds=1)
+    for start in (restored, handed):
+        tstate2, treps = teng.run(convert.key_from_numpy(key, "cpu"),
+                                  state=start, rounds=1)
+        _same_reports(jreps, treps)
+        _same_state(jstate2, tstate2)
+
+
+@pytest.mark.parametrize("wire", [dict(name="float32"), dict(name="int8"),
+                                  dict(name="int8", sparse=True),
+                                  dict(name="int4", sparse=True,
+                                       index_coding="vrle")])
+def test_engine_metered_bytes_equal_reencoded_buffer_lengths(wire):
+    """The upload meter is Σ (4-byte slot id + len(frame)) of the frames
+    the codec writes for the wire-visible uploads, sparse ones against
+    each client's tracked (all-zero, never synced) reference.  The
+    port's counterpart of the reference conformance test of this name,
+    whose two-value unpack of ``_wire_uplink`` predates its third
+    return value, the error-feedback lane."""
+    _, teng = _engines(rounds=1, wire=wire)
+    state = teng.init(tr.PRNGKey(0, "cpu"))
+    part = teng.scheduler.sample(0, tr.PRNGKey(1, "cpu"))
+    keys = tr.split(tr.PRNGKey(1, "cpu"), teng.n)
+    _, vecs, slots = teng.executor.train(
+        teng.strategy, state.client_state, state.server.slots, teng.data,
+        keys)
+    dec, up_bytes, ef = teng._wire_uplink(state, vecs, slots, part)
+    cfg = teng.cfg.codec
+    expect = 0
+    for c in range(teng.n):
+        for j in range(slots.shape[1]):
+            s = int(slots[c, j])
+            if s < 0:
+                continue
+            ref = state.ref_vecs[c, s].numpy() if cfg.sparse else None
+            expect += 4 + len(tcodec.encode(vecs[c, j].numpy(), cfg,
+                                            ref=ref))
+    assert up_bytes == expect > 0
+    assert ef is state.ef_residual and dec.shape == vecs.shape

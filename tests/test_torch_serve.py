@@ -131,16 +131,20 @@ def test_checkpoint_file_is_the_reference_encoding(tmp_path, trained):
         ".round_idx": trained["state"].round_idx,
         ".client_state/.ta_state": trained["state"].client_state.ta_state,
         ".client_state/.weights": trained["state"].client_state.weights,
-        ".server/.slots": trained["state"].server.slots}
+        ".server/.slots": trained["state"].server.slots,
+        ".ref_vecs": trained["state"].ref_vecs,
+        ".ref_round": trained["state"].ref_round,
+        ".ef_residual": trained["state"].ef_residual}
     payload = {k: {"dtype": str(v.numpy().dtype), "shape": list(v.shape),
                    "data": v.numpy().tobytes()} for k, v in flat.items()}
     assert path.read_bytes() == msgpack.packb(payload)
 
 
 def test_port_restores_a_jax_checkpoint(tmp_path, fields, jdata):
-    """The JAX engine's checkpoint holds nine leaves the port's state
-    lacks (async lanes, sparse refs, error feedback); restore walks the
-    port's template and ignores them."""
+    """The JAX engine's checkpoint holds six leaves the port's state
+    lacks (the async buffer lanes); restore walks the port's template and
+    ignores them.  The wire's lanes (zero-size on the dense wire) come
+    back as they were saved."""
     jeng = JEngine(JTPFLStrategy(jtm.TMConfig(**TM), local_epochs=1), jdata,
                    JRuntimeConfig(rounds=1, checkpoint_dir=str(tmp_path),
                                   checkpoint_every=1))
@@ -149,9 +153,11 @@ def test_port_restores_a_jax_checkpoint(tmp_path, fields, jdata):
     assert len(msgpack.unpackb(path.read_bytes())) == 13
     got = checkpointing.restore(path, _like(_engine(fields)))
     want = [jstate.round_idx, jstate.client_state.ta_state,
-            jstate.client_state.weights, jstate.server.slots]
+            jstate.client_state.weights, jstate.server.slots,
+            jstate.ref_vecs, jstate.ref_round, jstate.ef_residual]
     for a, b in zip(want, [got.round_idx, *got.client_state,
-                           got.server.slots]):
+                           got.server.slots, got.ref_vecs, got.ref_round,
+                           got.ef_residual], strict=True):
         assert b.dtype == {np.int32: torch.int32,
                            np.float32: torch.float32}[np.asarray(a).dtype.type]
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
@@ -482,3 +488,24 @@ def test_port_plane_serves_a_jax_fedtm_checkpoint_as_the_jax_plane(
     np.testing.assert_array_equal(plane.predict(ids, x),
                                   np.asarray(jplane.predict(ids, x)))
     assert plane.active_version == jplane.active_version == 2
+
+
+@pytest.mark.parametrize("wire", [
+    ["--codec", "int8", "--sparse"],
+    ["--codec", "int4", "--sparse", "--error-feedback"]],
+    ids=["int8_sparse", "int4_sparse_ef"])
+def test_fed_serve_restores_a_lossy_run(tmp_path, capsys, wire):
+    """A lossy run's checkpoint carries the wire's lanes; ``fed_serve``
+    given the same structural codec flags builds a matching template
+    and serves it exactly, and without them refuses the layout."""
+    fed_train.main(FLAGS + wire + ["--rounds", "2", "--ckpt-dir",
+                                   str(tmp_path), "--ckpt-every", "2"])
+    out = fed_serve.main(FLAGS + wire + [
+        "--ckpt-dir", str(tmp_path), "--batch", "8", "--requests", "2",
+        "--verify-offline"])
+    assert "offline parity: OK (4 clients" in capsys.readouterr().out
+    assert out["verified_clients"] == 4 and out["mismatches"] == 0
+    with pytest.raises(ValueError, match="layout mismatch for leaf "
+                                         "'.ref_vecs'"):
+        fed_serve.main(FLAGS + ["--ckpt-dir", str(tmp_path), "--batch", "8",
+                                "--requests", "1"])

@@ -56,7 +56,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    twice a round), each round's ``up=`` / ``down_bc=`` / ``down_pc=``
    beside the training path's float32 figures and held to the frames'
    sizes, the round times and the medians of the spans recorded in
-   ``events.jsonl``;
+   ``events.jsonl``; then path (E), the DL baselines (``path_e``):
+   ``fed_train --strategy fedavg|fedprox|ifca|flis_dc|flis_hc`` at the
+   same width on the MLP 784-128-10, 2 rounds of 2 local epochs each
+   (counters zeroed just before each: no kernel launches), round times,
+   bytes held to the frames' sizes, accuracy and cluster counts,
+   FLIS-DC's checkpoint served with ``--verify-offline`` (0
+   mismatches), and a small federation of each baseline on the card
+   against the CPU within ``E_TOL`` with assignments, counts and bytes
+   equal, every product it dispatches on the card (forward and
+   backward, watched below autograd) at float32 matmul precision
+   "highest" (no TF32);
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
@@ -81,9 +91,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and Type II rows, bytes against hashing, and its time with no row
    listed);
 11. profile one more full-width round of the training path, one of
-   path (B), one of path (C) and one of path (D) (device busy share, top
-   ops; path (B)'s round also without the profiler), then print the
-   kernel times as one JSON line.
+   path (B), one of path (C), one of path (D) and one IFCA round of path
+   (E) (device busy share, top ops; path (B)'s round also without the
+   profiler), then print the kernel times as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero
@@ -91,6 +101,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -149,6 +160,18 @@ SMALL_LOSSY = (
     ["--codec", "int4", "--sparse", "--index-coding", "vrle"],
     ["--strategy", "fedtm", "--codec", "int4", "--error-feedback",
      "--active", "3", "--dropout", "0.2", "--straggler", "0.3"])
+# path (E): the paper's DL baselines on the MLP 784-128-10
+PATH_E = ("fedavg", "fedprox", "ifca", "flis_dc", "flis_hc")
+PATH_E_ARGS = SCENARIO + ["--rounds", "2"]
+MLP_D = 784 * 128 + 128 + 128 * 10 + 10       # 101,770 floats a vector
+# the aten products path (E) watches for the float32 matmul setting
+E_PRODUCTS = frozenset({"mm", "bmm", "addmm", "baddbmm", "addbmm", "mv",
+                        "addmv", "dot"})
+# the small baseline federations held GPU == CPU, and the tolerance the
+# MLP's float math is held to (cuBLAS and the CPU add in other orders)
+SMALL_E = dict(n_features=144, n_classes=10, n_hidden=16, local_epochs=2,
+               batch=8, ifca_k=3, max_slots=4, probe_size=16)
+E_TOL = dict(atol=1e-5, rtol=1e-4)
 TA_P = (0.9, 0.7)   # float32(p) < p: a float64 compare would differ
 # partition.sha256 of the full-width scenario's ClientData (mnist through
 # the mirror, seed 0, 20 clients, experiment 5): the reference's draw,
@@ -417,6 +440,184 @@ def profile_round(engine, state, key, label: str) -> None:
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<6d} "
               f"{e.key[:70]}", flush=True)
+
+
+def path_e(dev, x, y):
+    """Path (E), the DL baselines: each of ``PATH_E`` through the CLI at
+    full width, launch counters zeroed just before each run; round
+    times, metered bytes against the frames' arithmetic sizes, mean
+    accuracy and cluster counts; FLIS-DC's checkpoint served with
+    ``--verify-offline``; then a small federation of each baseline on
+    the card against the CPU within ``E_TOL``, every product it
+    dispatches on the card at full float32 precision (no TF32).  Returns the IFCA run's
+    engine and state for the profiled round."""
+    import torch
+    from repro_torch import convert
+    from repro_torch import random as rnd
+    from repro_torch.data import partition
+    from repro_torch.fl.runtime import (Engine, RuntimeConfig,
+                                        SchedulerConfig,
+                                        build_baseline_strategy)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fed_serve, fed_train
+
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.backends.cudnn.allow_tf32:
+        raise SystemExit("path (E): TF32 is on; the MLP's float32 products "
+                         "must run at full precision")
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    precisions = set()
+    products = [0]
+
+    class ProductWatch(TorchDispatchMode):
+        """Reads the float32 matmul setting at every product the card is
+        asked for, forward and backward alike (below autograd, so the
+        Gram product, the einsum means and the gradients' products are
+        seen as well as ``torch.matmul``)."""
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in E_PRODUCTS:
+                products[0] += 1
+                precisions.add(
+                    (torch.get_float32_matmul_precision(),
+                     torch.backends.cuda.matmul.allow_tf32))
+            return func(*args, **(kwargs or {}))
+
+    run_round = Engine.run_round
+    ck = RUN_DIR / "ckpt_e"
+    shutil.rmtree(ck, ignore_errors=True)
+    out_e = {}
+    for name in PATH_E:
+        rounds = []
+
+        def timed(self, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run_round(self, *a, **kw)
+            torch.cuda.synchronize()
+            rounds.append(time.perf_counter() - t)
+            return out
+
+        args = PATH_E_ARGS + ["--strategy", name]
+        if name == "flis_dc":
+            args += ["--ckpt-dir", str(ck), "--ckpt-every", "2"]
+        Engine.run_round = timed
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        try:
+            out = fed_train.main(args)
+            torch.cuda.synchronize()
+        finally:
+            Engine.run_round = run_round
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        print(f"path (E) {name}: {wall:.2f}s wall for 2 rounds (rounds "
+              f"{[round(t, 4) for t in rounds]} s), kernel launches "
+              f"{launches}", flush=True)
+        if any(launches.values()):
+            raise SystemExit(f"path (E) {name} launched a TM kernel")
+        n_slots = out["state"].server.slots.shape[0]
+        for rep in out["reports"]:
+            arrived = int((rep.participation.active
+                           & (rep.participation.staleness == 0)).sum())
+            populated = int((rep.cluster_counts > 0).sum())
+            applied = int((rep.assignment >= 0).sum())
+            down_pc = (arrived * n_slots if name == "ifca" else applied) \
+                * 4 * MLP_D
+            acc = rep.per_client_accuracy
+            print(f"path (E) {name} round {rep.round_idx}: "
+                  f"acc={float(rep.mean_accuracy):.4f} "
+                  f"up={rep.upload_bytes}B "
+                  f"down_bc={rep.download_bytes_broadcast}B "
+                  f"down_pc={rep.download_bytes_per_client}B clusters "
+                  f"{populated} counts "
+                  f"{rep.cluster_counts.cpu().numpy().astype(int).tolist()}",
+                  flush=True)
+            if rep.upload_bytes != 20 * (4 + 4 * MLP_D) \
+                    or rep.download_bytes_broadcast != populated * 4 * MLP_D \
+                    or rep.download_bytes_per_client != down_pc:
+                raise SystemExit(f"path (E) {name} round {rep.round_idx}: "
+                                 f"metered bytes are not the frames' sizes")
+            if acc.shape != (20,) or not bool(((acc >= 0)
+                                                & (acc <= 1)).all()):
+                raise SystemExit(f"path (E) {name}: bad accuracies {acc}")
+        st = out["state"]
+        if st.server.slots.shape != (n_slots, MLP_D) \
+                or not bool(torch.isfinite(st.server.slots).all()) \
+                or st.server.slots.device.type != torch.device(dev).type:
+            raise SystemExit(f"path (E) {name}: bad server state")
+        out_e[name] = out
+    t0 = time.perf_counter()
+    served = fed_serve.main(SCENARIO + ["--strategy", "flis_dc",
+                                        "--ckpt-dir", str(ck), "--batch",
+                                        "32", "--requests", "8",
+                                        "--verify-offline"])
+    torch.cuda.synchronize()
+    print(f"path (E) serving flis_dc: {time.perf_counter() - t0:.2f}s wall, "
+          f"{served['requests_per_s']:.1f} req/s, p50="
+          f"{served['p50_s'] * 1e6:.0f}us p99={served['p99_s'] * 1e6:.0f}us "
+          f"per batch of 32, {served['mismatches']} mismatches over "
+          f"{served['verified_clients']} clients", flush=True)
+    if served["mismatches"] or served["verified_clients"] != 20:
+        raise SystemExit("path (E): served != offline")
+
+    # small federations of each baseline: the card against the CPU, the
+    # card's products watched (not the timed runs above: the watch runs
+    # every op through Python)
+    for name in PATH_E:
+        for sched in ({}, dict(participation=0.5, dropout=0.3)):
+            runs = []
+            for d in ("cpu", dev):
+                part = partition.partition(x, y, 10, n_clients=6,
+                                           experiment=5,
+                                           key=rnd.PRNGKey(1, d),
+                                           n_train=16, n_test=8, n_conf=8)
+                with (ProductWatch() if d == dev
+                      else contextlib.nullcontext()):
+                    st, reps = Engine(
+                        build_baseline_strategy(name, **SMALL_E), part,
+                        RuntimeConfig(rounds=2, scheduler=SchedulerConfig(
+                            **sched))).run(rnd.PRNGKey(3, d))
+                runs.append((convert.to_numpy(
+                    [st.server.slots, *st.client_state.values()]
+                    if isinstance(st.client_state, dict) else
+                    [st.server.slots, *st.client_state.params.values()]),
+                    convert.to_numpy([(r.assignment, r.cluster_counts,
+                                       r.participation.idx,
+                                       r.participation.active)
+                                      for r in reps]),
+                    [(r.upload_bytes, r.download_bytes_broadcast,
+                      r.download_bytes_per_client) for r in reps],
+                    convert.to_numpy([r.per_client_accuracy
+                                      for r in reps])))
+            (fc, ic, bc, ac), (fg, ig, bg, ag) = runs
+            same_ints = bc == bg and all(
+                np.array_equal(a, b) for ra, rb in zip(ic, ig)
+                for a, b in zip(ra, rb))
+            err = max(float(np.abs(a - b).max()) for a, b in zip(fc, fg))
+            close = all(np.allclose(b, a, **E_TOL) for a, b in zip(fc, fg))
+            acc_gap = max(float(np.abs(a - b).max()) for a, b in zip(ac, ag))
+            print(f"check small {name} {sched or 'full'}: assignments, "
+                  f"counts, bytes GPU == CPU: {same_ints}; state max |GPU - "
+                  f"CPU| {err:.3e} (tolerance {E_TOL}); per-client "
+                  f"accuracy max gap {acc_gap:.4f}", flush=True)
+            if not (same_ints and close):
+                raise SystemExit(f"small {name} federation {sched}: GPU and "
+                                 f"CPU runs disagree")
+    if not products[0] or precisions != {("highest", False)}:
+        raise SystemExit(f"path (E): {products[0]} products ran at float32 "
+                         f"matmul (precision, allow_tf32) "
+                         f"{sorted(precisions)}, not ('highest', False)")
+    print(f"path (E): all {products[0]} products of the small federations "
+          f"on the card (forward and backward) at float32 matmul precision "
+          f"'highest' (no TF32)", flush=True)
+    ifca = out_e["ifca"]
+    data, _, _, strat = fed_train.build_scenario(
+        dataset="mnist", data_dir=str(DATA_DIR), clients=20,
+        strategy="ifca", device=dev)
+    return Engine(strat, data, RuntimeConfig(rounds=1)), ifca["state"]
 
 
 def main() -> int:
@@ -860,6 +1061,9 @@ def main() -> int:
             f"{k} {v * 1e3:.3f}" for k, v in e["phases"].items()),
             flush=True)
 
+    # path (E): the DL baselines (MLP 784-128-10) at the same width
+    eng_e, st_e = path_e(dev, x, y)
+
     # 9. small runs on the card against the same on the CPU: the
     # unit-weight federation, and a checkpoint and its serving
     small = []
@@ -1267,6 +1471,8 @@ def main() -> int:
     eng_d = Engine(strategy, data, RuntimeConfig(
         rounds=1, codec=CodecConfig(**PATH_D_WIRE)))
     profile_round(eng_d, st_d, rnd.PRNGKey(9, dev), "path (D) round")
+    profile_round(eng_e, st_e, rnd.PRNGKey(10, dev),
+                  "path (E) IFCA round")
 
     kernels = [
         kernel_entry("fused_votes_batched", "clause_eval.cu",

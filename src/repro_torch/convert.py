@@ -16,7 +16,8 @@ from repro_torch import device as devices
 from repro_torch.core.tm import TMParams
 from repro_torch.data.partition import ClientData
 from repro_torch.fl.runtime.engine import EngineState
-from repro_torch.fl.runtime.strategy import ServerState
+from repro_torch.fl.runtime.strategy import (FLISAux, FLISClientState,
+                                             ServerState)
 
 
 def _t(a, dtype=None, device=None) -> torch.Tensor:
@@ -34,6 +35,30 @@ def tm_params_from_numpy(ta_state, weights, device=None) -> TMParams:
                     weights=_t(weights, np.int32, device))
 
 
+def mlp_params_from_numpy(params: Mapping[str, Any],
+                          device=None) -> dict[str, torch.Tensor]:
+    """An MLP's ``{w1, b1, w2, b2}`` (any leading axes) as float32."""
+    return {k: _t(params[k], np.float32, device)
+            for k in ("w1", "b1", "w2", "b2")}
+
+
+def flis_client_state_from_numpy(params: Mapping[str, Any], prev_slot,
+                                 device=None) -> FLISClientState:
+    return FLISClientState(mlp_params_from_numpy(params, device),
+                           _t(prev_slot, np.int32, device))
+
+
+def server_state_from_numpy(slots, aux=None, device=None) -> ServerState:
+    """The server state; ``aux`` is None (no aux, TPFL, FedTM, FedAvg,
+    IFCA) or FLIS's ``(probe, members)``."""
+    if aux is None:
+        return ServerState(_t(slots, np.float32, device))
+    probe, members = aux
+    return ServerState(_t(slots, np.float32, device),
+                       FLISAux(probe=_t(probe, np.uint8, device),
+                               members=_t(members, np.float32, device)))
+
+
 def client_data_from_numpy(fields: Mapping[str, Any],
                            device=None) -> ClientData:
     """``fields`` maps ClientData's field names to arrays (``sizes`` may
@@ -48,23 +73,33 @@ def client_data_from_numpy(fields: Mapping[str, Any],
     return ClientData(**out)
 
 
-def engine_state_from_numpy(round_idx, ta_state, weights, server_slots,
-                            device=None, *, ref_vecs=None, ref_round=None,
-                            ef_residual=None) -> EngineState:
-    """The sync engine state: round index, the clients' TM parameters,
-    the server slot matrix and the wire's lanes (``ref_vecs``,
-    ``ref_round``, ``ef_residual``; None = the zero-size placeholder of
-    a wire that does not track them)."""
+def state_from_numpy(round_idx, client_state, server: ServerState,
+                     device=None, *, ref_vecs=None, ref_round=None,
+                     ef_residual=None) -> EngineState:
+    """The sync engine state around a client state and a server state
+    already built by the helpers above, with the round index and the
+    wire's lanes (``ref_vecs``, ``ref_round``, ``ef_residual``; None =
+    the zero-size placeholder of a wire that does not track them)."""
     def lane(a, dtype, empty):
         return _t(np.zeros(empty, dtype) if a is None else a, dtype, device)
 
     return EngineState(
         round_idx=_t(round_idx, np.int32, device),
-        client_state=tm_params_from_numpy(ta_state, weights, device),
-        server=ServerState(_t(server_slots, np.float32, device)),
+        client_state=client_state, server=server,
         ref_vecs=lane(ref_vecs, np.float32, (0, 0, 0)),
         ref_round=lane(ref_round, np.int32, (0,)),
         ef_residual=lane(ef_residual, np.float32, (0, 0, 0)))
+
+
+def engine_state_from_numpy(round_idx, ta_state, weights, server_slots,
+                            device=None, **lanes) -> EngineState:
+    """The TM engine state: round index, the clients' TM parameters,
+    the server slot matrix and the wire's lanes (see
+    :func:`state_from_numpy`)."""
+    return state_from_numpy(
+        round_idx, tm_params_from_numpy(ta_state, weights, device),
+        server_state_from_numpy(server_slots, device=device), device,
+        **lanes)
 
 
 def to_numpy(tree):

@@ -3,8 +3,9 @@
 Counterpart of ``repro/fl/runtime``: ``scheduler`` (who takes part),
 ``strategy`` (what a round means), ``codec`` (the bytes on the wire),
 ``executors`` (where the compute runs), ``engine`` (the round) and
-``checkpointing`` (round checkpoints).  The port runs TPFL and FedTM,
-sync, under any scheduler setting, on every wire codec, in process.
+``checkpointing`` (round checkpoints).  The port runs TPFL, FedTM and
+the DL baselines (FedAvg / FedProx, IFCA, FLIS-DC / HC), sync, under any
+scheduler setting, on every wire codec, in process.
 """
 from repro_torch.fl.runtime.codec import CodecConfig          # noqa: F401
 from repro_torch.fl.runtime.engine import (                   # noqa: F401
@@ -12,4 +13,6 @@ from repro_torch.fl.runtime.engine import (                   # noqa: F401
 from repro_torch.fl.runtime.scheduler import (                # noqa: F401
     Participation, Scheduler, SchedulerConfig)
 from repro_torch.fl.runtime.strategy import (                 # noqa: F401
-    FedTMStrategy, ServerState, TPFLStrategy, Upload, default_server_update)
+    FedAvgStrategy, FedTMStrategy, FLISAux, FLISClientState, FLISStrategy,
+    IFCAStrategy, MLPStrategyBase, ServerState, TPFLStrategy, Upload,
+    build_baseline_strategy, default_server_update, resolve_server_update)

@@ -1,16 +1,18 @@
 """The federated round engine, sync path on one device.
 
 Counterpart of ``repro/fl/runtime/engine.py`` for the configuration this
-slice of the port supports: sync barrier, every wire codec of the
-reference (float32, int8, int4; sparse delta with ``<u2`` or varint+RLE
-indices; error feedback), the resident client population and the
-in-process executor, under any scheduler setting (partial
-participation; uniform, weighted or round-robin sampling; dropout;
-stragglers).  :class:`RuntimeConfig` therefore holds the number of
-rounds, the scheduler, the codec and the checkpoint cadence; the
-reference's other runtime settings (async aggregation, the shard-mapped
-backend, the mmap client store, transports) come with later slices
-(ROADMAP.md, queue A) and are refused, as unknown fields.
+slice of the port supports: sync barrier, every strategy of the
+reference (TPFL, FedTM, FedAvg / FedProx, IFCA, FLIS-DC / HC) with its
+server-side ``assign`` and ``server_update`` hooks, every wire codec
+(float32, int8, int4; sparse delta with ``<u2`` or varint+RLE indices;
+error feedback), the resident client population and the in-process
+executor, under any scheduler setting (partial participation; uniform,
+weighted or round-robin sampling; dropout; stragglers).
+:class:`RuntimeConfig` therefore holds the number of rounds, the
+scheduler, the codec and the checkpoint cadence; the reference's other
+runtime settings (async aggregation, the shard-mapped backend, the mmap
+client store, transports) come with later slices (ROADMAP.md, queue A)
+and are refused, as unknown fields.
 
 Round anatomy (``run_round``), as in the reference's staged sync path,
 each stage in a telemetry span of the reference's name:
@@ -25,9 +27,10 @@ each stage in a telemetry span of the reference's name:
    roundtripped through the dense codec (the identity on float32;
    computed once per server matrix, cached from the last downlink);
 4. ``client_step``: the strategy's ``fused_client_step`` on the cohort
-   from those rows: local training (one fused-epoch launch per local
-   epoch), for TPFL confidence (one fused-votes launch) and the
-   top-class pick;
+   from those rows: local training (for the TM one fused-epoch launch
+   per local epoch; for the MLP one batched autograd step a minibatch),
+   for TPFL confidence (one fused-votes launch) and the top-class pick,
+   for IFCA the loss of every slot model;
 5. ``uplink_codec``: every upload of a surviving client (stragglers
    too) is encoded to a real frame, metered (4-byte slot id + frame)
    and decoded on the host; sparse deltas run against the client's
@@ -35,24 +38,29 @@ each stage in a telemetry span of the reference's name:
    residual.  Only the K sampled reference and residual rows leave the
    device.  The float32 dense wire is the identity: metered
    arithmetically, nothing leaves the device;
-6. ``aggregate``, ``server_update``: the masked per-slot mean over the
-   arrived uploads, summed in row order, and the Alg. 2 server update
-   (empty slots keep their row);
-7. ``downlink``: slot rows are encoded, metered and decoded;
+6. ``assign`` (strategies with the hook, FLIS): every upload's slot is
+   recomputed from the decoded uploads.  Metering and the sparse
+   references above used the tags that crossed the wire, never these;
+7. ``aggregate``, ``server_update``: the masked per-slot mean over the
+   arrived uploads, summed in row order, folded into the server state
+   by the strategy's hook (default: Alg. 2, empty slots keep their row);
+8. ``downlink``: slot rows are encoded, metered and decoded;
    ``apply_merge``: the arrived clients that shared a slot apply its
    decoded row (Phase D), the others keep their state from before the
    round; ``ref_track``: the arrived clients' references advance to the
    rows they applied;
-8. ``eval``: the cohort is scattered back and every client of the
-   population is evaluated (one fused-votes launch).
+9. ``eval``: the cohort is scattered back and every client of the
+   population is evaluated (one fused-votes launch for the TM).
 
 The key chain matches the reference: ``k_init, k_rounds = split(key)``,
 round r runs under ``fold_in(k_rounds, r)``.  With the same data and key
 every report field and the final state (client state, server rows,
-``ref_vecs`` / ``ref_round`` / ``ef_residual``) are bit-identical to the
-JAX engine, except ``mean_accuracy``, a float32 mean whose summation
-order may differ in the last place, and a lossy aggregate where XLA's
-dot does not add in row order (``core/clustering.py``).
+``ref_vecs`` / ``ref_round`` / ``ef_residual``) of the TM strategies are
+bit-identical to the JAX engine, except ``mean_accuracy``, a float32
+mean whose summation order may differ in the last place, and a lossy
+aggregate where XLA's dot does not add in row order
+(``core/clustering.py``).  The MLP strategies are float math, held to
+the reference within a stated tolerance (tests/test_torch_baselines.py).
 """
 from __future__ import annotations
 
@@ -63,6 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as rnd
+from repro_torch import tree
 from repro_torch.data.partition import ClientData
 from repro_torch.fl.obs.recorder import NULL as NULL_TELEMETRY
 from repro_torch.fl.runtime import checkpointing
@@ -70,10 +79,11 @@ from repro_torch.fl.runtime.codec import CodecConfig, decode, ef_encode, encode
 from repro_torch.fl.runtime.executors import InProcessExecutor, applied_slots
 from repro_torch.fl.runtime.scheduler import (Participation, Scheduler,
                                               SchedulerConfig)
-from repro_torch.fl.runtime.strategy import (ServerState,
-                                             default_server_update)
+from repro_torch.fl.runtime.strategy import (DOWNLOADS, ServerState,
+                                             resolve_server_update)
 
-_LATER = "ROADMAP.md, queue A"
+# the cohort hooks the engine calls on every strategy
+_HOOKS = ("init", "fused_client_step", "apply_broadcast", "fused_evaluate")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +98,7 @@ class RuntimeConfig:
 class EngineState(NamedTuple):
     round_idx: torch.Tensor     # () int32 — next round to run
     client_state: Any           # strategy state, leading axis = clients
-    server: ServerState         # (n_slots, d) slot matrix
+    server: ServerState         # slot matrix + the strategy's aux
     # per-client broadcast references of the sparse-delta wire: the
     # server rows each client last received (zeros = never synced) and
     # the round it received them (−1 = never); zero-size when dense
@@ -117,12 +127,24 @@ class Engine:
 
     def __init__(self, strategy, data: ClientData, cfg: RuntimeConfig,
                  telemetry=None):
-        if not hasattr(strategy, "fused_client_step"):
-            raise NotImplementedError(
-                f"{type(strategy).__name__}: the port runs TPFL and FedTM "
-                f"only; the other strategies come with a later slice "
-                f"({_LATER})")
+        missing = [h for h in _HOOKS if not hasattr(strategy, h)]
+        if missing:
+            raise TypeError(
+                f"{type(strategy).__name__} lacks the cohort hook(s) "
+                f"{', '.join(missing)} that the engine calls on every "
+                f"strategy (each written for the whole stacked cohort)")
+        downloads = getattr(strategy, "downloads", None)
+        if downloads not in DOWNLOADS:
+            raise ValueError(
+                f"strategy.downloads must be one of {DOWNLOADS}, got "
+                f"{downloads!r} — 'assigned' broadcasts each client its "
+                f"own slot row, 'all_slots' the whole matrix (IFCA)")
         self.strategy = strategy
+        self._downloads = downloads
+        # the optional server-side hooks: assign (absent = the proposed
+        # slots stand) and server_update (absent = Alg. 2 retention)
+        self._assign = getattr(strategy, "assign", None)
+        self._server_update = resolve_server_update(strategy)
         self.data = data
         self.cfg = cfg
         self.n = int(data.x_train.shape[0])
@@ -139,7 +161,9 @@ class Engine:
         self._tx_cache = None
 
     def init(self, key: torch.Tensor) -> EngineState:
-        cs, server = self.strategy.init(key.to(self.device), self.n)
+        # FLIS draws its probe set from the clients' confidence split
+        cs, server = self.strategy.init(key.to(self.device), self.n,
+                                        self.data)
         shape = (self.n, self.strategy.n_slots, self.strategy.vec_dim)
         f32 = dict(dtype=torch.float32, device=self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -193,10 +217,8 @@ class Engine:
             else:
                 idx = part.idx.long()
                 keys = keys[idx]
-                sub_cs = type(state.client_state)(
-                    *(a[idx] for a in state.client_state))
-                sub_data = type(self.data)(
-                    *(None if a is None else a[idx] for a in self.data))
+                sub_cs = tree.map(lambda a: a[idx], state.client_state)
+                sub_data = tree.map(lambda a: a[idx], self.data)
             obs.fence(keys)
         # local work starts from the rows a client holds after the
         # (possibly lossy) broadcast, not the server's own precision
@@ -210,12 +232,19 @@ class Engine:
         with obs.span("uplink_codec"):
             dec, up_bytes, ef = self._wire_uplink(state, vecs, slots, part)
             obs.fence(dec)
+        if self._assign is not None:
+            # metering and the sparse references used the tags that
+            # crossed the wire; aggregation and the broadcast use these
+            with obs.span("assign"):
+                slots = self.executor.assign(self.strategy, state.server,
+                                             dec, slots, arrive)
+                obs.fence(slots)
         with obs.span("aggregate"):
             agg, counts = self.executor.masked_mean(self.strategy, dec,
                                                     slots, arrive)
             obs.fence(agg, counts)
         with obs.span("server_update"):
-            server = default_server_update(state.server, agg, counts)
+            server = self._server_update(state.server, agg, counts)
             obs.fence(server)
         with obs.span("downlink"):
             applied = applied_slots(slots, counts, arrive)
@@ -236,8 +265,8 @@ class Engine:
             if in_order:
                 cs, assignment = merged, applied
             else:
-                cs = type(merged)(*(a.index_put((idx,), m) for a, m in
-                                    zip(state.client_state, merged)))
+                cs = tree.map(lambda a, m: a.index_put((idx,), m),
+                              state.client_state, merged)
                 assignment = torch.full(
                     (self.n, applied.shape[1]), -1, dtype=torch.int32,
                     device=self.device).index_put((idx,), applied)
@@ -321,7 +350,7 @@ class Engine:
         self._advance_ref_rows(
             sub, sub_rounds, arrive.cpu().numpy(), applied.cpu().numpy(),
             rx_server.cpu().numpy(), r,
-            getattr(self.strategy, "downloads", "assigned"))
+            self._downloads)
         dev = state.ref_vecs.device
         return (state.ref_vecs.index_put((idx,),
                                          torch.as_tensor(sub, device=dev)),
@@ -391,7 +420,7 @@ class Engine:
             self._tx_cache = (server, rx)      # next round trains from it
         np_counts = counts.cpu().numpy()
         down_bc = sum(n for n, c in zip(frame_len, np_counts) if c > 0)
-        if getattr(self.strategy, "downloads", "assigned") == "all_slots":
+        if self._downloads == "all_slots":
             down_pc = int(arrive.sum()) * sum(frame_len)
         else:
             down_pc = sum(frame_len[s] for s in applied.cpu().numpy().ravel()

@@ -1,16 +1,18 @@
 """Where a round's compute runs: in this process, on one device.
 
 Counterpart of the in-process half of ``repro/fl/runtime/executors.py``.
-Client training, the masked per-slot mean, broadcast-apply with the
-merge that keeps non-receivers' old state, and evaluation each run once
-for the whole stacked cohort; on the GPU the training and evaluation
-are one kernel launch per stage.  The
+Client training, the server-side assignment, the masked per-slot mean,
+broadcast-apply with the merge that keeps non-receivers' old state, and
+evaluation each run once for the whole stacked cohort, whatever tree
+the client state is; on the GPU the TM's training and evaluation are
+one kernel launch per stage.  The
 shard-mapped executor becomes ``torch.distributed`` in a later slice.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tree
 from repro_torch.core import clustering
 
 
@@ -31,6 +33,11 @@ class InProcessExecutor:
                                                      sub_data, keys)
         return new_sub, upload.vecs, upload.slots      # (K,j,d), (K,j)
 
+    def assign(self, strategy, server, dec, slots, arrive):
+        """The strategy's server-side assignment over the decoded uploads
+        of the cohort: (K, j) slot ids."""
+        return strategy.assign(server, dec, slots, arrive)
+
     def masked_mean(self, strategy, dec, slots, arrive):
         """The Alg. 2 masked mean over the uploads that arrived (slot −1
         contributes nothing); returns the raw per-slot mean (zeros where
@@ -50,9 +57,9 @@ class InProcessExecutor:
         bc = strategy.apply_broadcast(new_sub, applied, rx_server)
         if recv is None:
             return bc
-        return type(bc)(*(torch.where(
-            recv.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
-            for new, old in zip(bc, old_sub)))
+        return tree.map(lambda new, old: torch.where(
+            recv.reshape((-1,) + (1,) * (new.ndim - 1)), new, old),
+            bc, old_sub)
 
     def evaluate(self, strategy, cs, x_test, y_test):
         return strategy.fused_evaluate(cs, x_test, y_test)

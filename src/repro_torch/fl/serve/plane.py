@@ -15,8 +15,9 @@ client store is a later slice (ROADMAP.md).
 
 **Inference.**  The whole batch — R requests against up to R distinct
 models — is one call of ``strategy.predict_batched`` (each request its
-own lane): one ``fused_votes_batched`` launch on the GPU.  Duplicate
-client ids share one resolved row.
+own lane): for the TM one ``fused_votes_batched`` launch on the GPU,
+for the MLP one batched product.  Duplicate client ids share one
+resolved row, whatever tree the client state is.
 
 **Warm swap.**  ``refresh()`` pulls a newer registry version (fully
 verifying it) and then swaps the active snapshot with one reference
@@ -31,6 +32,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.fl.serve.registry import ModelRegistry, RegistryError
 from repro_torch.fl.serve.telemetry import NULL_SERVE
 
@@ -42,9 +44,9 @@ class ActiveModel(NamedTuple):
     state: Any          # EngineState pulled from the registry
 
 
-def _rows(tree, idx: torch.Tensor):
-    """Rows ``idx`` of every tensor of a named tuple of tensors."""
-    return type(tree)(*(a[idx] for a in tree))
+def _rows(state, idx: torch.Tensor):
+    """Rows ``idx`` of every tensor of a client-state tree."""
+    return tree.map(lambda a: a[idx], state)
 
 
 class ServingPlane:
@@ -100,7 +102,7 @@ class ServingPlane:
         the personalized mask (all True: every resident row is the
         client's own model)."""
         cs = state.client_state
-        n = cs[0].shape[0]
+        n = tree.leaves(cs)[0].shape[0]
         if n == 0:
             raise RegistryError(
                 "the active checkpoint carries no resident population "

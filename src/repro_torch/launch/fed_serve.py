@@ -1,7 +1,8 @@
 """Federated serving CLI: personalized inference as a service.
 
 Counterpart of ``repro/launch/fed_serve.py`` for what the port supports:
-TPFL or FedTM over a resident population.  ``fed_train --ckpt-dir D --ckpt-every
+every strategy (TPFL, FedTM and the MLP baselines) over a resident
+population.  ``fed_train --ckpt-dir D --ckpt-every
 k`` leaves round checkpoints behind; this CLI stands up the serving
 plane over them:
 
@@ -14,16 +15,19 @@ plane over them:
    refused before a single request is answered.
 3. **Serve.**  ``--requests`` batches of ``--batch`` requests each,
    strided over the client population so every batch mixes clusters;
-   each batch is one ``predict_batched`` call (one fused-votes-batched
-   launch on the GPU).  Between batches the plane polls ``refresh()``.
+   each batch is one ``predict_batched`` call (for the TM one
+   fused-votes-batched launch on the GPU, for the MLP one batched
+   product).  Between batches the plane polls ``refresh()``.
 
 The scenario flags (``--strategy --dataset --data-dir --encoding
---clients --clauses --seed ...``) must repeat the training run's, and
+--clients --clauses --seed --max-slots --probe-size ...``) must repeat
+the training run's, and
 so must the structural codec flags (``--codec --sparse
 --error-feedback``), which shape the checkpointed wire lanes.  ``--verify-offline`` then serves one
 covering batch (every client once) and checks each client's served
-prediction against ``tm.predict`` on its resolved row (one fused-votes
-launch per client); the process exits 1 on any mismatch.
+prediction against the offline prediction of its resolved row
+(``tm.predict``, one fused-votes launch per client; for the MLP the
+logits' argmax); the process exits 1 on any mismatch.
 
   PYTHONPATH=src python -m repro_torch.launch.fed_serve \\
       --ckpt-dir runs/ckpt --clients 20 --batch 32 --requests 8 \\
@@ -43,13 +47,23 @@ import torch
 
 from repro_torch import device as devices
 from repro_torch import random as rnd
-from repro_torch.core import tm
+from repro_torch import tree
+from repro_torch.core import mlp, tm
 from repro_torch.data.ingest import registry as datasets
 from repro_torch.fl.runtime import (CodecConfig, Engine, RuntimeConfig,
                                     checkpointing)
 from repro_torch.fl.runtime.codec import CODECS
 from repro_torch.fl.serve import ModelRegistry, ServeTelemetry, ServingPlane
 from repro_torch.launch.fed_train import STRATEGY_CHOICES, build_scenario
+
+
+def _offline_predict(strategy, row, x: torch.Tensor) -> torch.Tensor:
+    """One client's predictions from its own row, outside the plane."""
+    tm_cfg = getattr(strategy, "tm_cfg", None)
+    if tm_cfg is not None:
+        return tm.predict(row, x, tm_cfg)
+    params = getattr(row, "params", row)   # FLIS wraps the MLP
+    return mlp.apply(params, x).argmax(-1)
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -67,6 +81,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--clauses", type=int, default=48)
     ap.add_argument("--local-epochs", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-slots", type=int, default=8)
+    ap.add_argument("--probe-size", type=int, default=64)
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain versions)")
     # structural knobs that shape the checkpointed engine state
@@ -101,12 +117,12 @@ def main(argv: list[str] | None = None) -> dict:
     registry_root = args.registry or str(
         pathlib.Path(args.ckpt_dir) / "registry")
 
-    data, tm_cfg, _, strategy = build_scenario(
+    data, _, _, strategy = build_scenario(
         dataset=args.dataset, data_dir=args.data_dir,
         encoding=args.encoding, clients=args.clients, clauses=args.clauses,
         seed=args.seed, experiment=args.experiment,
         local_epochs=args.local_epochs, strategy=args.strategy,
-        device=device)
+        max_slots=args.max_slots, probe_size=args.probe_size, device=device)
     engine = Engine(strategy, data, RuntimeConfig(codec=CodecConfig(
         args.codec, sparse=args.sparse, error_feedback=args.error_feedback)))
     # the engine's key chain is k_init, k_rounds = split(PRNGKey(seed))
@@ -178,8 +194,8 @@ def main(argv: list[str] | None = None) -> dict:
         rows, _ = plane._resolve_rows(state, ids)
         mismatch = 0
         for c in range(n):
-            row = tm.TMParams(*(a[c] for a in rows))
-            want = int(tm.predict(row, x[c:c + 1], tm_cfg)[0])
+            row = tree.map(lambda a: a[c], rows)
+            want = int(_offline_predict(strategy, row, x[c:c + 1])[0])
             if want != int(got[c]):
                 mismatch += 1
                 print(f"client {c}: served {int(got[c])}, "

@@ -1,13 +1,17 @@
-"""Run a TPFL or FedTM federation on the port: the scenario runner's CLI.
+"""Run a federation on the port: the scenario runner's CLI.
 
 Counterpart of ``repro/launch/fed_train.py``'s CLI for the configuration
-this slice of the port supports: TPFL or FedTM, sync, in process, under
-the reference's scheduler and wire codec flags, on the reference's data
-path (the reference's other knobs come with later slices, ROADMAP.md):
+this slice of the port supports: every strategy of the reference (TPFL,
+FedTM, and the MLP baselines FedAvg, FedProx, IFCA, FLIS-DC, FLIS-HC),
+sync, in process, under the reference's scheduler and wire codec flags,
+on the reference's data path (the reference's other knobs come with
+later slices, ROADMAP.md):
 
   PYTHONPATH=src python -m repro_torch.launch.fed_train \\
       --dataset mnist --data-dir DATA --clauses 300 --clients 20 \\
-      --rounds 2 [--encoding thermometer:2] [--strategy fedtm] \\
+      --rounds 2 [--encoding thermometer:2] \\
+      [--strategy tpfl|fedtm|fedavg|fedprox|ifca|flis_dc|flis_hc \\
+       --max-slots S --probe-size P] \\
       [--participation P | --active K] \\
       [--sampling uniform|weighted|round_robin] [--dropout D] \\
       [--straggler S --max-staleness M] \\
@@ -36,25 +40,44 @@ from repro_torch.fl import obs
 from repro_torch.fl.obs.events import accuracy_deciles, worst_decile_mean
 from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
                                     RuntimeConfig, SchedulerConfig,
-                                    checkpointing)
+                                    build_baseline_strategy, checkpointing)
 from repro_torch.fl.runtime.codec import CODECS, INDEX_CODINGS
 from repro_torch.fl.runtime.scheduler import SAMPLING
 
-STRATEGY_CHOICES = ("tpfl", "fedtm")
+STRATEGY_CHOICES = ("tpfl", "fedavg", "fedprox", "ifca", "flis_dc",
+                    "flis_hc", "fedtm")
+
+
+def _build_strategy(name: str, tm_cfg: tm.TMConfig,
+                    fed_cfg: federation.FedConfig, pool,
+                    max_slots: int = 8, probe_size: int = 64):
+    """``pool`` is anything with ``n_features`` / ``n_classes``.  The TM
+    strategies (TPFL, FedTM) take the TM config; the MLP baselines size
+    themselves from the pool."""
+    if name == "tpfl":
+        return federation.tpfl_strategy(tm_cfg, fed_cfg)
+    if name == "fedtm":
+        return FedTMStrategy(tm_cfg, local_epochs=fed_cfg.local_epochs)
+    return build_baseline_strategy(
+        name, n_features=pool.n_features, n_classes=pool.n_classes,
+        local_epochs=fed_cfg.local_epochs, max_slots=max_slots,
+        probe_size=probe_size)
 
 
 def build_scenario(*, dataset: str, data_dir: str | None = None,
                    encoding: str = "bool", clients: int = 20,
                    clauses: int = 48, seed: int = 0, experiment: int = 5,
                    rounds: int = 5, local_epochs: int = 2,
-                   strategy: str = "tpfl", device=None):
+                   strategy: str = "tpfl", max_slots: int = 8,
+                   probe_size: int = 64, device=None):
     """(partitioned client data, TM config, fed config, strategy), as the
     reference builds them: the registry's pool (``n_samples=6000``,
     ``side=12``, from ``seed``; through the IDX mirror under
     ``data_dir``), split by ``partition_pool`` from ``PRNGKey(seed + 1)``
-    into 80 / 40 / 40 train / test / confidence samples a client, and a
-    TM with n_states=63, s=5, T=40.  The data lies on ``device``, the
-    GPU unless the caller names another."""
+    into 80 / 40 / 40 train / test / confidence samples a client, a TM
+    with n_states=63, s=5, T=40, and the strategy named (FLIS capped at
+    ``max_slots`` rows with a ``probe_size`` probe set).  The data lies
+    on ``device``, the GPU unless the caller names another."""
     pool = registry.load(dataset, data_dir, encoding=encoding,
                          n_samples=6000, side=12, seed=seed, device=device)
     data = natural.partition_pool(
@@ -65,16 +88,15 @@ def build_scenario(*, dataset: str, data_dir: str | None = None,
                          T=40)
     fed_cfg = federation.FedConfig(n_clients=clients, rounds=rounds,
                                    local_epochs=local_epochs)
-    if strategy == "fedtm":
-        strat = FedTMStrategy(tm_cfg, local_epochs=local_epochs)
-    else:
-        strat = federation.tpfl_strategy(tm_cfg, fed_cfg)
+    strat = _build_strategy(strategy, tm_cfg, fed_cfg, pool,
+                            max_slots=max_slots, probe_size=probe_size)
     return data, tm_cfg, fed_cfg, strat
 
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(
-        description="TPFL / FedTM federation on PyTorch (GPU by default)")
+        description="Federated runtime scenario runner on PyTorch (GPU by "
+                    "default)")
     ap.add_argument("--dataset", default="synthmnist",
                     choices=registry.names())
     ap.add_argument("--data-dir", default=None,
@@ -86,6 +108,12 @@ def main(argv: list[str] | None = None) -> dict:
                     help="feature encoding: bool[:threshold] | "
                          "thermometer[:levels] | quantile[:levels]")
     ap.add_argument("--strategy", default="tpfl", choices=STRATEGY_CHOICES)
+    ap.add_argument("--max-slots", type=int, default=8,
+                    help="FLIS: server slot rows — dynamic clusters are "
+                         "recomputed each round and capped at this many")
+    ap.add_argument("--probe-size", type=int, default=64,
+                    help="FLIS: size of the server-side probe set drawn "
+                         "from the confidence split")
     ap.add_argument("--clients", type=int, default=20)
     ap.add_argument("--active", type=int, default=None, metavar="K",
                     help="sample K clients per round (sets "
@@ -151,7 +179,7 @@ def main(argv: list[str] | None = None) -> dict:
         encoding=args.encoding, clients=args.clients, clauses=args.clauses,
         seed=args.seed, experiment=args.experiment, rounds=args.rounds,
         local_epochs=args.local_epochs, strategy=args.strategy,
-        device=device)
+        max_slots=args.max_slots, probe_size=args.probe_size, device=device)
     telemetry = None
     if args.telemetry_dir or args.profile_dir:
         telemetry = obs.RunRecorder(run_dir=args.telemetry_dir,

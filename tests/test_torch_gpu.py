@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, and the
+rounds, serving and the MLP baselines against the CPU, on the card.
 
 Every test here needs a CUDA device and skips without one; the file
 imports neither jax nor the JAX package, so it runs on the GPU machine:
@@ -20,8 +21,10 @@ from repro_torch.core import clustering
 from repro_torch.data import partition, synthetic
 from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
                                     RuntimeConfig, Scheduler,
-                                    SchedulerConfig, TPFLStrategy)
+                                    SchedulerConfig, TPFLStrategy,
+                                    build_baseline_strategy)
 from repro_torch.kernels import draws, ops, ref
+from repro_torch.launch import fed_serve, fed_train
 
 VOTE_SHAPES = [  # (N, C, m, L, B): test_kernels.py's, and C·m = 99, L = 130
     (3, 4, 16, 32, 8), (4, 3, 33, 130, 5), (2, 3, 33, 130, 11)]
@@ -673,3 +676,100 @@ def test_aggregate_deterministic_on_gpu(cuda, n_clusters, m):
                                    ids.to(cuda), n_clusters)
         assert torch.equal(got.cluster_weights.cpu(), want.cluster_weights)
         assert torch.equal(got.counts.cpu(), want.counts)
+
+
+# -- the DL baselines (MLP) -------------------------------------------------
+
+BASELINE_KW = dict(n_features=144, n_classes=10, n_hidden=16,
+                   local_epochs=2, batch=8, ifca_k=3, max_slots=4,
+                   probe_size=16)
+# the MLP is float math: cuBLAS and the CPU add in other orders
+BASELINE_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _baseline_run(name, dev, sched=None):
+    data = _population(dev, 6, n_train=16)
+    eng = Engine(build_baseline_strategy(name, **BASELINE_KW), data,
+                 RuntimeConfig(rounds=2, scheduler=SchedulerConfig(
+                     **(sched or {}))))
+    return eng.run(tr.PRNGKey(3, "cpu"))
+
+
+def _mlp_leaves(state):
+    cs = getattr(state.client_state, "params", state.client_state)
+    return [state.server.slots, *(cs[k] for k in sorted(cs))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fedavg", "fedprox", "ifca", "flis_dc",
+                                  "flis_hc"])
+def test_gpu_baseline_round_matches_cpu_round(cuda, name):
+    """Two rounds of each baseline at half participation with drops: on
+    the card the assignments, counts, participation and bytes equal the
+    CPU's, every float of the state within BASELINE_TOL, and no TM
+    kernel launches."""
+    before = dict(ops.LAUNCHES)
+    runs = [_baseline_run(name, dev, dict(participation=0.5, dropout=0.3))
+            for dev in ("cpu", "cuda")]
+    assert ops.LAUNCHES == before
+    (s0, r0), (s1, r1) = runs
+    assert s1.server.slots.is_cuda
+    for a, b in zip(convert.to_numpy(_mlp_leaves(s0)),
+                    convert.to_numpy(_mlp_leaves(s1))):
+        np.testing.assert_allclose(b, a, **BASELINE_TOL)
+    for a, b in zip(r0, r1):
+        for f in ("assignment", "cluster_counts"):
+            assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+        for f in ("idx", "active", "staleness"):
+            assert torch.equal(getattr(a.participation, f),
+                               getattr(b.participation, f).cpu()), f
+        assert (a.upload_bytes, a.download_bytes_broadcast,
+                a.download_bytes_per_client, a.aggregated_uploads) == (
+            b.upload_bytes, b.download_bytes_broadcast,
+            b.download_bytes_per_client, b.aggregated_uploads)
+
+
+@pytest.mark.gpu
+def test_gpu_baseline_products_run_at_full_fp32(cuda):
+    """With the process's float32 matmul precision at "high" (TF32
+    allowed), every product an MLP run dispatches, forward and backward
+    (watched below autograd, so the Gram product and the gradients'
+    products too), still runs at "highest", and the caller's setting
+    comes back after the run."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen, products = set(), []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ("mm", "bmm", "addmm", "baddbmm", "addbmm", "mv",
+                        "addmv", "dot"):
+                products.append(name)
+                seen.add(torch.get_float32_matmul_precision())
+            return func(*args, **(kwargs or {}))
+
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        with Watch():
+            for name in ("ifca", "flis_hc"):
+                _baseline_run(name, "cuda")
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert products and seen == {"highest"}
+
+
+@pytest.mark.gpu
+def test_gpu_baseline_served_equals_offline(cuda, tmp_path):
+    """A FLIS-HC run's checkpoint served on the card: every client's
+    served prediction equals its row's offline prediction."""
+    flags = ["--clients", "4", "--local-epochs", "1", "--strategy",
+             "flis_hc", "--max-slots", "3", "--device", "cuda"]
+    fed_train.main(flags + ["--rounds", "2", "--ckpt-dir", str(tmp_path),
+                            "--ckpt-every", "2"])
+    out = fed_serve.main(flags + ["--ckpt-dir", str(tmp_path), "--batch",
+                                  "8", "--requests", "2",
+                                  "--verify-offline"])
+    assert out["verified_clients"] == 4 and out["mismatches"] == 0

@@ -96,13 +96,23 @@ def _host_value_makers(tmp_path):
             np.ones((1, 2, 3, 4)), np.ones((1, 2, 3))),
         "engine_state_from_numpy": lambda: convert.engine_state_from_numpy(
             0, np.ones((1, 2, 3, 4)), np.ones((1, 2, 3)), np.zeros((2, 3))),
+        "mlp_params_from_numpy": lambda: convert.mlp_params_from_numpy(
+            {k: np.ones((2, 3)) for k in ("w1", "b1", "w2", "b2")}),
+        "flis_client_state_from_numpy":
+            lambda: convert.flis_client_state_from_numpy(
+                {k: np.ones((2, 3)) for k in ("w1", "b1", "w2", "b2")},
+                np.zeros(2)),
+        "server_state_from_numpy": lambda: convert.server_state_from_numpy(
+            np.zeros((2, 3)), (np.zeros((4, 3)), np.zeros(2))),
     }
 
 
 @pytest.mark.parametrize("name", [
     "PRNGKey", "partition", "make_dataset", "registry.load",
     "registry.load_mirror", "write_idx_mirror", "build_scenario",
-    "key_from_numpy", "tm_params_from_numpy", "engine_state_from_numpy"])
+    "key_from_numpy", "tm_params_from_numpy", "engine_state_from_numpy",
+    "mlp_params_from_numpy", "flis_client_state_from_numpy",
+    "server_state_from_numpy"])
 def test_tensors_from_host_values_default_to_the_gpu(monkeypatch, tmp_path,
                                                      name):
     """The partition draws on its key's device, so a GPU default for the

@@ -66,7 +66,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    against the CPU within ``E_TOL`` with assignments, counts and bytes
    equal, every product it dispatches on the card (forward and
    backward, watched below autograd) at float32 matmul precision
-   "highest" (no TF32);
+   "highest" (no TF32); then path (F), async buffered TPFL
+   (``path_f``): ``fed_train --mode async --straggler 0.5
+   --max-staleness 2 --dropout 0.1 --async-min-uploads 4
+   --buffer-capacity 64 --staleness-discount 0.5`` at the training
+   path's width, 3 rounds of 2 local epochs with a checkpoint a round
+   and telemetry (counters zeroed just before: the fused epoch once per
+   local epoch, the fused votes twice a round), its round lines with the
+   aggregated / buffered / evicted counts, round times and the
+   ``aggregate`` span's median; the same federation on the host buffer
+   route against the device route, and both at ``--buffer-capacity 8``
+   (eviction at full width), bit for bit (every lane, the server rows,
+   every client's state); 2 rounds plus ``--resume`` against the 3
+   rounds; the checkpoint served with ``--buffer-capacity 64
+   --verify-offline`` (0 mismatches); a small async FLIS-DC federation
+   on the card against the CPU within ``E_TOL``, labels, counts and
+   bytes equal;
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
@@ -91,9 +106,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and Type II rows, bytes against hashing, and its time with no row
    listed);
 11. profile one more full-width round of the training path, one of
-   path (B), one of path (C), one of path (D) and one IFCA round of path
-   (E) (device busy share, top ops; path (B)'s round also without the
-   profiler), then print the kernel times as one JSON line.
+   path (B), one of path (C), one of path (D), one IFCA round of path
+   (E) and one async round of path (F) (device busy share, top ops;
+   path (B)'s round also without the profiler), then print the kernel
+   times as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero
@@ -136,9 +152,10 @@ K1_KW = dict(n_states=63, T=40, p_inc=0.8, p_dec=0.2)
 
 RUN_DIR = ROOT / "build" / "chip_smoke"          # checkpoints, registry
 DATA_DIR = RUN_DIR / "data"                      # the IDX mirror's files
-SCENARIO = ["--dataset", "mnist", "--data-dir", str(DATA_DIR), "--clauses",
-            "300", "--clients", "20", "--local-epochs", "2", "--device",
-            "cuda"]
+DATASET, CLAUSES, CLIENTS = "mnist", 300, 20     # the full-width scenario
+SCENARIO = ["--dataset", DATASET, "--data-dir", str(DATA_DIR), "--clauses",
+            str(CLAUSES), "--clients", str(CLIENTS), "--local-epochs", "2",
+            "--device", "cuda"]
 MAIN_ARGS = SCENARIO + ["--rounds", "2", "--ckpt-dir", str(RUN_DIR / "ckpt"),
                         "--ckpt-every", "1"]
 SERVE_ARGS = SCENARIO + ["--ckpt-dir", str(RUN_DIR / "ckpt"), "--batch",
@@ -167,6 +184,17 @@ MLP_D = 784 * 128 + 128 + 128 * 10 + 10       # 101,770 floats a vector
 # the aten products path (E) watches for the float32 matmul setting
 E_PRODUCTS = frozenset({"mm", "bmm", "addmm", "baddbmm", "addbmm", "mv",
                         "addmv", "dot"})
+# path (F): async buffered TPFL at the training path's width
+PATH_F_FLAGS = ["--mode", "async", "--straggler", "0.5", "--max-staleness",
+                "2", "--dropout", "0.1", "--async-min-uploads", "4",
+                "--staleness-discount", "0.5"]
+PATH_F_ARGS = SCENARIO + PATH_F_FLAGS + ["--rounds", "3"]
+PATH_F = dict(aggregation="async", async_min_uploads=4, buffer_capacity=64,
+              staleness_discount=0.5)
+PATH_F_SCHED = dict(dropout=0.1, straggler=0.5, max_staleness=2)
+# the small async FLIS-DC federation held GPU == CPU
+SMALL_F = dict(participation=0.75, dropout=0.25, straggler=0.5,
+               max_staleness=2)
 # the small baseline federations held GPU == CPU, and the tolerance the
 # MLP's float math is held to (cuBLAS and the CPU add in other orders)
 SMALL_E = dict(n_features=144, n_classes=10, n_hidden=16, local_epochs=2,
@@ -620,6 +648,197 @@ def path_e(dev, x, y):
     return Engine(strat, data, RuntimeConfig(rounds=1)), ifca["state"]
 
 
+def path_f(dev, x, y):
+    """Path (F), async buffered TPFL at full width through the CLI: the
+    device route with telemetry and a checkpoint a round (launch
+    counters zeroed just before), the host route and capacity 8 on both
+    routes held bit for bit, resume, serving, and a small async FLIS-DC
+    federation GPU == CPU (on the small federations' pool ``x, y``).
+    Returns the engine, its state and the launch counts."""
+    import torch
+    from repro_torch import convert
+    from repro_torch import random as rnd
+    from repro_torch.data import partition
+    from repro_torch.fl import obs
+    from repro_torch.fl.runtime import (Engine, RuntimeConfig,
+                                        SchedulerConfig,
+                                        build_baseline_strategy)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fed_serve, fed_train
+
+    run_round = Engine.run_round
+
+    def run(args, count=False):
+        rounds = []
+
+        def timed(self, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run_round(self, *a, **kw)
+            torch.cuda.synchronize()
+            rounds.append(time.perf_counter() - t)
+            return out
+
+        Engine.run_round = timed
+        if count:
+            for k in ops.LAUNCHES:
+                ops.LAUNCHES[k] = 0
+        try:
+            out = fed_train.main(args)
+            torch.cuda.synchronize()
+        finally:
+            Engine.run_round = run_round
+        return out, rounds, dict(ops.LAUNCHES)
+
+    def lanes(out):
+        st = out["state"]
+        return convert.to_numpy(
+            [*st.client_state, st.server.slots, st.buf_vecs, st.buf_slots,
+             st.buf_ready, st.buf_weight, st.buf_valid, st.buf_seq]) + [
+            [(r.upload_bytes, r.download_bytes_per_client,
+              r.aggregated_uploads, r.buffered_uploads, r.evicted_uploads)
+             for r in out["reports"]],
+            convert.to_numpy([r.per_client_accuracy for r in out["reports"]])]
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(lanes(a), lanes(b)))
+
+    ck = RUN_DIR / "ckpt_f"
+    shutil.rmtree(ck, ignore_errors=True)
+    spans = {}
+    t0 = time.perf_counter()
+    dev_out, rounds, launches = run(
+        PATH_F_ARGS + ["--buffer-capacity", "64", "--ckpt-dir", str(ck),
+                       "--ckpt-every", "1", "--telemetry-dir",
+                       str(RUN_DIR / "telemetry_f")], count=True)
+    print(f"path (F) async TPFL: {time.perf_counter() - t0:.2f}s wall for "
+          f"3 rounds (rounds {[round(t, 4) for t in rounds]} s), launches "
+          f"{launches}", flush=True)
+    if launches["train_epoch_fused"] != 3 * 2 \
+            or launches["fused_votes_batched"] != 3 * 2:
+        raise SystemExit("path (F) did not launch the fused epoch once per "
+                         "local epoch and the fused votes twice a round")
+    for rep in dev_out["reports"]:
+        part = rep.participation
+        acc = rep.per_client_accuracy
+        print(f"path (F) round {rep.round_idx}: active "
+              f"{int(part.active.sum())}/{CLIENTS}, late "
+              f"{int((part.active & (part.staleness > 0)).sum())}, agg "
+              f"{rep.aggregated_uploads} buf {rep.buffered_uploads} evict "
+              f"{rep.evicted_uploads}, up={rep.upload_bytes}B "
+              f"down_pc={rep.download_bytes_per_client}B "
+              f"acc={float(rep.mean_accuracy):.4f}", flush=True)
+        if acc.shape != (CLIENTS,) \
+                or not bool(((acc >= 0) & (acc <= 1)).all()) \
+                or rep.upload_bytes != int(part.active.sum()) \
+                * (4 + 4 * CLAUSES):
+            raise SystemExit(f"path (F) round {rep.round_idx}: bad "
+                             f"accuracies or bytes")
+    sent = sum(int(r.participation.active.sum()) for r in dev_out["reports"])
+    if sum(r.aggregated_uploads for r in dev_out["reports"]) == 0 \
+            or sum(r.aggregated_uploads for r in dev_out["reports"]) \
+            + dev_out["reports"][-1].buffered_uploads != sent:
+        raise SystemExit("path (F): the uploads sent are not those "
+                         "aggregated and still buffered")
+    st = dev_out["state"]
+    if st.buf_vecs.shape != (64, CLAUSES) \
+            or st.buf_vecs.device.type != torch.device(dev).type \
+            or not bool(torch.isfinite(st.server.slots).all()):
+        raise SystemExit("path (F): bad buffer or server state")
+    spans["device"] = obs.phase_medians(obs.read_events(
+        RUN_DIR / "telemetry_f" / "events.jsonl"))
+    host_out, host_rounds, _ = run(
+        PATH_F_ARGS + ["--buffer-capacity", "64", "--async-buffer", "host",
+                       "--telemetry-dir", str(RUN_DIR / "telemetry_f_host")])
+    spans["host"] = obs.phase_medians(obs.read_events(
+        RUN_DIR / "telemetry_f_host" / "events.jsonl"))
+    print(f"path (F) host route: rounds "
+          f"{[round(t, 4) for t in host_rounds]} s", flush=True)
+    for route, med in spans.items():
+        print(f"path (F) {route} route span medians (ms): " + ", ".join(
+            f"{k} {v * 1e3:.3f}" for k, v in sorted(
+                med.items(), key=lambda kv: -kv[1])), flush=True)
+    if not same(dev_out, host_out):
+        raise SystemExit("path (F): the host route differs from the device "
+                         "route")
+    print("check path (F) host route == device route bit for bit (every "
+          "lane, server rows, client state, counts)", flush=True)
+    small_cap = []
+    for route in ("device", "host"):
+        out, r8, _ = run(PATH_F_ARGS + ["--buffer-capacity", "8",
+                                        "--async-buffer", route])
+        small_cap.append(out)
+        print(f"path (F) capacity 8, {route} route: rounds "
+              f"{[round(t, 4) for t in r8]} s, evicted "
+              f"{[r.evicted_uploads for r in out['reports']]}", flush=True)
+    if not same(*small_cap) \
+            or not sum(r.evicted_uploads for r in small_cap[0]["reports"]):
+        raise SystemExit("path (F) at capacity 8: no eviction, or the host "
+                         "route differs from the device route")
+    print("check path (F) capacity 8: eviction fired, host route == device "
+          "route bit for bit", flush=True)
+    ck2 = RUN_DIR / "ckpt_f_resume"
+    shutil.rmtree(ck2, ignore_errors=True)
+    part_args = SCENARIO + PATH_F_FLAGS + [
+        "--buffer-capacity", "64", "--ckpt-dir", str(ck2), "--ckpt-every",
+        "1"]
+    run(part_args + ["--rounds", "2"])
+    resumed, _, _ = run(part_args + ["--rounds", "3", "--resume"])
+    resumed["reports"] = dev_out["reports"][:2] + resumed["reports"]
+    if len(resumed["reports"]) != 3 or not same(dev_out, resumed):
+        raise SystemExit("path (F): 2 rounds + --resume differ from 3 rounds")
+    print("check path (F) 2 rounds + --resume == 3 rounds bit for bit",
+          flush=True)
+    served = fed_serve.main(SCENARIO + ["--ckpt-dir", str(ck),
+                                        "--buffer-capacity", "64",
+                                        "--batch", "32", "--requests", "8",
+                                        "--verify-offline"])
+    print(f"path (F) serving: {served['requests_per_s']:.1f} req/s, "
+          f"{served['mismatches']} mismatches over "
+          f"{served['verified_clients']} clients", flush=True)
+    if served["mismatches"] or served["verified_clients"] != CLIENTS \
+            or served["version"] != 3:
+        raise SystemExit(f"path (F): served != offline: {served}")
+    runs = []
+    for d in ("cpu", dev):
+        part = partition.partition(x, y, 10, n_clients=6, experiment=5,
+                                   key=rnd.PRNGKey(1, d), n_train=16,
+                                   n_test=8, n_conf=8)
+        st_s, reps = Engine(
+            build_baseline_strategy("flis_dc", **SMALL_E), part,
+            RuntimeConfig(rounds=3, scheduler=SchedulerConfig(**SMALL_F),
+                          aggregation="async", async_min_uploads=2,
+                          buffer_capacity=5)).run(rnd.PRNGKey(3, d))
+        runs.append((convert.to_numpy(
+            [st_s.server.slots, *st_s.client_state.params.values(),
+             st_s.buf_vecs, st_s.buf_weight]),
+            convert.to_numpy([(r.assignment, r.cluster_counts)
+                              for r in reps]
+                             + [(st_s.buf_slots, st_s.buf_valid,
+                                 st_s.buf_seq)]),
+            [(r.upload_bytes, r.download_bytes_broadcast,
+              r.download_bytes_per_client, r.aggregated_uploads,
+              r.buffered_uploads, r.evicted_uploads) for r in reps]))
+    (fc, ic, bc), (fg, ig, bg) = runs
+    same_ints = bc == bg and all(np.array_equal(a, b) for ra, rb in zip(
+        ic, ig) for a, b in zip(ra, rb))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(fc, fg))
+    close = all(np.allclose(b, a, **E_TOL) for a, b in zip(fc, fg))
+    print(f"check small async flis_dc: labels, counts, buffer integers, "
+          f"bytes GPU == CPU: {same_ints}; state max |GPU - CPU| {err:.3e} "
+          f"(tolerance {E_TOL}); aggregated "
+          f"{[b[3] for b in bg]}", flush=True)
+    if not (same_ints and close) or not sum(b[3] for b in bg):
+        raise SystemExit("small async flis_dc federation: GPU and CPU runs "
+                         "disagree, or nothing was aggregated")
+    data, _, _, strat = fed_train.build_scenario(
+        dataset=DATASET, data_dir=str(DATA_DIR), clients=CLIENTS,
+        clauses=CLAUSES, device=dev)
+    eng = Engine(strat, data, RuntimeConfig(
+        rounds=1, scheduler=SchedulerConfig(**PATH_F_SCHED), **PATH_F))
+    return eng, st, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1064,6 +1283,9 @@ def main() -> int:
     # path (E): the DL baselines (MLP 784-128-10) at the same width
     eng_e, st_e = path_e(dev, x, y)
 
+    # path (F): async buffered TPFL at the same width
+    eng_f, st_f, launches_f = path_f(dev, x, y)
+
     # 9. small runs on the card against the same on the CPU: the
     # unit-weight federation, and a checkpoint and its serving
     small = []
@@ -1473,6 +1695,9 @@ def main() -> int:
     profile_round(eng_d, st_d, rnd.PRNGKey(9, dev), "path (D) round")
     profile_round(eng_e, st_e, rnd.PRNGKey(10, dev),
                   "path (E) IFCA round")
+    profile_round(eng_f, st_f, rnd.PRNGKey(11, dev),
+                  "path (F) async round")
+    print(f"path (F) launches: {launches_f}", flush=True)
 
     kernels = [
         kernel_entry("fused_votes_batched", "clause_eval.cu",

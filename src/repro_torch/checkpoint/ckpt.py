@@ -6,11 +6,11 @@ msgpack map ``{leaf key: {"dtype", "shape", "data"}}``, with the
 reference's leaf keys (``'.client_state/.ta_state'``: a named tuple's
 field is ``.name``, a dict's key is itself, a sequence index its number,
 joined by ``/``).  :func:`restore` walks the *template's* leaves and
-ignores extra keys in the file, so the port reads a checkpoint the JAX
-package wrote, the wire's ``.ref_vecs`` / ``.ref_round`` /
-``.ef_residual`` lanes included; the six async buffer lanes (``.buf_*``)
-are the leaves the port's state lacks, so the JAX package does not read
-the port's checkpoints.
+ignores extra keys in the file.  The port's engine state has the
+reference's leaves in the reference's order, the six async buffer lanes
+(``.buf_*``) and the wire's ``.ref_vecs`` / ``.ref_round`` /
+``.ef_residual`` lanes included, so each package restores the other's
+checkpoints.
 
 The port's machine has no ``msgpack``, so :func:`packb` and
 :func:`unpackb` implement the subset the payload uses (map, str, bin,

@@ -15,7 +15,7 @@ import torch
 from repro_torch import device as devices
 from repro_torch.core.tm import TMParams
 from repro_torch.data.partition import ClientData
-from repro_torch.fl.runtime.engine import EngineState
+from repro_torch.fl.runtime.engine import EngineState, RuntimeConfig
 from repro_torch.fl.runtime.strategy import (FLISAux, FLISClientState,
                                              ServerState)
 
@@ -73,19 +73,31 @@ def client_data_from_numpy(fields: Mapping[str, Any],
     return ClientData(**out)
 
 
+BUF_LANES = ("buf_vecs", "buf_slots", "buf_ready", "buf_weight",
+             "buf_valid", "buf_seq")
+
+
 def state_from_numpy(round_idx, client_state, server: ServerState,
-                     device=None, *, ref_vecs=None, ref_round=None,
+                     device=None, *, buf=None, ref_vecs=None, ref_round=None,
                      ef_residual=None) -> EngineState:
-    """The sync engine state around a client state and a server state
-    already built by the helpers above, with the round index and the
-    wire's lanes (``ref_vecs``, ``ref_round``, ``ef_residual``; None =
-    the zero-size placeholder of a wire that does not track them)."""
+    """The engine state around a client state and a server state
+    already built by the helpers above, with the round index, the async
+    buffer's six lanes (``buf``: a tuple in ``BUF_LANES`` order; None =
+    the empty buffer of the default capacity, as ``Engine.init`` makes
+    it) and the wire's lanes (``ref_vecs``, ``ref_round``,
+    ``ef_residual``; None = the zero-size placeholder of a wire that
+    does not track them)."""
     def lane(a, dtype, empty):
         return _t(np.zeros(empty, dtype) if a is None else a, dtype, device)
 
+    if buf is None:
+        cap, d = RuntimeConfig.buffer_capacity, server.slots.shape[1]
+        buf = (np.zeros((cap, d)), np.full((cap,), -1), np.zeros((cap,)),
+               np.zeros((cap,)), np.zeros((cap,)), np.zeros((cap,)))
+    dtypes = (np.float32, np.int32, np.int32, np.float32, np.bool_, np.int32)
     return EngineState(
-        round_idx=_t(round_idx, np.int32, device),
-        client_state=client_state, server=server,
+        _t(round_idx, np.int32, device), client_state, server,
+        *(_t(a, dt, device) for a, dt in zip(buf, dtypes, strict=True)),
         ref_vecs=lane(ref_vecs, np.float32, (0, 0, 0)),
         ref_round=lane(ref_round, np.int32, (0,)),
         ef_residual=lane(ef_residual, np.float32, (0, 0, 0)))
@@ -94,7 +106,7 @@ def state_from_numpy(round_idx, client_state, server: ServerState,
 def engine_state_from_numpy(round_idx, ta_state, weights, server_slots,
                             device=None, **lanes) -> EngineState:
     """The TM engine state: round index, the clients' TM parameters,
-    the server slot matrix and the wire's lanes (see
+    the server slot matrix, and the buffer's and the wire's lanes (see
     :func:`state_from_numpy`)."""
     return state_from_numpy(
         round_idx, tm_params_from_numpy(ta_state, weights, device),

@@ -137,8 +137,8 @@ def round_event(report, spans: dict | None = None,
         },
         "async": {
             "aggregated": int(report.aggregated_uploads),
-            "buffered": int(getattr(report, "buffered_uploads", 0)),
-            "evicted": int(getattr(report, "evicted_uploads", 0)),
+            "buffered": int(report.buffered_uploads),
+            "evicted": int(report.evicted_uploads),
         },
         "store": {
             "read_bytes": int(getattr(report, "store_read_bytes", 0)),

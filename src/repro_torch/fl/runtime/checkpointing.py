@@ -2,12 +2,12 @@
 
 Counterpart of ``repro/fl/runtime/checkpointing.py`` over
 :mod:`repro_torch.checkpoint.ckpt`: an :class:`EngineState` (round
-counter, client population, server slots, the sparse wire's reference
-lanes and the error-feedback residuals) is one tree, so a checkpoint is
-one msgpack tensor store named by the round it starts.  The engine keys
-round r with ``fold_in(k_rounds, r)`` on the absolute round index, so a
-resumed run, lossy wire included, is bit-identical to the uninterrupted
-one.  A telemetry run's manifest rides along as ``manifest.json``.
+counter, client population, server slots, the async buffer's lanes,
+the sparse wire's reference lanes and the error-feedback residuals) is
+one tree, so a checkpoint is one msgpack tensor store named by the round
+it starts.  The engine keys round r with ``fold_in(k_rounds, r)`` on the
+absolute round index, so a resumed run, async or lossy, is bit-identical
+to the uninterrupted one.  A telemetry run's manifest rides along as ``manifest.json``.
 
     engine = Engine(strategy, data, cfg)
     like = engine.init(rnd.PRNGKey(0, device))      # structure template

@@ -1,18 +1,18 @@
-"""The federated round engine, sync path on one device.
+"""The federated round engine on one device, sync or async.
 
 Counterpart of ``repro/fl/runtime/engine.py`` for the configuration this
-slice of the port supports: sync barrier, every strategy of the
-reference (TPFL, FedTM, FedAvg / FedProx, IFCA, FLIS-DC / HC) with its
-server-side ``assign`` and ``server_update`` hooks, every wire codec
-(float32, int8, int4; sparse delta with ``<u2`` or varint+RLE indices;
-error feedback), the resident client population and the in-process
-executor, under any scheduler setting (partial participation; uniform,
-weighted or round-robin sampling; dropout; stragglers).
-:class:`RuntimeConfig` therefore holds the number of rounds, the
-scheduler, the codec and the checkpoint cadence; the reference's other
-runtime settings (async aggregation, the shard-mapped backend, the mmap
-client store, transports) come with later slices (ROADMAP.md, queue A)
-and are refused, as unknown fields.
+slice of the port supports: sync barrier or async buffered aggregation,
+every strategy of the reference (TPFL, FedTM, FedAvg / FedProx, IFCA,
+FLIS-DC / HC) with its server-side ``assign`` and ``server_update``
+hooks, every wire codec (float32, int8, int4; sparse delta with ``<u2``
+or varint+RLE indices; error feedback), the resident client population
+and the in-process executor, under any scheduler setting (partial
+participation; uniform, weighted or round-robin sampling; dropout;
+stragglers).  :class:`RuntimeConfig` therefore holds the number of
+rounds, the scheduler, the codec, the async settings and the checkpoint
+cadence; the reference's other runtime settings (the shard-mapped
+backend, the mmap client store, transports) come with later slices
+(ROADMAP.md, queue A) and are refused, as unknown fields.
 
 Round anatomy (``run_round``), as in the reference's staged sync path,
 each stage in a telemetry span of the reference's name:
@@ -52,19 +52,42 @@ each stage in a telemetry span of the reference's name:
 9. ``eval``: the cohort is scattered back and every client of the
    population is evaluated (one fused-votes launch for the TM).
 
+Async buffered mode (``aggregation="async"``): no barrier.  Every
+upload of a surviving client arrives, stragglers too, and lands in a
+fixed-capacity buffer, six lanes of :class:`EngineState` (so
+checkpoints carry it): payload, slot id, the round it matures
+(``r + staleness``), its weight ``discount ** staleness``, validity and
+insertion order.  On overflow the oldest insertion is evicted.  Once
+``async_min_uploads`` entries have matured they are folded into the
+server as the staleness-weighted mean per slot, and consumed; below
+that nothing is folded and nothing is broadcast.  The round has no
+``assign`` stage; the ``aggregate`` span holds the whole update.  Two
+routes, bit for bit the same:
+
+* ``async_buffer="device"``: insert, gate and mean as tensor ops on the
+  engine's device (``executors.async_update``), nothing read back
+  between them; the report's three counts are read once at the end;
+* ``async_buffer="host"``: the reference's numpy insert loop, the
+  executable reference the device route is pinned to, and the route of
+  every strategy with server-side hooks (FLIS): its ``assign`` runs
+  over the matured buffer rows when they are folded in, not when they
+  were sent (:meth:`Engine._fold_host_buffer`).
+
 The key chain matches the reference: ``k_init, k_rounds = split(key)``,
 round r runs under ``fold_in(k_rounds, r)``.  With the same data and key
 every report field and the final state (client state, server rows,
-``ref_vecs`` / ``ref_round`` / ``ef_residual``) of the TM strategies are
-bit-identical to the JAX engine, except ``mean_accuracy``, a float32
-mean whose summation order may differ in the last place, and a lossy
-aggregate where XLA's dot does not add in row order
-(``core/clustering.py``).  The MLP strategies are float math, held to
-the reference within a stated tolerance (tests/test_torch_baselines.py).
+the buffer's lanes, ``ref_vecs`` / ``ref_round`` / ``ef_residual``) of
+the TM strategies are bit-identical to the JAX engine, except
+``mean_accuracy``, a float32 mean whose summation order may differ in
+the last place, and a lossy sync aggregate where XLA's dot does not add
+in row order (``core/clustering.py``).  The MLP strategies are float
+math, held to the reference within a stated tolerance
+(tests/test_torch_baselines.py, tests/test_torch_async.py).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -73,6 +96,7 @@ import torch
 from repro_torch import random as rnd
 from repro_torch import tree
 from repro_torch.data.partition import ClientData
+from repro_torch.fl import masked_collectives
 from repro_torch.fl.obs.recorder import NULL as NULL_TELEMETRY
 from repro_torch.fl.runtime import checkpointing
 from repro_torch.fl.runtime.codec import CodecConfig, decode, ef_encode, encode
@@ -91,14 +115,32 @@ class RuntimeConfig:
     rounds: int = 10
     scheduler: SchedulerConfig = SchedulerConfig()
     codec: CodecConfig = CodecConfig()
+    aggregation: str = "sync"         # sync | async
+    async_min_uploads: int = 4        # B: aggregate once B uploads matured
+    buffer_capacity: int = 64         # fixed-capacity async upload buffer
+    staleness_discount: float = 0.5   # matured weight = discount**staleness
+    async_buffer: str = "device"      # device (tensor ops) | host (reference)
     checkpoint_dir: str | None = None
     checkpoint_every: int = 0         # 0 = never
+
+    def __post_init__(self):
+        if self.aggregation not in ("sync", "async"):
+            raise ValueError(f"unknown aggregation {self.aggregation!r}")
+        if self.async_buffer not in ("device", "host"):
+            raise ValueError(f"unknown async_buffer {self.async_buffer!r}")
 
 
 class EngineState(NamedTuple):
     round_idx: torch.Tensor     # () int32 — next round to run
     client_state: Any           # strategy state, leading axis = clients
     server: ServerState         # slot matrix + the strategy's aux
+    # the async upload buffer, carried (and checkpointed) in every mode
+    buf_vecs: torch.Tensor      # (cap, d) float32   payloads
+    buf_slots: torch.Tensor     # (cap,) int32       slot id (−1 = empty)
+    buf_ready: torch.Tensor     # (cap,) int32       round the entry matures
+    buf_weight: torch.Tensor    # (cap,) float32     staleness discount
+    buf_valid: torch.Tensor     # (cap,) bool        masked validity
+    buf_seq: torch.Tensor       # (cap,) int32       insertion order
     # per-client broadcast references of the sparse-delta wire: the
     # server rows each client last received (zeros = never synced) and
     # the round it received them (−1 = never); zero-size when dense
@@ -120,6 +162,8 @@ class RoundReport(NamedTuple):
     download_bytes_broadcast: int       # one frame per populated slot
     download_bytes_per_client: int      # Σ over receiving participants
     aggregated_uploads: int             # uploads folded into the server
+    buffered_uploads: int               # async: still waiting in the buffer
+    evicted_uploads: int                # async: lost to buffer overflow
 
 
 class Engine:
@@ -145,6 +189,11 @@ class Engine:
         # slots stand) and server_update (absent = Alg. 2 retention)
         self._assign = getattr(strategy, "assign", None)
         self._server_update = resolve_server_update(strategy)
+        # async strategies with server-side hooks fold on the host
+        # buffer route, which re-runs ``assign`` at aggregation time
+        self._async_hooks = cfg.aggregation == "async" and (
+            self._assign is not None
+            or getattr(strategy, "server_update", None) is not None)
         self.data = data
         self.cfg = cfg
         self.n = int(data.x_train.shape[0])
@@ -153,6 +202,16 @@ class Engine:
         # shares: clients holding more data are sampled more often
         self.scheduler = Scheduler(cfg.scheduler, self.n, data.sizes)
         self.executor = InProcessExecutor()
+        # discount**staleness by staleness: Python's double pow cast once
+        # to float32, as each host insert does
+        self._discount = torch.as_tensor(np.asarray(
+            [cfg.staleness_discount ** s
+             for s in range(cfg.scheduler.max_staleness + 1)], np.float32),
+            device=self.device)
+        # a discount of 0 or a power of two weighs every buffered upload
+        # by 0 or a power of two: the weighted mean's products are exact
+        d = cfg.staleness_discount
+        self._exact_products = d == 0 or math.frexp(d)[0] == 0.5
         # spans, fences and the per-round event sink; read-only, so
         # telemetry on and off give the same bits
         self.obs = telemetry if telemetry is not None else NULL_TELEMETRY
@@ -168,8 +227,16 @@ class Engine:
         f32 = dict(dtype=torch.float32, device=self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
         codec = self.cfg.codec
+        cap, d = self.cfg.buffer_capacity, self.strategy.vec_dim
         return EngineState(
             round_idx=torch.zeros((), **i32), client_state=cs, server=server,
+            buf_vecs=torch.zeros((cap, d), **f32),
+            buf_slots=torch.full((cap,), -1, **i32),
+            buf_ready=torch.zeros((cap,), **i32),
+            buf_weight=torch.zeros((cap,), **f32),
+            buf_valid=torch.zeros((cap,), dtype=torch.bool,
+                                  device=self.device),
+            buf_seq=torch.zeros((cap,), **i32),
             ref_vecs=torch.zeros(shape if codec.sparse else (0, 0, 0), **f32),
             ref_round=(torch.full((self.n,), -1, **i32) if codec.sparse
                        else torch.zeros((0,), **i32)),
@@ -205,9 +272,12 @@ class Engine:
                   ) -> tuple[EngineState, RoundReport]:
         obs = self.obs            # telemetry spans/fences — no-ops when off
         r = int(state.round_idx)
+        sync = self.cfg.aggregation == "sync"
         with obs.span("schedule"):
             part = self.scheduler.sample(r, round_key)
-            arrive = part.active & (part.staleness == 0)
+            # a sync barrier drops late uploads; async buffers them
+            arrive = part.active & (part.staleness == 0) if sync \
+                else part.active
         # the cohort is the population in order: nothing is gathered
         in_order = self.scheduler.full_in_order
         with obs.span("gather"):
@@ -232,20 +302,36 @@ class Engine:
         with obs.span("uplink_codec"):
             dec, up_bytes, ef = self._wire_uplink(state, vecs, slots, part)
             obs.fence(dec)
-        if self._assign is not None:
+        if self._assign is not None and sync:
             # metering and the sparse references used the tags that
-            # crossed the wire; aggregation and the broadcast use these
+            # crossed the wire; aggregation and the broadcast use these.
+            # Async assigns over the buffer when it folds it in
             with obs.span("assign"):
                 slots = self.executor.assign(self.strategy, state.server,
                                              dec, slots, arrive)
                 obs.fence(slots)
-        with obs.span("aggregate"):
-            agg, counts = self.executor.masked_mean(self.strategy, dec,
-                                                    slots, arrive)
-            obs.fence(agg, counts)
-        with obs.span("server_update"):
-            server = self._server_update(state.server, agg, counts)
-            obs.fence(server)
+        buf = self._buf_of(state)
+        n_buf = n_evict = 0
+        if sync:
+            with obs.span("aggregate"):
+                agg, counts = self.executor.masked_mean(self.strategy, dec,
+                                                        slots, arrive)
+                obs.fence(agg, counts)
+            with obs.span("server_update"):
+                server = self._server_update(state.server, agg, counts)
+                obs.fence(server)
+            n_agg = int((slots[arrive] >= 0).sum())
+        elif self.cfg.async_buffer == "host" or self._async_hooks:
+            with obs.span("aggregate"):
+                server, counts, n_agg, n_buf, n_evict, buf = \
+                    self._aggregate_async_host(state, dec, slots, part, r)
+                obs.fence(server, counts)
+        else:
+            with obs.span("aggregate"):
+                srv_mat, counts, n_agg, n_buf, n_evict, buf = \
+                    self._aggregate_async(state, dec, slots, part)
+                server = state.server._replace(slots=srv_mat)
+                obs.fence(server, counts)
         with obs.span("downlink"):
             applied = applied_slots(slots, counts, arrive)
             rx_server, down_bc, down_pc = self._wire_downlink(
@@ -260,7 +346,6 @@ class Engine:
             refs = self._update_refs(state, part, arrive, applied,
                                      rx_server, r)
             obs.fence(refs)
-        n_agg = int((slots[arrive] >= 0).sum())
         with obs.span("eval"):
             if in_order:
                 cs, assignment = merged, applied
@@ -278,11 +363,133 @@ class Engine:
             assignment=assignment, cluster_counts=counts,
             participation=part, upload_bytes=up_bytes,
             download_bytes_broadcast=down_bc,
-            download_bytes_per_client=down_pc, aggregated_uploads=n_agg)
+            download_bytes_per_client=down_pc, aggregated_uploads=n_agg,
+            buffered_uploads=n_buf, evicted_uploads=n_evict)
         new_state = EngineState(
-            round_idx=state.round_idx + 1, client_state=cs, server=server,
+            state.round_idx + 1, cs, server, *buf,
             ref_vecs=refs[0], ref_round=refs[1], ef_residual=ef)
         return new_state, rep
+
+    # -- the async buffer ----------------------------------------------------
+
+    @staticmethod
+    def _buf_of(state: EngineState):
+        """The buffer's six lanes, passed through unchanged by sync."""
+        return (state.buf_vecs, state.buf_slots, state.buf_ready,
+                state.buf_weight, state.buf_valid, state.buf_seq)
+
+    def _aggregate_async(self, state, dec, slots, part: Participation):
+        """The device route: this round's uploads flattened into lanes
+        (payload, slot id, maturity round ``r + staleness``,
+        ``discount**staleness``, validity) and handed with the buffer to
+        the executor's insert → gate → mean.  The three counts come back
+        in one read.  Bit for bit :meth:`_aggregate_async_host`."""
+        k, j = slots.shape
+        stale = part.staleness.long()
+
+        def flat(a):
+            return a[:, None].expand(k, j).reshape(-1)
+
+        up = (dec.reshape(k * j, -1).to(torch.float32),
+              slots.reshape(-1).to(torch.int32),
+              (state.round_idx + flat(stale)).to(torch.int32),
+              self._discount[flat(stale)],
+              flat(part.active) & (slots.reshape(-1) >= 0))
+        server, counts, n_agg, n_buf, n_evict, buf = \
+            self.executor.async_update(
+                self.strategy, self._buf_of(state), up, state.round_idx,
+                state.server.slots, self.cfg.async_min_uploads,
+                self._exact_products)
+        n_agg, n_buf, n_evict = torch.stack(
+            [n_agg, n_buf, n_evict]).tolist()
+        return server, counts, n_agg, n_buf, n_evict, buf
+
+    def _aggregate_async_host(self, state, dec, slots, part: Participation,
+                              r: int):
+        """The host route (``async_buffer="host"``, and every async
+        strategy with server-side hooks): the reference's numpy insert
+        loop, then :meth:`_fold_host_buffer`.  Returns a full
+        :class:`ServerState`."""
+        lanes = [a.cpu().numpy().copy() for a in self._buf_of(state)]
+        evicted = self._host_insert(
+            *lanes, dec.detach().cpu().numpy(), slots.cpu().numpy(),
+            part.active.cpu().numpy(), part.staleness.cpu().numpy(), r,
+            self.cfg.staleness_discount)
+        server, counts, n_agg, n_buf, buf = self._fold_host_buffer(
+            state, *lanes, r)
+        return server, counts, n_agg, n_buf, evicted, buf
+
+    @staticmethod
+    def _host_insert(vecs, bslots, ready, weight, valid, seq, np_dec,
+                     np_slots, active, stale, r: int,
+                     discount: float) -> int:
+        """Insert a round's uploads into the numpy lanes in place, one at
+        a time (the reference's loop): the first free lane, or on
+        overflow the oldest insertion's.  Returns the evicted count."""
+        evicted = 0
+        next_seq = int(seq[valid].max()) + 1 if valid.any() else 0
+        for c in range(np_dec.shape[0]):
+            if not active[c]:
+                continue
+            for j in range(np_dec.shape[1]):
+                if np_slots[c, j] < 0:
+                    continue
+                free = np.nonzero(~valid)[0]
+                if free.size:
+                    i = free[0]
+                else:       # overflow: evict the oldest *insertion*
+                    occupied = np.where(valid, seq, np.iinfo(np.int32).max)
+                    i = int(np.argmin(occupied))
+                    evicted += 1
+                vecs[i] = np_dec[c, j]
+                bslots[i] = np_slots[c, j]
+                ready[i] = r + int(stale[c])
+                weight[i] = discount ** int(stale[c])
+                valid[i] = True
+                seq[i] = next_seq
+                next_seq += 1
+        return evicted
+
+    def _fold_host_buffer(self, state, vecs, bslots, ready, weight, valid,
+                          seq, r: int):
+        """Fold the matured host-buffer entries into the server: the same
+        maturity gate, ``assign`` re-run over the matured rows (each a
+        single-upload client, the contribution mask its arrival) and the
+        strategy's ``server_update`` fold.  Returns ``(server, counts,
+        n_agg, n_buf, buf)``, the lanes back on the engine's device."""
+        n_slots = self.strategy.n_slots
+        dev = self.device
+        # a zero-weight entry can never move the weighted mean: consumed
+        # as noise, its slot not marked populated
+        mature = valid & (ready <= r)
+        contrib = mature & (weight > 0.0)
+        if int(mature.sum()) >= self.cfg.async_min_uploads:
+            w = torch.as_tensor(np.where(contrib, weight, 0.0)
+                                .astype(np.float32), device=dev)
+            s = torch.as_tensor(np.where(contrib, bslots, -1)
+                                .astype(np.int32), device=dev)
+            t_vecs = torch.as_tensor(vecs, device=dev)
+            if self._assign is not None:
+                on = torch.as_tensor(contrib, device=dev)
+                new_s = self.executor.assign(self.strategy, state.server,
+                                             t_vecs[:, None, :],
+                                             s[:, None], on)
+                s = torch.where(on, new_s[:, 0], -1).to(torch.int32)
+            mean = masked_collectives.clustered_weighted_mean(
+                t_vecs, s, w, n_slots, self._exact_products)
+            counts = (s[:, None].long() == torch.arange(
+                n_slots, device=dev)).to(torch.float32).sum(0)
+            server = self._server_update(state.server, mean, counts)
+            valid = valid & ~mature
+            n_agg = int(contrib.sum())
+        else:
+            server = state.server
+            counts = torch.zeros((n_slots,), dtype=torch.float32,
+                                 device=dev)
+            n_agg = 0
+        buf = tuple(torch.as_tensor(a, device=dev)
+                    for a in (vecs, bslots, ready, weight, valid, seq))
+        return server, counts, n_agg, int(valid.sum()), buf
 
     # -- the wire ----------------------------------------------------------
 

@@ -22,8 +22,9 @@ plane over them:
 The scenario flags (``--strategy --dataset --data-dir --encoding
 --clients --clauses --seed --max-slots --probe-size ...``) must repeat
 the training run's, and
-so must the structural codec flags (``--codec --sparse
---error-feedback``), which shape the checkpointed wire lanes.  ``--verify-offline`` then serves one
+so must the structural flags (``--codec --sparse --error-feedback``,
+which shape the checkpointed wire lanes, and ``--buffer-capacity``,
+the async buffer's).  ``--verify-offline`` then serves one
 covering batch (every client once) and checks each client's served
 prediction against the offline prediction of its resolved row
 (``tm.predict``, one fused-votes launch per client; for the MLP the
@@ -90,6 +91,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--sparse", action="store_true")
     ap.add_argument("--error-feedback", action="store_true",
                     dest="error_feedback")
+    ap.add_argument("--buffer-capacity", type=int, default=64,
+                    help="the async buffer's entries in the training "
+                         "run's state (its --buffer-capacity)")
     # registry / serving
     ap.add_argument("--ckpt-dir", default=None,
                     help="training checkpoint directory; its newest "
@@ -123,8 +127,10 @@ def main(argv: list[str] | None = None) -> dict:
         seed=args.seed, experiment=args.experiment,
         local_epochs=args.local_epochs, strategy=args.strategy,
         max_slots=args.max_slots, probe_size=args.probe_size, device=device)
-    engine = Engine(strategy, data, RuntimeConfig(codec=CodecConfig(
-        args.codec, sparse=args.sparse, error_feedback=args.error_feedback)))
+    engine = Engine(strategy, data, RuntimeConfig(
+        codec=CodecConfig(args.codec, sparse=args.sparse,
+                          error_feedback=args.error_feedback),
+        buffer_capacity=args.buffer_capacity))
     # the engine's key chain is k_init, k_rounds = split(PRNGKey(seed))
     k_init = rnd.split(rnd.PRNGKey(args.seed, device))[0]
     like = engine.init(k_init)

@@ -3,9 +3,9 @@
 Counterpart of ``repro/launch/fed_train.py``'s CLI for the configuration
 this slice of the port supports: every strategy of the reference (TPFL,
 FedTM, and the MLP baselines FedAvg, FedProx, IFCA, FLIS-DC, FLIS-HC),
-sync, in process, under the reference's scheduler and wire codec flags,
-on the reference's data path (the reference's other knobs come with
-later slices, ROADMAP.md):
+sync or async, in process, under the reference's scheduler and wire
+codec flags, on the reference's data path (the reference's other knobs
+come with later slices, ROADMAP.md):
 
   PYTHONPATH=src python -m repro_torch.launch.fed_train \\
       --dataset mnist --data-dir DATA --clauses 300 --clients 20 \\
@@ -16,11 +16,15 @@ later slices, ROADMAP.md):
       [--sampling uniform|weighted|round_robin] [--dropout D] \\
       [--straggler S --max-staleness M] \\
       [--codec float32|int8|int4 --sparse --index-coding u2|vrle \\
-       --error-feedback] [--telemetry-dir RUN_DIR --profile-dir DIR]
+       --error-feedback] [--mode sync|async --async-min-uploads B \\
+       --buffer-capacity CAP --staleness-discount D \\
+       --async-buffer device|host] [--telemetry-dir RUN_DIR \\
+       --profile-dir DIR]
 
 runs on the GPU; ``--device cpu`` runs the kernels' plain versions.  It
 prints the same per-round ``acc= … up= … down_bc= … down_pc= …
-active=a/K`` lines and totals line as the reference CLI.  ``--ckpt-dir D
+active=a/K`` lines (async: `` agg= buf= evict=`` after them) and
+totals line as the reference CLI.  ``--ckpt-dir D
 --ckpt-every k`` saves the engine state every k rounds; ``--resume``
 continues from the newest checkpoint in D and completes the requested
 ``--rounds`` in total.  ``--telemetry-dir`` records a manifest and one
@@ -144,6 +148,15 @@ def main(argv: list[str] | None = None) -> dict:
                     help="sparse-delta index stream: u2 = raw uint16 "
                          "indices, vrle = varint gap/run-length pairs "
                          "(requires --sparse)")
+    # aggregation mode
+    ap.add_argument("--mode", default="sync", choices=("sync", "async"))
+    ap.add_argument("--async-min-uploads", type=int, default=4)
+    ap.add_argument("--buffer-capacity", type=int, default=64)
+    ap.add_argument("--staleness-discount", type=float, default=0.5)
+    ap.add_argument("--async-buffer", default="device",
+                    choices=("device", "host"),
+                    help="async upload buffer: device = tensor ops on the "
+                         "engine's device, host = the numpy reference loop")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain versions)")
     ap.add_argument("--ckpt-dir", default=None)
@@ -171,6 +184,10 @@ def main(argv: list[str] | None = None) -> dict:
         codec=CodecConfig(args.codec, sparse=args.sparse,
                           error_feedback=args.error_feedback,
                           index_coding=args.index_coding),
+        aggregation=args.mode, async_min_uploads=args.async_min_uploads,
+        buffer_capacity=args.buffer_capacity,
+        staleness_discount=args.staleness_discount,
+        async_buffer=args.async_buffer,
         checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every)
     device = (devices.default_device() if args.device == "cuda"
               else devices.resolve(args.device))
@@ -214,7 +231,7 @@ def main(argv: list[str] | None = None) -> dict:
           f"exp{args.experiment}: {args.clients} clients, "
           f"K={engine.scheduler.k}/round, dropout={args.dropout}, "
           f"codec={args.codec}{'+sparse' if args.sparse else ''}, "
-          f"mode=sync, device={device}", flush=True)
+          f"mode={args.mode}, device={device}", flush=True)
     if engine.scheduler.p is not None:
         p = engine.scheduler.p
         print(f"weighted sampling from partition sizes: "
@@ -232,6 +249,11 @@ def main(argv: list[str] | None = None) -> dict:
         up += rep.upload_bytes
         down_bc += rep.download_bytes_broadcast
         down_pc += rep.download_bytes_per_client
+        extra = ""
+        if args.mode == "async":
+            extra = (f" agg={rep.aggregated_uploads}"
+                     f" buf={rep.buffered_uploads}"
+                     f" evict={rep.evicted_uploads}")
         print(f"round {rep.round_idx:3d}: "
               f"acc={float(rep.mean_accuracy):.4f} "
               f"w10%={worst_decile_mean(rep.per_client_accuracy):.4f} "
@@ -239,7 +261,7 @@ def main(argv: list[str] | None = None) -> dict:
               f"down_bc={rep.download_bytes_broadcast}B "
               f"down_pc={rep.download_bytes_per_client}B "
               f"active={int(rep.participation.active.sum())}"
-              f"/{engine.scheduler.k}", flush=True)
+              f"/{engine.scheduler.k}{extra}", flush=True)
     print(f"totals: upload={up}B ({up/1e6:.4f}MB) "
           f"download_broadcast={down_bc}B ({down_bc/1e6:.4f}MB) "
           f"download_per_client={down_pc}B ({down_pc/1e6:.4f}MB)",

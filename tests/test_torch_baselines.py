@@ -94,10 +94,9 @@ def _close_trees(jtree, ttree, exact_floats=False):
 
 
 def _parts(state):
-    """The fields of the port's EngineState (the JAX state also holds the
-    async buffer's lanes)."""
-    return (state.round_idx, state.client_state, state.server,
-            state.ref_vecs, state.ref_round, state.ef_residual)
+    """Every field of the engine state, the async buffer's lanes
+    included (both packages carry them in the same order)."""
+    return tuple(state)
 
 
 def _same_reports(jreps, treps):

@@ -180,12 +180,13 @@ def test_fed_train_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(aggregation="async"), dict(backend="shardmap"),
-    dict(client_store="mmap"), dict(transport="socket"),
-    dict(tm_backend="pallas")])
+    dict(backend="shardmap"), dict(client_store="mmap"),
+    dict(transport="socket"), dict(tm_backend="pallas")])
 def test_unsupported_runtime_configs_raise(kw):
     """The reference's other runtime settings are not accepted at all:
-    a config written for them fails, it does not run as sync/float32."""
+    a config written for them fails, it does not run in process on the
+    resident store (async aggregation runs since its slice:
+    tests/test_torch_async.py)."""
     with pytest.raises(TypeError):
         RuntimeConfig(rounds=1, **kw)
 
@@ -194,9 +195,9 @@ def test_async_codecs_and_other_strategies_are_a_later_slice(capsys):
     """The CLI has no flag for what the port does not run yet, and an
     object without the cohort hooks is refused by the engine, naming
     them (every strategy of the reference runs since the baselines'
-    slice: tests/test_torch_baselines*.py)."""
-    for flags in (["--mode", "async"], ["--transport", "socket"],
-                  ["--client-store", "mmap"]):
+    slice: tests/test_torch_baselines*.py; ``--mode async`` since the
+    async slice: tests/test_torch_async.py)."""
+    for flags in (["--transport", "socket"], ["--client-store", "mmap"]):
         with pytest.raises(SystemExit) as exc:
             fed_train.main(["--device", "cpu", *flags])
         assert exc.value.code == 2

@@ -124,7 +124,8 @@ def test_msgpack_subset_bytes_equal_msgpack(payload):
 
 def test_checkpoint_file_is_the_reference_encoding(tmp_path, trained):
     """A port checkpoint is msgpack.packb of the reference's payload for
-    the same leaves, under the reference's leaf keys."""
+    the same leaves, under the reference's leaf keys and in its order
+    (the async buffer's six lanes after the server)."""
     path = tmp_path / "round_000002.msgpack"
     ckpt.save(path, trained["state"])
     flat = {
@@ -132,6 +133,8 @@ def test_checkpoint_file_is_the_reference_encoding(tmp_path, trained):
         ".client_state/.ta_state": trained["state"].client_state.ta_state,
         ".client_state/.weights": trained["state"].client_state.weights,
         ".server/.slots": trained["state"].server.slots,
+        **{f".{lane}": getattr(trained["state"], lane)
+           for lane in convert.BUF_LANES},
         ".ref_vecs": trained["state"].ref_vecs,
         ".ref_round": trained["state"].ref_round,
         ".ef_residual": trained["state"].ef_residual}
@@ -141,10 +144,10 @@ def test_checkpoint_file_is_the_reference_encoding(tmp_path, trained):
 
 
 def test_port_restores_a_jax_checkpoint(tmp_path, fields, jdata):
-    """The JAX engine's checkpoint holds six leaves the port's state
-    lacks (the async buffer lanes); restore walks the port's template and
-    ignores them.  The wire's lanes (zero-size on the dense wire) come
-    back as they were saved."""
+    """The JAX engine's checkpoint has the port's 13 leaves; restore
+    walks the port's template, and every leaf, the async buffer's (empty
+    after a sync round) and the wire's (zero-size on the dense wire)
+    lanes included, comes back as it was saved."""
     jeng = JEngine(JTPFLStrategy(jtm.TMConfig(**TM), local_epochs=1), jdata,
                    JRuntimeConfig(rounds=1, checkpoint_dir=str(tmp_path),
                                   checkpoint_every=1))
@@ -154,12 +157,15 @@ def test_port_restores_a_jax_checkpoint(tmp_path, fields, jdata):
     got = checkpointing.restore(path, _like(_engine(fields)))
     want = [jstate.round_idx, jstate.client_state.ta_state,
             jstate.client_state.weights, jstate.server.slots,
+            *(getattr(jstate, lane) for lane in convert.BUF_LANES),
             jstate.ref_vecs, jstate.ref_round, jstate.ef_residual]
     for a, b in zip(want, [got.round_idx, *got.client_state,
-                           got.server.slots, got.ref_vecs, got.ref_round,
+                           got.server.slots,
+                           *(getattr(got, lane) for lane in convert.BUF_LANES),
+                           got.ref_vecs, got.ref_round,
                            got.ef_residual], strict=True):
-        assert b.dtype == {np.int32: torch.int32,
-                           np.float32: torch.float32}[np.asarray(a).dtype.type]
+        assert b.dtype == {np.int32: torch.int32, np.float32: torch.float32,
+                           np.bool_: torch.bool}[np.asarray(a).dtype.type]
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 

@@ -17,7 +17,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    both roles in place, drawn from role keys, with votes at and past
    ±T) and at tile-unaligned shapes (L = 130, m = 33; the vote kernels
    also at B = 130, two passes over the samples, with weights up to
-   2**15);
+   2**15); the fused epoch's global plan (include bits in device
+   memory) at 62 classes (20, 62, 300, 1568), where only it holds the
+   bits, and forced at the training path's C = 10 and unaligned; the
+   batched fused votes at 62 classes;
 4. the data path on the card, each step timed: the 6000-sample 28x28
    pool, the offline mirror's IDX files written and read back through
    the registry (``build/chip_smoke/data``), and the full-width
@@ -81,15 +84,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    rounds; the checkpoint served with ``--buffer-capacity 64
    --verify-offline`` (0 mismatches); a small async FLIS-DC federation
    on the card against the CPU within ``E_TOL``, labels, counts and
-   bytes equal;
+   bytes equal; then path (G), FEMNIST at full width (``path_g``): the
+   LEAF mirror's shards written and read through the registry (28x28,
+   25 writers) and the writer-natural partition, each timed, with the
+   pool's and the ClientData's sha256 held to ``FEMNIST_POOL_SHA256``
+   and ``FEMNIST_SHA256`` (the reference's, pinned by
+   ``tests/test_torch_leaf.py``); ``fed_train --dataset femnist`` at 62
+   classes, 300 clauses, 20 clients, ``--sampling weighted``, 2 rounds
+   of 2 local epochs, one checkpoint after round 2 (counters zeroed
+   just before: the fused epoch once per local epoch, every launch on
+   the global plan, the fused votes twice a round at 62 classes), its
+   round lines, round times and peak device memory; the checkpoint
+   served with ``fed_serve --writers 25 --verify-offline`` (0
+   mismatches);
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
    sparse + error feedback, TPFL int4 + varint+RLE, FedTM int4 + error
    feedback on 3 of 6 clients with drops and stragglers) and a small
    checkpoint + serve on the card against the same on the CPU, bit for
-   bit; ``aggregate`` of 20 non-integer uploads three times on the card
-   against the CPU, bit for bit;
+   bit; ``aggregate`` of 20 non-integer uploads (10 slots of 300, one
+   of 3000, 62 of 16 in four lanes) three times on the card against the
+   CPU, bit for bit;
 10. time each kernel at its path's shapes with CUDA events, beside its
    plain version, a one-call PyTorch yardstick where one exists, and the
    bound from bytes and operations; print each kernel's device time
@@ -104,10 +120,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    plan there is one phase 3 does not take); the same for the
    TA transition at path (B)'s last step (its launch plan, its Type I
    and Type II rows, bytes against hashing, and its time with no row
-   listed);
+   listed); the fused epoch on the global plan at path (G)'s last epoch
+   (1g) and forced at the training path's epoch beside the shared plan
+   (1f), and the batched fused votes at path (G)'s 62 classes (2g), each
+   by events, alone, against its plain version and its bound;
 11. profile one more full-width round of the training path, one of
    path (B), one of path (C), one of path (D), one IFCA round of path
-   (E) and one async round of path (F) (device busy share, top ops;
+   (E), one async round of path (F) and one FEMNIST round of path (G)
+   (device busy share, top ops;
    path (B)'s round also without the profiler), then print the kernel
    times as one JSON line.
 
@@ -192,6 +212,20 @@ PATH_F_ARGS = SCENARIO + PATH_F_FLAGS + ["--rounds", "3"]
 PATH_F = dict(aggregation="async", async_min_uploads=4, buffer_capacity=64,
               staleness_discount=0.5)
 PATH_F_SCHED = dict(dropout=0.1, straggler=0.5, max_staleness=2)
+# path (G): FEMNIST (the LEAF mirror, 28x28, 62 classes) at the training
+# path's width, 25 writers (the default max(25, 20)), writer-natural
+# clients; weighted sampling from the writers' real sizes; a checkpoint
+# after round 2 only (20 clients of 62 x 300 x 1568 TA states are 2.3 GB)
+FEMNIST_WRITERS = 25
+PATH_G_SCENARIO = ["--dataset", "femnist", "--data-dir", str(DATA_DIR),
+                   "--clauses", str(CLAUSES), "--clients", str(CLIENTS),
+                   "--local-epochs", "2", "--device", "cuda"]
+PATH_G_ARGS = PATH_G_SCENARIO + ["--rounds", "2", "--sampling", "weighted",
+                                 "--ckpt-dir", str(RUN_DIR / "ckpt_g"),
+                                 "--ckpt-every", "2"]
+PATH_G_SERVE = PATH_G_SCENARIO + [
+    "--writers", str(FEMNIST_WRITERS), "--ckpt-dir", str(RUN_DIR / "ckpt_g"),
+    "--batch", "32", "--requests", "8", "--verify-offline"]
 # the small async FLIS-DC federation held GPU == CPU
 SMALL_F = dict(participation=0.75, dropout=0.25, straggler=0.5,
                max_staleness=2)
@@ -206,6 +240,14 @@ TA_P = (0.9, 0.7)   # float32(p) < p: a float64 compare would differ
 # pinned to the live reference by tests/test_torch_data.py
 FULL_WIDTH_SHA256 = \
     "128c0854eed28842732a3466b44679a1c740d327264909df5a78b030d2e90f5c"
+# path (G): FEMNIST at full width (28x28, 62 classes) through the LEAF
+# mirror, 25 writers, 20 writer-natural clients of 80 / 40 / 40, seed 0:
+# registry.sha256 of the pool and partition.sha256 of the ClientData, the
+# reference's, pinned to the live reference by tests/test_torch_leaf.py
+FEMNIST_POOL_SHA256 = \
+    "4fd7dc3f9b6bb94c496390fc8dcd63f861791c199afdd362392064403cb7546b"
+FEMNIST_SHA256 = \
+    "63c0c244ce1e21d6426c8dd65580f49a62ca1421d382804ed8d986cfe4ccf24e"
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -839,6 +881,148 @@ def path_f(dev, x, y):
     return eng, st, launches
 
 
+def path_g(dev):
+    """Path (G), FEMNIST at full width: the LEAF mirror written and read
+    through the registry and the writer-natural partition, each timed,
+    the pool and the ClientData held to the reference's digests; then
+    ``fed_train --dataset femnist`` (62 classes, 300 clauses, 20
+    writer-natural clients, weighted sampling, 2 rounds of 2 local
+    epochs, one checkpoint after round 2) with the launch counters zeroed
+    just before: the fused epoch once per local epoch on the global plan,
+    the fused votes twice a round at C = 62; its round lines, round
+    times and peak device memory; then ``fed_serve --writers 25
+    --verify-offline`` over that checkpoint (0 mismatches).  Returns the
+    engine's pieces for phases 10 and 11 and the captured kernel
+    arguments."""
+    import torch
+    from repro_torch import random as rnd
+    from repro_torch.data import partition
+    from repro_torch.data.ingest import mirror, natural, registry
+    from repro_torch.fl.runtime import Engine
+    from repro_torch.kernels import ops, train_epoch
+    from repro_torch.launch import fed_serve, fed_train
+
+    root = DATA_DIR / "femnist"
+    shutil.rmtree(root, ignore_errors=True)
+    setup = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        setup[name] = time.perf_counter() - t
+        return out
+
+    timed("leaf_mirror_write", lambda: mirror.write_leaf_mirror(
+        root, "synthfemnist", 6000, 28, 0, n_writers=FEMNIST_WRITERS,
+        device=dev))
+    pool = timed("leaf_read_encode", lambda: registry.load(
+        "femnist", DATA_DIR, n_samples=6000, side=12, seed=0,
+        n_writers=FEMNIST_WRITERS, device=dev))
+    data = timed("writer_partition", lambda: natural.partition_pool(
+        pool, n_clients=CLIENTS, n_train=80, n_test=40, n_conf=40,
+        key=rnd.PRNGKey(1, dev), experiment=5))
+    mb = sum(f.stat().st_size for f in root.iterdir()) / 1e6
+    print(f"path (G) data set-up (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in setup.items())
+        + f"; {len(list(root.glob('all_data_*.json')))} shards, {mb:.1f} MB",
+        flush=True)
+    digests = (registry.sha256(pool), partition.sha256(data))
+    print(f"check path (G) pool and partition: sha256 {digests} (reference "
+          f"{(FEMNIST_POOL_SHA256, FEMNIST_SHA256)})", flush=True)
+    if digests != (FEMNIST_POOL_SHA256, FEMNIST_SHA256):
+        raise SystemExit("the FEMNIST pool or writer partition drawn on the "
+                         "card is not the reference's")
+    del pool, data
+
+    rounds = []
+    run_round = Engine.run_round
+
+    def timed_round(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_round(self, *a, **kw)
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t)
+        return out
+
+    shutil.rmtree(RUN_DIR / "ckpt_g", ignore_errors=True)
+    Engine.run_round = timed_round
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    for k in train_epoch.PLAN_LAUNCHES:
+        train_epoch.PLAN_LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    try:
+        with Capture(ops, "train_epoch_fused") as cap1, \
+                Capture(ops, "fused_votes_batched") as cap2:
+            result = fed_train.main(PATH_G_ARGS)
+            torch.cuda.synchronize()
+    finally:
+        Engine.run_round = run_round
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    plans = dict(train_epoch.PLAN_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"path (G) FEMNIST: {wall:.2f}s wall for 2 rounds (rounds "
+          f"{[round(t, 4) for t in rounds]} s), peak device memory "
+          f"{peak / 2**30:.2f} GiB, launches {launches}, fused epoch by "
+          f"plan {plans}", flush=True)
+    if launches["train_epoch_fused"] != 2 * 2 or plans["global"] != 2 * 2 \
+            or launches["fused_votes_batched"] != 2 * 2:
+        raise SystemExit("path (G) did not launch the fused epoch once per "
+                         "local epoch on the global plan and the fused "
+                         "votes twice a round")
+    if tuple(cap1.args[0][0].shape) != (CLIENTS, 62, CLAUSES, 1568) \
+            or cap2.args[0][0].shape[1] != 62:
+        raise SystemExit("path (G)'s kernels did not run at 62 classes")
+    for rep in result["reports"]:
+        acc = rep.per_client_accuracy
+        if acc.shape != (CLIENTS,) \
+                or not bool(((acc >= 0) & (acc <= 1)).all()) \
+                or rep.upload_bytes != int(rep.participation.active.sum()) \
+                * (4 + 4 * CLAUSES):
+            raise SystemExit(f"path (G) round {rep.round_idx}: bad "
+                             f"accuracies or bytes")
+    state = result["state"]
+    ta, w = state.client_state
+    if ta.shape != (CLIENTS, 62, CLAUSES, 1568) or int(ta.min()) < 1 \
+            or int(ta.max()) > 126 or int(w.min()) < 0 \
+            or state.server.slots.shape != (62, CLAUSES):
+        raise SystemExit("path (G): final state out of range")
+    ckpts = sorted((RUN_DIR / "ckpt_g").glob("round_*.msgpack"))
+    if len(ckpts) != 1:
+        raise SystemExit(f"path (G): expected one checkpoint, found {ckpts}")
+    print(f"path (G) checkpoint {ckpts[0].name}: "
+          f"{ckpts[0].stat().st_size / 1e9:.3f} GB", flush=True)
+
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    served = fed_serve.main(PATH_G_SERVE)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    launches_s = dict(ops.LAUNCHES)
+    print(f"path (G) serving: {serve_wall:.2f}s wall, launches "
+          f"{launches_s}, result "
+          f"{ {k: v for k, v in served.items() if k != 'latencies_s'} }",
+          flush=True)
+    if served["mismatches"] != 0 or served["verified_clients"] != CLIENTS \
+            or launches_s["fused_votes_batched"] != 8 + 1 \
+            or launches_s["fused_votes"] != CLIENTS:
+        raise SystemExit(f"path (G) serving failed: {served}, launches "
+                         f"{launches_s}")
+    data, cfg, _, strategy = fed_train.build_scenario(
+        dataset="femnist", data_dir=str(DATA_DIR), clients=CLIENTS,
+        clauses=CLAUSES, device=dev)
+    return dict(state=state, data=data, cfg=cfg, strategy=strategy,
+                epoch=cap1.args, votes=cap2.args, launches=launches,
+                plans=plans)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -912,6 +1096,36 @@ def main() -> int:
         if moved == 0:
             raise SystemExit("train_epoch_fused changed nothing")
         del args, got, want
+
+    # the global plan (include bits in device memory): at 62 classes, the
+    # only plan that holds FEMNIST's width, and forced where the shared
+    # plan holds the shape (the training path's C = 10, and unaligned)
+    for N, S, C, m, L, forced in ((20, 80, 62, 300, 1568, False),
+                                  (20, 80, 10, 300, 1568, True),
+                                  (4, 17, 3, 33, 130, True)):
+        args = epoch_inputs(gen, N, S, C, m, L, 63, dev)
+        plan = train_epoch.plan(N, C, m, L, inc_global=forced)
+        if not plan.inc_global or (not forced and train_epoch.plan(
+                N, C, m, L).inc_global != 1):
+            raise SystemExit(f"no global plan at {(N, C, m, L)}")
+        got = train_epoch.train_epoch_fused(*args, **K1_KW,
+                                            inc_global=forced)
+        want = train_epoch.train_epoch_plain(*args, **K1_KW)
+        what = f"N={N} S={S} C={C} m={m} L={L} global plan {plan}"
+        moved = int((want[0] != args[0]).sum())
+        exact("train_epoch_fused", got[0], want[0],
+              f"{what} TA states ({moved} changed)", err)
+        exact("train_epoch_fused", got[1], want[1], f"{what} weights", err)
+        if moved == 0:
+            raise SystemExit("train_epoch_fused changed nothing")
+        del args, got, want
+    args = vote_inputs(gen, 20, 62, 300, 1568, 40, dev, 7)
+    for predict in (True, False):
+        exact("fused_votes_batched", ops.fused_votes_batched(*args, predict),
+              ref.fused_votes_batched_ref(*args, predict),
+              f"(N, C, m, L, B)=(20, 62, 300, 1568, 40) predict={predict}",
+              err)
+    del args
 
     for N, C, m, L, B in ((20, 10, 300, 1568, 1), (3, 3, 33, 130, 7)):
         include, lits, _ = vote_inputs(gen, N, C, m, L, B, dev)
@@ -1286,6 +1500,9 @@ def main() -> int:
     # path (F): async buffered TPFL at the same width
     eng_f, st_f, launches_f = path_f(dev, x, y)
 
+    # path (G): FEMNIST at full width, 62 classes on the global plan
+    g = path_g(dev)
+
     # 9. small runs on the card against the same on the CPU: the
     # unit-weight federation, and a checkpoint and its serving
     small = []
@@ -1331,7 +1548,7 @@ def main() -> int:
         print(f"check small federation {name} {sched}: GPU == CPU bit for "
               f"bit", flush=True)
     # the lossy wire: the codec on the host, non-integer aggregates in
-    # row order on the card
+    # XLA's order for the shape on the card
     for flags in SMALL_LOSSY:
         small = []
         for d in ("cpu", "cuda"):
@@ -1353,7 +1570,7 @@ def main() -> int:
         print(f"check small lossy federation {' '.join(flags)}: GPU == CPU "
               f"bit for bit", flush=True)
     agg_gen = np.random.default_rng(0)
-    for n_slots, m in ((10, 300), (1, 3000)):
+    for n_slots, m in ((10, 300), (1, 3000), (62, 16)):
         up = (agg_gen.integers(-127, 128, (20, m)).astype(np.float32)
               * np.float32(0.37)).astype(np.float32)
         ids = torch.as_tensor(agg_gen.integers(-1, n_slots, 20)
@@ -1452,7 +1669,7 @@ def main() -> int:
         [str(Path(_build.nvcc()).with_name("cuobjdump")), "-sass",
          str(_build.library_path("train_epoch"))], capture_output=True,
         text=True, check=True, timeout=120).stdout
-    mix = coin_mix(sass, item)
+    mix = coin_mix(sass, item, "train_epoch_kernelILb0E")
     k1_hashes = stats["type1_rows"] * L + N * 2 * S * m
     k1_ops = mix["units"] * k1_hashes + (2 * S) * N * m * W
     print("train_epoch_fused instructions a coin (cuobjdump -sass): "
@@ -1530,6 +1747,75 @@ def main() -> int:
           f"bytes {k1c_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operations "
           f"{k1c_ops / INT32_OPS_PER_S * 1e3:.4f} ms)", flush=True)
     del a1c, cap1c
+    # kernel 1 on the global plan: path (G)'s last epoch (62 classes), and
+    # forced on the training path's epoch (C = 10) beside its shared plan
+    a1g, kw1g = g["epoch"]
+    n1g, c1g = a1g[0].shape[:2]
+    k1g_plan = train_epoch.plan(*a1g[0].shape)
+    k1g_ms = cuda_ms(lambda: ops.train_epoch_fused(*a1g, **kw1g), reps=5)
+    k1g_alone = device_ms(lambda: ops.train_epoch_fused(*a1g, **kw1g), 5,
+                          "train_epoch_kernel")
+    stats_g = {}
+    k1g_plain = cuda_ms(lambda: train_epoch.train_epoch_plain(
+        *a1g, **kw1g, stats=stats_g), reps=1, warmup=0)
+    sass_g = coin_mix(sass, item, "train_epoch_kernelILb1E")
+    k1g_bytes = (2 * 4 * n1g * c1g * m * L + 2 * 4 * n1g * c1g * m
+                 + 4 * n1g * S * L + 4 * n1g * S * 2 + 8 * n1g * S * 2 * 3 * 2)
+    k1g_ops = (sass_g["units"] * (stats_g["type1_rows"] * L + n1g * 2 * S * m)
+               + (2 * S) * n1g * m * W)
+    k1g_bound = max(k1g_bytes / HBM_BYTES_PER_S, k1g_ops / INT32_OPS_PER_S)
+    print(f"train_epoch_fused (1g) at path (G)'s epoch (N={n1g}, C={c1g}, "
+          f"plan {k1g_plan}): {k1g_ms:.4f} ms by events, {k1g_alone:.4f} ms "
+          f"alone, plain {k1g_plain:.1f} ms; bound {k1g_bound * 1e3:.4f} ms "
+          f"({stats_g['type1_rows']} Type I rows; bytes "
+          f"{k1g_bytes / 1e9:.3f} GB, {k1g_bytes / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" ms; operations {k1g_ops / INT32_OPS_PER_S * 1e3:.4f} ms, "
+          f"{sass_g['units']:g} units a coin); launches on path (G) "
+          f"{g['launches']['train_epoch_fused']} (global plan "
+          f"{g['plans']['global']})", flush=True)
+    del a1g
+    forced = dict(K1_KW, inc_global=True)
+    exact("train_epoch_fused",
+          train_epoch.train_epoch_fused(*epoch, **forced)[0],
+          ops.train_epoch_fused(*epoch, **K1_KW)[0],
+          "the training path's epoch, global plan forced, against the "
+          "shared plan", err)
+    k1f_plan = train_epoch.plan(N, C, m, L, inc_global=True)
+    k1f_ms = cuda_ms(lambda: train_epoch.train_epoch_fused(*epoch, **forced),
+                     reps=5)
+    k1f_alone = device_ms(lambda: train_epoch.train_epoch_fused(
+        *epoch, **forced), 5, "train_epoch_kernel")
+    k1_alone_again = device_ms(lambda: ops.train_epoch_fused(
+        *epoch, **K1_KW), 5, "train_epoch_kernel")
+    print(f"train_epoch_fused (1f) global plan forced at the training "
+          f"path's epoch (plan {k1f_plan}): {k1f_ms:.4f} ms by events, "
+          f"{k1f_alone:.4f} ms alone, against the shared plan's "
+          f"{k1_ms:.4f} ms by events, {k1_alone_again:.4f} ms alone; bound "
+          f"{max(k1_bytes / HBM_BYTES_PER_S, k1_ops / INT32_OPS_PER_S) * 1e3:.4f}"
+          f" ms, plain {k1_plain:.1f} ms", flush=True)
+    # kernel 2 at 62 classes: path (G)'s last confidence / evaluation call
+    a2g, kw2g = g["votes"]
+    n2g, c2g, m2g, l2g = a2g[0].shape
+    k2g_ms = cuda_ms(lambda: ops.fused_votes_batched(*a2g, **kw2g), reps=20)
+    k2g_alone = device_ms(lambda: ops.fused_votes_batched(*a2g, **kw2g), 10,
+                          "votes_mma_kernel")
+    k2g_plain = cuda_ms(lambda: ref.fused_votes_batched_ref(*a2g, **kw2g),
+                        reps=5)
+    nlit_f = (1 - a2g[1]).to(torch.float32)
+    inc_f = a2g[0].reshape(n2g, c2g * m2g, l2g).to(torch.float32
+                                                    ).transpose(1, 2)
+    k2g_lib = cuda_ms(lambda: torch.bmm(nlit_f, inc_f), reps=20)
+    del nlit_f, inc_f
+    k2g_bytes, k2g_ops = vote_work(*a2g)
+    print(f"fused_votes_batched (2g) at path (G)'s (N, C, m, L, B)="
+          f"({n2g}, {c2g}, {m2g}, {l2g}, {a2g[1].shape[1]}): {k2g_ms:.5f} ms "
+          f"by events, {k2g_alone:.5f} ms alone, plain {k2g_plain:.4f} ms, "
+          f"torch.bmm {k2g_lib:.5f} ms, bound "
+          f"{max(k2g_bytes / HBM_BYTES_PER_S, k2g_ops / INT8_OPS_PER_S) * 1e3:.5f}"
+          f" ms ({k2g_bytes / 1e6:.3f} MB, {k2g_ops:.3e} operations); "
+          f"launches on path (G) {g['launches']['fused_votes_batched']}",
+          flush=True)
+    del a2g
     print(f"fused_votes_batched bound: {k2_bytes / 1e9:.4f} GB, "
           f"{k2_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {k2_ops:.3e} "
           f"operations, {k2_ops / INT8_OPS_PER_S * 1e3:.4f} ms", flush=True)
@@ -1698,6 +1984,8 @@ def main() -> int:
     profile_round(eng_f, st_f, rnd.PRNGKey(11, dev),
                   "path (F) async round")
     print(f"path (F) launches: {launches_f}", flush=True)
+    profile_round(Engine(g["strategy"], g["data"], RuntimeConfig(rounds=1)),
+                  g["state"], rnd.PRNGKey(12, dev), "path (G) FEMNIST round")
 
     kernels = [
         kernel_entry("fused_votes_batched", "clause_eval.cu",

@@ -5,22 +5,31 @@ of truth for the port's dataset names (``synthetic.DATASETS`` and the
 CLIs' ``--dataset`` choices derive from it).
 
 ``load`` returns a :class:`Pool`, the encoded global pool a partitioner
-takes.  Resolution, per spec kind:
+takes (:func:`repro_torch.data.ingest.natural.partition_pool`: the
+Dirichlet split, or the writer split when the pool carries writer
+identities).  Resolution, per spec kind:
 
 * ``data_dir`` given — files under ``<data_dir>/<name>/`` are parsed
-  (checksum-verified where ``.sha256`` sidecars exist); a missing IDX
-  train pair is first written by the offline mirror
+  (checksum-verified where ``.sha256`` sidecars exist).  Missing files
+  are first written by the offline mirror
   (:mod:`repro_torch.data.ingest.mirror`), then parsed through the same
-  reader, so the pool is always a function of the file bytes.  A real
-  ``t10k`` pair beside it is folded into the pool.  LEAF kinds
-  (``synthfemnist``, ``femnist``) raise ``NotImplementedError``: their
-  reader and mirror are ROADMAP item A7.
+  readers, so the pool is always a function of the file bytes.  IDX
+  kinds read the train pair (a real ``t10k`` pair beside it is folded
+  in); LEAF kinds (``synthfemnist``, ``femnist``) read the writer shards
+  (:mod:`repro_torch.data.ingest.leaf`), and the mirror writes
+  ``n_writers`` hands only when no shard exists.
 * ``data_dir=None`` — the synthetic flavours fall back to the in-memory
-  generator (bit-identical to the IDX mirror's bits); the real flavours
-  raise the reference's ``ValueError``, since only files reach them.
+  generator (bit-identical to the IDX mirror's bits; ``synthfemnist``'s
+  fallback carries no writers, so it takes the Dirichlet split); the
+  real flavours raise the reference's ``ValueError``, since only files
+  reach them.
+
+:func:`load_stream` gives a LEAF flavour as a :class:`StreamPool`, the
+writer table alone (the index, no shard payload), with an encoder
+fitted without a pool, so ``quantile`` raises there as in the reference.
 
 Raw pixel scales are normalized to [0, 1] here (u8 grayscale / 255,
-synthetic bits as they are) before the encoding
+LEAF floats and synthetic bits as they are) before the encoding
 (:mod:`repro_torch.data.ingest.encode`).  The pool lies on ``device``,
 the GPU unless the caller names another.
 """
@@ -35,7 +44,7 @@ import torch
 
 from repro_torch import device as devices
 from repro_torch import random as rnd
-from repro_torch.data.ingest import encode, idx, mirror
+from repro_torch.data.ingest import encode, idx, leaf, mirror
 
 SYNTH_DATASETS = ("synthmnist", "synthfashion", "synthfemnist")
 
@@ -78,6 +87,30 @@ class Pool(NamedTuple):
     n_classes: int
     n_features: int                # F, after encoding (levels included)
     name: str
+
+
+class StreamPool(NamedTuple):
+    """A LEAF dataset as a writer table, nothing materialized: the shard
+    root, the index's writer names and per-writer sample counts, and the
+    fitted (elementwise) encoder; a cohort's rows are parsed and encoded
+    on demand (``leaf.read_writers``), never the pool."""
+
+    root: pathlib.Path             # shard directory (index.json present)
+    users: tuple                   # (W,) writer names, index order
+    writer_sizes: tuple            # (W,) per-writer sample counts
+    n_classes: int
+    n_features: int                # F, after encoding (levels included)
+    encoder: object                # fitted encoder (elementwise)
+    name: str
+    verify: bool = True
+
+
+def sha256(pool) -> str:
+    """sha256 of a pool's arrays (x, y and the writer ids where there are
+    any), hashed as :func:`repro_torch.data.partition.sha256` hashes a
+    ClientData; the reference's pools hash the same way."""
+    from repro_torch.data import partition
+    return partition.sha256(pool, ("x", "y", "writers"))
 
 
 def names() -> tuple:
@@ -146,20 +179,29 @@ def _load_idx_pool(spec: DatasetSpec, root: pathlib.Path, n_samples: int,
         raise idx.IDXFormatError(
             f"{root}: images {images.shape} vs labels {labels.shape}")
     unit = images.reshape(images.shape[0], -1).astype(np.float32) / 255.0
-    return (torch.from_numpy(unit).to(device),
-            torch.from_numpy(labels.astype(np.int32)).to(device))
+    return unit, labels.astype(np.int32), None
+
+
+def _load_leaf_pool(spec: DatasetSpec, root: pathlib.Path, n_samples: int,
+                    side: int, seed: int, n_writers: int, verify: bool,
+                    device):
+    if not sorted(root.glob(leaf.SHARD_PATTERN)):
+        mirror.write_leaf_mirror(root, spec.flavour, n_samples, side, seed,
+                                 n_writers=n_writers, device=device)
+    pool = leaf.read_shards(root, verify=verify)
+    return pool.x, pool.y, pool.writers
 
 
 def load(name: str, data_dir: str | pathlib.Path | None = None, *,
          encoding: str = "bool", n_samples: int = 6000,
-         side: int | None = None, seed: int = 0, verify: bool = True,
-         device=None) -> Pool:
+         side: int | None = None, seed: int = 0, n_writers: int = 25,
+         verify: bool = True, device=None) -> Pool:
     """One dataset flavour as an encoded global :class:`Pool` on
     ``device`` (the GPU unless the caller names another).
 
-    ``n_samples`` / ``side`` / ``seed`` parameterize the offline mirror
-    and the in-memory synthetic fallback; existing cache files fully
-    determine the pool.  ``encoding`` is an
+    ``n_samples`` / ``side`` / ``n_writers`` / ``seed`` parameterize the
+    offline mirror and the in-memory synthetic fallback; existing cache
+    files fully determine the pool.  ``encoding`` is an
     :func:`repro_torch.data.ingest.encode.build` spec."""
     spec = get(name)
     device = devices.resolve(device)
@@ -173,16 +215,65 @@ def load(name: str, data_dir: str | pathlib.Path | None = None, *,
         x, labels, _ = synthetic.make_dataset(
             name, n_samples, rnd.PRNGKey(seed, device),
             side=spec.side_for(side))
-        unit = x.to(torch.float32)
-    elif spec.kind == "idx":
-        unit, labels = _load_idx_pool(
-            spec, pathlib.Path(data_dir) / name, n_samples,
-            spec.side_for(side), seed, verify, device)
+        unit, writers = x.to(torch.float32), None
     else:
-        raise NotImplementedError(
-            f"dataset {name!r} is a LEAF (writer-shard) kind: its reader, "
-            f"mirror and writer-natural partition are not ported yet "
-            f"(ROADMAP.md queue A, item A7)")
+        root = pathlib.Path(data_dir) / name
+        if spec.kind == "idx":
+            unit, labels, writers = _load_idx_pool(
+                spec, root, n_samples, spec.side_for(side), seed, verify,
+                device)
+        else:
+            unit, labels, writers = _load_leaf_pool(
+                spec, root, n_samples, spec.side_for(side), seed,
+                n_writers, verify, device)
+        unit = torch.from_numpy(unit).to(device)
+        labels = torch.from_numpy(labels).to(device)
+        if writers is not None:
+            writers = torch.from_numpy(writers).to(device)
     bits = encode.build(encoding, pool=unit)(unit)
-    return Pool(x=bits, y=labels, writers=None, n_classes=spec.n_classes,
-                n_features=int(bits.shape[1]), name=name)
+    return Pool(x=bits, y=labels, writers=writers,
+                n_classes=spec.n_classes, n_features=int(bits.shape[1]),
+                name=name)
+
+
+def load_stream(name: str, data_dir: str | pathlib.Path, *,
+                encoding: str = "bool", n_samples: int = 6000,
+                side: int | None = None, seed: int = 0,
+                n_writers: int = 25, verify: bool = True,
+                device=None) -> StreamPool:
+    """A LEAF flavour as a :class:`StreamPool`, the writer table only,
+    for populations too large to materialize.
+
+    The cache resolves as in :func:`load` (the mirror writes missing
+    shards, drawn on ``device``; real drop-ins win), but no shard
+    payload beyond the index is read here: ``leaf.ensure_index`` builds
+    a missing index (one full parse, once).  The encoder is fitted
+    without a pool, so ``quantile`` raises as
+    :func:`repro_torch.data.ingest.encode.build` says."""
+    spec = get(name)
+    if spec.kind != "leaf":
+        raise ValueError(
+            f"dataset {name!r} is {spec.kind!r}-backed; streaming "
+            f"ingestion needs per-writer LEAF shards — choose a leaf "
+            f"flavour ({[n for n, s in SPECS.items() if s.kind == 'leaf']})")
+    if data_dir is None:
+        raise ValueError(
+            f"streaming {name!r} is file-backed by construction: pass "
+            f"a data_dir (the offline mirror will populate it)")
+    root = pathlib.Path(data_dir) / name
+    if not sorted(root.glob(leaf.SHARD_PATTERN)):
+        mirror.write_leaf_mirror(root, spec.flavour, n_samples,
+                                 spec.side_for(side), seed,
+                                 n_writers=n_writers, device=device)
+    index = leaf.ensure_index(root, verify=verify)
+    users, sizes = [], []
+    for entry in index["shards"]:
+        users.extend(entry["users"])
+        sizes.extend(entry["num_samples"])
+    enc = encode.build(encoding)       # no pool: quantile raises here
+    n_features = int(
+        enc(torch.zeros((1, index["num_features"]))).shape[1])
+    return StreamPool(root=root, users=tuple(users),
+                      writer_sizes=tuple(int(s) for s in sizes),
+                      n_classes=spec.n_classes, n_features=n_features,
+                      encoder=enc, name=name, verify=verify)

@@ -47,12 +47,16 @@ class ClientData(NamedTuple):
     sizes: torch.Tensor | None = None   # (n_clients,) int32 pool shares
 
 
-def sha256(data) -> str:
-    """sha256 of a ClientData, field by field in order: the name, numpy
-    dtype, shape and little-endian bytes of each (tensors or arrays, so
-    the reference's ClientData hashes the same way)."""
+def sha256(data, fields: tuple | None = None) -> str:
+    """sha256 of a ClientData (or of ``fields`` of another named tuple),
+    field by field in order: the name, numpy dtype, shape and
+    little-endian bytes of each (tensors or arrays, so the reference's
+    ClientData hashes the same way); ``None`` fields are skipped."""
     h = hashlib.sha256()
-    for name, a in zip(data._fields, data):
+    for name in fields or data._fields:
+        a = getattr(data, name)
+        if a is None:
+            continue
         if isinstance(a, torch.Tensor):
             a = a.cpu().numpy()
         a = np.ascontiguousarray(np.asarray(a))
@@ -142,5 +146,5 @@ def partition(x, y, n_classes: int, *, n_clients: int, experiment: int,
 
 
 # registry-facing name: the simulated split (the writer-identity split
-# is ROADMAP A7)
+# is data/ingest/natural.py's partition_writers)
 dirichlet_clients = partition

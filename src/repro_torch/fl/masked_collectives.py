@@ -16,10 +16,17 @@ emulated here, so the mean is the reference's bits at every weight and
 value (held from 5 to 128 rows, 1 to 10 clusters and 16 to 101,770
 features by ``tests/test_torch_async.py``).  Where every weight
 is 0 or a power of two (a discount of 0.5, the default, or 0.25, …)
-each product is exact, so the fused multiply-add is a plain multiply
-and add: ``exact_products=True`` takes that form, two launches a row
-instead of the emulated FMA's two dozen.  Rows are added in row order,
-one at a time (no atomics), so the card gives the CPU's bits too.
+each product is exact in float64, and one float64 add rounded to float32
+rounds the fused result once (the product and the sum fit 53 bits
+wherever the smaller could move a float32 rounding): ``exact_products=
+True`` takes that form, a handful of launches a row instead of the
+emulated FMA's two dozen.  XLA:CPU runs with flush-to-zero and
+denormals-are-zero, so the values are flushed on the way in and every
+row's sum and the mean on the way out, in both forms
+(:func:`repro_torch.xla_f32.ftz`): tiny values and products would
+otherwise leave subnormals the reference never holds.  Rows are added
+in row order, one at a time (no atomics), so the card gives the CPU's
+bits too.
 """
 from __future__ import annotations
 
@@ -39,18 +46,22 @@ def clustered_weighted_mean(vals: torch.Tensor, assignment: torch.Tensor,
     ``exact_products``: the caller knows every weight is 0 or a power
     of two, so the products need no fused rounding."""
     n = vals.shape[0]
-    flat = vals.reshape(n, -1).to(torch.float32)
+    flat = xla_f32.ftz(vals.reshape(n, -1).to(torch.float32))
     ids = assignment.long()
     onehot = (ids[:, None] == torch.arange(
         n_clusters, device=ids.device)[None, :]).to(torch.float32)
     onehot = onehot * weights.to(torch.float32)[:, None]        # (n, C)
     sums = torch.zeros((n_clusters, flat.shape[1]), dtype=torch.float32,
                        device=flat.device)
+    if exact_products:
+        flat64, onehot64 = flat.to(torch.float64), onehot.to(torch.float64)
     for r in range(n):
         if exact_products:
-            sums = sums + flat[r][None, :] * onehot[r][:, None]
+            fused = (sums.to(torch.float64) + flat64[r][None, :]
+                     * onehot64[r][:, None]).to(torch.float32)
         else:
-            sums = xla_f32.fma(flat[r][None, :], onehot[r][:, None], sums)
+            fused = xla_f32.fma(flat[r][None, :], onehot[r][:, None], sums)
+        sums = xla_f32.ftz(fused)
     total = xla_f32.reduce_sum(onehot.T)
-    mean = sums / torch.clamp(total, min=1e-9)[:, None]
+    mean = xla_f32.ftz(sums / torch.clamp(total, min=1e-9)[:, None])
     return mean.reshape((n_clusters,) + tuple(vals.shape[1:]))

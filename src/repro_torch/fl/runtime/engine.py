@@ -9,10 +9,14 @@ or varint+RLE indices; error feedback), the resident client population
 and the in-process executor, under any scheduler setting (partial
 participation; uniform, weighted or round-robin sampling; dropout;
 stragglers).  :class:`RuntimeConfig` therefore holds the number of
-rounds, the scheduler, the codec, the async settings and the checkpoint
-cadence; the reference's other runtime settings (the shard-mapped
-backend, the mmap client store, transports) come with later slices
-(ROADMAP.md, queue A) and are refused, as unknown fields.
+rounds, the scheduler, the codec, the async settings, the TM route's
+name and the checkpoint cadence; the reference's other runtime settings
+(the shard-mapped backend, the mmap client store, transports) come with
+later slices (ROADMAP.md, queue A) and are refused, as unknown fields.
+``tm_backend`` takes the reference's two names, ``"ref"`` and
+``"pallas"``, which the reference pins bit-identical; both name the
+port's one route (the kernels on the GPU, their plain versions on the
+CPU), so the setting changes nothing here.
 
 Round anatomy (``run_round``), as in the reference's staged sync path,
 each stage in a telemetry span of the reference's name:
@@ -42,7 +46,8 @@ each stage in a telemetry span of the reference's name:
    recomputed from the decoded uploads.  Metering and the sparse
    references above used the tags that crossed the wire, never these;
 7. ``aggregate``, ``server_update``: the masked per-slot mean over the
-   arrived uploads, summed in row order, folded into the server state
+   arrived uploads, summed in XLA's order for the shape
+   (``core/clustering.py``), folded into the server state
    by the strategy's hook (default: Alg. 2, empty slots keep their row);
 8. ``downlink``: slot rows are encoded, metered and decoded;
    ``apply_merge``: the arrived clients that shared a slot apply its
@@ -79,8 +84,9 @@ every report field and the final state (client state, server rows,
 the buffer's lanes, ``ref_vecs`` / ``ref_round`` / ``ef_residual``) of
 the TM strategies are bit-identical to the JAX engine, except
 ``mean_accuracy``, a float32 mean whose summation order may differ in
-the last place, and a lossy sync aggregate where XLA's dot does not add
-in row order (``core/clustering.py``).  The MLP strategies are float
+the last place, and a lossy sync aggregate at the shapes where XLA's
+dot adds in an order the port does not emulate (``core/clustering.py``,
+ROADMAP queue C item 4).  The MLP strategies are float
 math, held to the reference within a stated tolerance
 (tests/test_torch_baselines.py, tests/test_torch_async.py).
 """
@@ -106,6 +112,9 @@ from repro_torch.fl.runtime.scheduler import (Participation, Scheduler,
 from repro_torch.fl.runtime.strategy import (DOWNLOADS, ServerState,
                                              resolve_server_update)
 
+# the reference's TM route names; the port runs one route for both
+TM_BACKENDS = ("ref", "pallas")
+
 # the cohort hooks the engine calls on every strategy
 _HOOKS = ("init", "fused_client_step", "apply_broadcast", "fused_evaluate")
 
@@ -120,6 +129,7 @@ class RuntimeConfig:
     buffer_capacity: int = 64         # fixed-capacity async upload buffer
     staleness_discount: float = 0.5   # matured weight = discount**staleness
     async_buffer: str = "device"      # device (tensor ops) | host (reference)
+    tm_backend: str = "ref"           # the reference's names, one route here
     checkpoint_dir: str | None = None
     checkpoint_every: int = 0         # 0 = never
 
@@ -128,6 +138,8 @@ class RuntimeConfig:
             raise ValueError(f"unknown aggregation {self.aggregation!r}")
         if self.async_buffer not in ("device", "host"):
             raise ValueError(f"unknown async_buffer {self.async_buffer!r}")
+        if self.tm_backend not in TM_BACKENDS:
+            raise ValueError(f"unknown tm_backend {self.tm_backend!r}")
 
 
 class EngineState(NamedTuple):

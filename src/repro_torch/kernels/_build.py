@@ -39,13 +39,14 @@ _SIGNATURES = {
     # words; n_states, T, thresholds; stream
     "ta_update": ("ta_update", [_P] * 7 + [_I] * 4 + [_LL] * 4 + [_I] * 4
                   + [_P]),
-    # outputs, inputs, keys; shape, n_states, T, thresholds; stream
-    "train_epoch_fused": ("train_epoch", [_P] * 7 + [_I] * 9 + [_P]),
+    # outputs, inputs, keys, include buffer; shape, n_states, T,
+    # thresholds, forced global plan; stream
+    "train_epoch_fused": ("train_epoch", [_P] * 8 + [_I] * 10 + [_P]),
 }
 # entry points that launch nothing (not counted)
 _QUERIES = {
     "votes_plan": ("clause_eval", [_I] * 6 + [_P]),
-    "train_epoch_plan": ("train_epoch", [_I] * 4 + [_P]),
+    "train_epoch_plan": ("train_epoch", [_I] * 5 + [_P]),
     "ta_update_plan": ("ta_update", [_I] * 4 + [_LL, _I, _P]),
 }
 

@@ -6,6 +6,16 @@
 // contiguous clauses [clause_begin(m, K, r), clause_begin(m, K, r + 1)) of
 // every class and keeps their include bits (one bit per literal, 32 to a
 // word) and weights in shared memory for the whole epoch.
+//
+// Two plans.  The shared plan keeps the include bits in shared memory; it
+// is the plan of every shape whose bits fit the shared memory of at most
+// kmax blocks.  Where they do not (62 classes of 300 clauses at L = 1568:
+// 3,645,600 B a client, beyond 16 x 232,448 B), the global plan keeps
+// them in device memory instead, (N, C, m, W) words that stay in L2 while
+// a step reads them: a step reads only its class's rows, and a block only
+// the rows it owns, so each word has one reader and one writer, the block
+// that owns it.  Shared memory then holds the weights and the staged
+// samples alone.
 #pragma once
 
 #include <algorithm>
@@ -45,7 +55,7 @@ EPOCH_HD int owned_max(int m, int K) { return (m + K - 1) / K; }
 
 // Byte offsets of the block's shared memory, each 16-byte aligned.
 struct Layout {
-  int inc;     // (C, owned, W) uint32 include words
+  int inc;     // (C, owned, W) uint32 include words (none: global plan)
   int w;       // (C, owned) int32 weights
   int lit;     // (kStageSamples, W) uint32 literal words
   int keys;    // (kStageSamples, kKeyWords) uint32 role-key words
@@ -73,10 +83,10 @@ struct Placer {
   }
 };
 
-EPOCH_HD Layout layout(int C, int owned, int W) {
+EPOCH_HD Layout layout(int C, int owned, int W, bool inc_global = false) {
   Placer p;
   Layout a;
-  a.inc = p.take((long long)C * owned * W * 4);
+  a.inc = p.take(inc_global ? 0 : (long long)C * owned * W * 4);
   a.w = p.take((long long)C * owned * 4);
   a.lit = p.take((long long)kStageSamples * W * 4);
   a.keys = p.take(kStageSamples * kKeyWords * 4);
@@ -91,8 +101,9 @@ EPOCH_HD Layout layout(int C, int owned, int W) {
 }
 
 // Shared memory of a block of a K-block cluster.
-inline long long smem_bytes(int C, int m, int L, int K) {
-  return layout(C, owned_max(m, K), words(L)).bytes;
+inline long long smem_bytes(int C, int m, int L, int K,
+                            bool inc_global = false) {
+  return layout(C, owned_max(m, K), words(L), inc_global).bytes;
 }
 
 // The most blocks a client's cluster may take: no more than its clauses
@@ -101,12 +112,22 @@ inline int cluster_cap(int m, int kmax) {
   return std::max(1, std::min(kmax, m));
 }
 
-// The smallest cluster whose blocks hold their clauses' include bits, or
-// 0 where even cluster_cap(m, kmax) blocks cannot.
-inline int smallest_cluster(int C, int m, int L, int kmax) {
+// The smallest cluster whose blocks hold their shared memory (with the
+// include bits unless inc_global), or 0 where even cluster_cap(m, kmax)
+// blocks cannot.
+inline int smallest_cluster(int C, int m, int L, int kmax,
+                            bool inc_global = false) {
   for (int K = 1; K <= cluster_cap(m, kmax); ++K)
-    if (smem_bytes(C, m, L, K) <= kSmemBlock) return K;
+    if (smem_bytes(C, m, L, K, inc_global) <= kSmemBlock) return K;
   return 0;
+}
+
+// Whether (C, m, L) takes the global plan on a card whose clusters take at
+// most kmax blocks: where no cluster holds the include bits in shared
+// memory.  force takes it for any shape (to hold and time it against the
+// shared plan).
+inline bool takes_global(int C, int m, int L, int kmax, bool force) {
+  return force || smallest_cluster(C, m, L, kmax) == 0;
 }
 
 // How train_epoch_kernel covers one epoch of N clients.
@@ -115,24 +136,30 @@ struct EpochPlan {
   int owned;     // the most clauses a block owns
   int smem;      // dynamic shared memory a block, bytes
   int waves;     // rounds of N clusters the card takes: ceil(N / fit[K])
-  int smallest;  // the smallest K that holds the include bits
+  int smallest;  // the smallest K that holds the include bits (global
+                 // plan: that holds the weights and staged samples)
+  int inc_global;  // 1: the include bits lie in device memory
 };
 
 // The plan of an epoch over N clients of C classes x m clauses x L
 // literals.  fit[K] (K = 1 .. kmax) is how many clusters of K blocks, each
-// with smem_bytes(C, m, L, K), the card runs at once (entries below
-// smallest_cluster are not read).  K is the largest that runs all N
-// clusters in one wave, from the smallest that holds the include bits up
-// to cluster_cap(m, kmax); where none does, the smallest.  Returns false
-// for a shape the kernel cannot hold: a client's include bits that need
-// more than kmax blocks, coin counters of 2**31 or more (m * L), or a card
-// that runs no such cluster at all.
+// with smem_bytes(C, m, L, K, inc_global), the card runs at once (entries
+// below smallest_cluster are not read).  K is the largest that runs all N
+// clusters in one wave, from the smallest that holds the block's shared
+// memory up to cluster_cap(m, kmax); where none does, the smallest.
+// Returns false for a shape the kernel cannot hold: shared memory that
+// needs more than kmax blocks (with the include bits, on the shared plan),
+// coin counters of 2**31 or more (m * L), a client's include words of
+// 2**31 or more (global plan), or a card that runs no such cluster at all.
+// The shared plan (inc_global false) is the launcher's where
+// takes_global() is false.
 inline bool plan_epoch(int N, int C, int m, int L, int kmax, const int* fit,
-                       EpochPlan* p) {
+                       EpochPlan* p, bool inc_global = false) {
   if (N < 1 || C < 1 || m < 0 || L < 0 || kmax < 1 || kmax > kMaxCluster)
     return false;
   if (!threefry::counters_fit(m, L)) return false;
-  const int smallest = smallest_cluster(C, m, L, kmax);
+  if (inc_global && (long long)C * m * words(L) >= (1LL << 31)) return false;
+  const int smallest = smallest_cluster(C, m, L, kmax, inc_global);
   if (smallest == 0 || fit[smallest] < 1) return false;
   int K = smallest;
   for (int k = cluster_cap(m, kmax); k > smallest; --k) {
@@ -143,9 +170,10 @@ inline bool plan_epoch(int N, int C, int m, int L, int kmax, const int* fit,
   }
   p->cluster = K;
   p->owned = owned_max(m, K);
-  p->smem = (int)smem_bytes(C, m, L, K);
+  p->smem = (int)smem_bytes(C, m, L, K, inc_global);
   p->waves = (N + fit[K] - 1) / fit[K];
   p->smallest = smallest;
+  p->inc_global = inc_global;
   return true;
 }
 

@@ -48,6 +48,13 @@
 //   keep their include bits (one ballot per 32 literals) and weights in
 //   shared memory.  One cluster barrier, so every block runs before any
 //   writes into its shared memory.
+// * The global plan (kIncGlobal, epoch_plan.h) is the same code with the
+//   include words in a device buffer, (N, C, m, W), instead of shared
+//   memory: for shapes whose bits no cluster holds, 62 classes of 300
+//   clauses at L = 1568 among them.  A block reads and writes only the
+//   rows it owns, and __syncthreads orders its writes before its reads as
+//   it does in shared memory; a step touches one class's rows, 58,800 B a
+//   client at that shape, which stay in L2.
 // * Every 16 samples: stage their literal bits, classes and keys.
 // * Per step: clause outputs as an AND-NOT over the include words; the
 //   block's partial vote is written into every rank's shared memory
@@ -78,7 +85,9 @@ using namespace epoch_layout;
 namespace {
 
 constexpr int kNoPlan = -1;   // returned for a shape with no launch plan
+constexpr int kNoBuffer = -2; // a global plan given no include buffer
 
+template <bool kIncGlobal>
 __global__ void __launch_bounds__(kThreads, 1)
 train_epoch_kernel(int32_t* __restrict__ ta_out,        // (N, C, m, L)
                    int32_t* __restrict__ w_out,         // (N, C, m)
@@ -87,6 +96,7 @@ train_epoch_kernel(int32_t* __restrict__ ta_out,        // (N, C, m, L)
                    const int32_t* __restrict__ lits,    // (N, S, L)
                    const int32_t* __restrict__ cls2,    // (N, S, 2)
                    const uint32_t* __restrict__ keys,   // (N, S, 12) int64
+                   uint32_t* inc_g,   // (N, C, m, W) global plan, else null
                    int C, int m, int L, int S, int n_states, int T,
                    uint32_t t_inc, uint32_t t_dec) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -98,8 +108,14 @@ train_epoch_kernel(int32_t* __restrict__ ta_out,        // (N, C, m, L)
   const int j0 = clause_begin(m, K, rank);
   const int mk = clause_begin(m, K, rank + 1) - j0;
   const int owned = owned_max(m, K);
-  const Layout lay = layout(C, owned, W);
-  uint32_t* s_inc = reinterpret_cast<uint32_t*>(smem + lay.inc);
+  const Layout lay = layout(C, owned, W, kIncGlobal);
+  // include words: (C, owned, W) in shared memory, or on the global plan
+  // this client's (C, m, W) rows in device memory from clause j0 on; a
+  // class's rows lie inc_rows apart
+  uint32_t* s_inc =
+      kIncGlobal ? inc_g + ((size_t)n * C * m + j0) * W
+                 : reinterpret_cast<uint32_t*>(smem + lay.inc);
+  const int inc_rows = kIncGlobal ? m : owned;
   int32_t* s_w = reinterpret_cast<int32_t*>(smem + lay.w);
   uint32_t* s_lit = reinterpret_cast<uint32_t*>(smem + lay.lit);
   uint32_t* s_key = reinterpret_cast<uint32_t*>(smem + lay.keys);
@@ -133,7 +149,7 @@ train_epoch_kernel(int32_t* __restrict__ ta_out,        // (N, C, m, L)
       const int l = wd * 32 + lane;
       if (l < L) ta_out[base + l] = v[u];
       const uint32_t inc = __ballot_sync(~0u, l < L && v[u] > n_states);
-      if (lane == 0 && wd < W) s_inc[(c * owned + jj) * W + wd] = inc;
+      if (lane == 0 && wd < W) s_inc[(c * inc_rows + jj) * W + wd] = inc;
     }
   }
   for (int i = threadIdx.x; i < C * mk; i += kThreads) {
@@ -178,7 +194,7 @@ train_epoch_kernel(int32_t* __restrict__ ta_out,        // (N, C, m, L)
     const int cls = s_cls[q * 2 + role];
     const uint32_t* litw = s_lit + q * W;
     const uint32_t* kw = s_key + q * kKeyWords + role * (kKeyWords / 2);
-    uint32_t* inc_c = s_inc + cls * owned * W;
+    uint32_t* inc_c = s_inc + cls * inc_rows * W;
     int32_t* w_c = s_w + cls * owned;
 
     // 1. clause outputs in learning mode, and the block's partial vote
@@ -282,58 +298,80 @@ train_epoch_kernel(int32_t* __restrict__ ta_out,        // (N, C, m, L)
   }
 }
 
-// The device's clusters: how many of K blocks (K = 1 .. kMaxCluster) with
-// the shared memory of (C, m, L) it runs at once (0 where K is not
-// queried), and the most blocks a cluster may have there: 16 where the
-// device grants the non-portable opt-in, else the portable 8.  The kernel's
-// attributes are set to launch any of them.  Filled under a lock, so
-// threads that plan or launch at once see whole entries; kept for the last
-// few shapes of each device.
+// The kernel of a plan.
+const void* kernel_of(bool inc_global) {
+  return inc_global ? (const void*)train_epoch_kernel<true>
+                    : (const void*)train_epoch_kernel<false>;
+}
+
+// The device's clusters for one plan: how many of K blocks (K = 1 ..
+// kMaxCluster) with the plan's shared memory for (C, m, L) it runs at once
+// (0 where K is not queried), and the most blocks a cluster may have
+// there: 16 where the device grants the non-portable opt-in (to both
+// plans' kernels), else the portable 8.  The kernel's attributes are set
+// to launch any of them.  Filled under a lock, so threads that plan or
+// launch at once see whole entries; kept for the last few shapes of each
+// device.
 struct Fit {
   int dev = -1, C = 0, m = 0, L = 0, kmax = 0;
+  bool inc_global = false;
   int fit[kMaxCluster + 1] = {};
 };
 
 std::mutex fit_lock;
 
-cudaError_t cluster_fit(int C, int m, int L, Fit* out) {
+// The most blocks a cluster may take on device dev (0 .. 63), asking for
+// the non-portable opt-in once; called under fit_lock.
+int kmax_on(int dev) {
+  static int kmax_of[64] = {};   // 0 until the opt-in was asked for
+  if (kmax_of[dev] == 0) {
+    kmax_of[dev] = kMaxCluster;
+    for (bool g : {false, true}) {
+      if (cudaFuncSetAttribute(kernel_of(g),
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1) != cudaSuccess) {
+        cudaGetLastError();   // the opt-in is refused: portable sizes only
+        kmax_of[dev] = kPortableCluster;
+      }
+    }
+  }
+  return kmax_of[dev];
+}
+
+// The plan's cluster counts for (C, m, L) on the current device: the
+// global plan where force or where no cluster holds the include bits.
+cudaError_t cluster_fit(int C, int m, int L, bool force, Fit* out) {
   static Fit cache[8];
   static int next = 0;
-  static int smem_set[64] = {};
-  static int kmax_of[64] = {};   // 0 until the opt-in was asked for
+  static int smem_set[2][64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> hold(fit_lock);
+  const int kmax = kmax_on(dev);
+  const bool g = takes_global(C, m, L, kmax, force);
   for (const Fit& f : cache) {
-    if (f.dev == dev && f.C == C && f.m == m && f.L == L) {
+    if (f.dev == dev && f.C == C && f.m == m && f.L == L &&
+        f.inc_global == g) {
       *out = f;
       return cudaSuccess;
     }
   }
-  if (kmax_of[dev] == 0) {
-    if (cudaFuncSetAttribute(train_epoch_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1) == cudaSuccess) {
-      kmax_of[dev] = kMaxCluster;
-    } else {
-      cudaGetLastError();   // the opt-in is refused: portable sizes only
-      kmax_of[dev] = kPortableCluster;
-    }
-  }
   Fit f;
-  f.kmax = kmax_of[dev];
-  const int smallest = smallest_cluster(C, m, L, f.kmax);
+  f.kmax = kmax;
+  f.inc_global = g;
+  const void* kernel = kernel_of(g);
+  const int smallest = smallest_cluster(C, m, L, f.kmax, g);
   for (int K = smallest > 0 ? smallest : f.kmax + 1;
        K <= cluster_cap(m, f.kmax); ++K) {
-    const int smem = (int)smem_bytes(C, m, L, K);
-    if (smem > smem_set[dev]) {
-      e = cudaFuncSetAttribute(train_epoch_kernel,
+    const int smem = (int)smem_bytes(C, m, L, K, g);
+    if (smem > smem_set[g][dev]) {
+      e = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
       if (e != cudaSuccess) return e;
-      smem_set[dev] = smem;
+      smem_set[g][dev] = smem;
     }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(K, 1, 1);
@@ -347,7 +385,7 @@ cudaError_t cluster_fit(int C, int m, int L, Fit* out) {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     int count = 0;
-    if (cudaOccupancyMaxActiveClusters(&count, train_epoch_kernel, &cfg) !=
+    if (cudaOccupancyMaxActiveClusters(&count, kernel, &cfg) !=
         cudaSuccess) {
       cudaGetLastError();   // a size the device refuses runs no cluster
       count = 0;
@@ -364,57 +402,26 @@ cudaError_t cluster_fit(int C, int m, int L, Fit* out) {
   return cudaSuccess;
 }
 
-cudaError_t plan_on_device(int N, int C, int m, int L, EpochPlan* p,
-                           int* kmax, bool* ok) {
+cudaError_t plan_on_device(int N, int C, int m, int L, bool force,
+                           EpochPlan* p, int* kmax, bool* ok) {
   Fit f;
-  const cudaError_t e = cluster_fit(C, m, L, &f);
+  const cudaError_t e = cluster_fit(C, m, L, force, &f);
   if (e != cudaSuccess) return e;
   *kmax = f.kmax;
-  *ok = plan_epoch(N, C, m, L, f.kmax, f.fit, p);
+  *ok = plan_epoch(N, C, m, L, f.kmax, f.fit, p, f.inc_global);
   return cudaSuccess;
 }
 
-}  // namespace
-
-// The plan of an epoch on the current device, for tests and reports:
-// out = (cluster, owned clauses a block, dynamic shared memory, waves,
-// smallest cluster, most blocks a cluster may take).  Launches nothing;
-// returns -1 for a shape with no plan, else a CUDA error code.
-extern "C" int train_epoch_plan(int N, int C, int m, int L, int* out) {
-  EpochPlan p;
-  int kmax = 0;
-  bool ok = false;
-  const cudaError_t e = plan_on_device(N, C, m, L, &p, &kmax, &ok);
-  if (e != cudaSuccess) return (int)e;
-  if (!ok) return kNoPlan;
-  const int v[6] = {p.cluster, p.owned, p.smem, p.waves, p.smallest, kmax};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
-  return 0;
-}
-
-// One epoch: reads ta (N,C,m,L) and w (N,C,m), writes the trained banks
-// and weights to ta_out and w_out (other tensors of the same shapes).
-// keys (N,S,2,3,2) are int64 tensors of uint32 words (their low halves are
-// read); t_inc and t_dec are draws.int_threshold(p_inc / p_dec).  Launches
-// on `stream`; returns -1 for a shape with no plan, else
-// cudaGetLastError().
-extern "C" int train_epoch_fused(void* ta_out, void* w_out, const void* ta,
-                                 const void* w, const void* lits,
-                                 const void* cls2, const void* keys, int N,
-                                 int C, int m, int L, int S, int n_states,
-                                 int T, int t_inc, int t_dec, void* stream) {
-  if (N == 0) return (int)cudaGetLastError();
-  EpochPlan p;
-  int kmax = 0;
-  bool ok = false;
-  const cudaError_t e = plan_on_device(N, C, m, L, &p, &kmax, &ok);
-  if (e != cudaSuccess) return (int)e;
-  if (!ok) return kNoPlan;
+template <bool kIncGlobal>
+void launch(const EpochPlan& p, int N, cudaStream_t stream, void* ta_out,
+            void* w_out, const void* ta, const void* w, const void* lits,
+            const void* cls2, const void* keys, void* inc, int C, int m,
+            int L, int S, int n_states, int T, int t_inc, int t_dec) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.cluster, N, 1);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = p.smem;
-  cfg.stream = (cudaStream_t)stream;
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = p.cluster;
@@ -422,13 +429,72 @@ extern "C" int train_epoch_fused(void* ta_out, void* w_out, const void* ta,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaLaunchKernelEx(&cfg, train_epoch_kernel, static_cast<int32_t*>(ta_out),
+  cudaLaunchKernelEx(&cfg, train_epoch_kernel<kIncGlobal>,
+                     static_cast<int32_t*>(ta_out),
                      static_cast<int32_t*>(w_out),
                      static_cast<const int32_t*>(ta),
                      static_cast<const int32_t*>(w),
                      static_cast<const int32_t*>(lits),
                      static_cast<const int32_t*>(cls2),
-                     static_cast<const uint32_t*>(keys), C, m, L, S, n_states,
-                     T, (uint32_t)t_inc, (uint32_t)t_dec);
+                     static_cast<const uint32_t*>(keys),
+                     static_cast<uint32_t*>(inc), C, m, L, S, n_states, T,
+                     (uint32_t)t_inc, (uint32_t)t_dec);
+}
+
+}  // namespace
+
+// The plan of an epoch on the current device, for tests and reports:
+// out = (cluster, owned clauses a block, dynamic shared memory, waves,
+// smallest cluster, most blocks a cluster may take, include bits in
+// device memory 0 / 1).  force_global takes the global plan for any
+// shape.  Launches nothing; returns -1 for a shape with no plan, else a
+// CUDA error code.
+extern "C" int train_epoch_plan(int N, int C, int m, int L, int force_global,
+                                int* out) {
+  EpochPlan p;
+  int kmax = 0;
+  bool ok = false;
+  const cudaError_t e =
+      plan_on_device(N, C, m, L, force_global != 0, &p, &kmax, &ok);
+  if (e != cudaSuccess) return (int)e;
+  if (!ok) return kNoPlan;
+  const int v[7] = {p.cluster, p.owned, p.smem, p.waves, p.smallest, kmax,
+                    p.inc_global};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
+// One epoch: reads ta (N,C,m,L) and w (N,C,m), writes the trained banks
+// and weights to ta_out and w_out (other tensors of the same shapes).
+// keys (N,S,2,3,2) are int64 tensors of uint32 words (their low halves are
+// read); t_inc and t_dec are draws.int_threshold(p_inc / p_dec).  inc is
+// the global plan's (N, C, m, ceil(L / 32)) uint32 buffer (its contents
+// are overwritten), or null where train_epoch_plan gives the shared plan;
+// force_global takes the global plan for any shape.  Launches on `stream`;
+// returns -1 for a shape with no plan, -2 for a global plan without inc,
+// else cudaGetLastError().
+extern "C" int train_epoch_fused(void* ta_out, void* w_out, const void* ta,
+                                 const void* w, const void* lits,
+                                 const void* cls2, const void* keys,
+                                 void* inc, int N, int C, int m, int L,
+                                 int S, int n_states, int T, int t_inc,
+                                 int t_dec, int force_global, void* stream) {
+  if (N == 0) return (int)cudaGetLastError();
+  EpochPlan p;
+  int kmax = 0;
+  bool ok = false;
+  const cudaError_t e =
+      plan_on_device(N, C, m, L, force_global != 0, &p, &kmax, &ok);
+  if (e != cudaSuccess) return (int)e;
+  if (!ok) return kNoPlan;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (p.inc_global) {
+    if (inc == nullptr) return kNoBuffer;
+    launch<true>(p, N, st, ta_out, w_out, ta, w, lits, cls2, keys, inc, C, m,
+                 L, S, n_states, T, t_inc, t_dec);
+  } else {
+    launch<false>(p, N, st, ta_out, w_out, ta, w, lits, cls2, keys, nullptr,
+                  C, m, L, S, n_states, T, t_inc, t_dec);
+  }
   return (int)cudaGetLastError();
 }

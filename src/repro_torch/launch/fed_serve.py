@@ -20,7 +20,8 @@ plane over them:
    product).  Between batches the plane polls ``refresh()``.
 
 The scenario flags (``--strategy --dataset --data-dir --encoding
---clients --clauses --seed --max-slots --probe-size ...``) must repeat
+--writers --clients --clauses --seed --max-slots --probe-size ...``)
+must repeat
 the training run's, and
 so must the structural flags (``--codec --sparse --error-feedback``,
 which shape the checkpointed wire lanes, and ``--buffer-capacity``,
@@ -54,6 +55,7 @@ from repro_torch.data.ingest import registry as datasets
 from repro_torch.fl.runtime import (CodecConfig, Engine, RuntimeConfig,
                                     checkpointing)
 from repro_torch.fl.runtime.codec import CODECS
+from repro_torch.fl.runtime.engine import TM_BACKENDS
 from repro_torch.fl.serve import ModelRegistry, ServeTelemetry, ServingPlane
 from repro_torch.launch.fed_train import STRATEGY_CHOICES, build_scenario
 
@@ -78,6 +80,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--data-dir", default=None)
     ap.add_argument("--encoding", default="bool", metavar="SPEC")
     ap.add_argument("--experiment", type=int, default=5)
+    ap.add_argument("--writers", type=int, default=None,
+                    help="the training run's --writers (a LEAF kind's "
+                         "mirror size)")
     ap.add_argument("--clients", type=int, default=20)
     ap.add_argument("--clauses", type=int, default=48)
     ap.add_argument("--local-epochs", type=int, default=2)
@@ -86,6 +91,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--probe-size", type=int, default=64)
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain versions)")
+    ap.add_argument("--tm-backend", default="ref", choices=TM_BACKENDS,
+                    help="the reference's TM route names; both serve "
+                         "through the port's one route")
     # structural knobs that shape the checkpointed engine state
     ap.add_argument("--codec", default="float32", choices=CODECS)
     ap.add_argument("--sparse", action="store_true")
@@ -124,13 +132,13 @@ def main(argv: list[str] | None = None) -> dict:
     data, _, _, strategy = build_scenario(
         dataset=args.dataset, data_dir=args.data_dir,
         encoding=args.encoding, clients=args.clients, clauses=args.clauses,
-        seed=args.seed, experiment=args.experiment,
+        seed=args.seed, experiment=args.experiment, writers=args.writers,
         local_epochs=args.local_epochs, strategy=args.strategy,
         max_slots=args.max_slots, probe_size=args.probe_size, device=device)
     engine = Engine(strategy, data, RuntimeConfig(
         codec=CodecConfig(args.codec, sparse=args.sparse,
                           error_feedback=args.error_feedback),
-        buffer_capacity=args.buffer_capacity))
+        buffer_capacity=args.buffer_capacity, tm_backend=args.tm_backend))
     # the engine's key chain is k_init, k_rounds = split(PRNGKey(seed))
     k_init = rnd.split(rnd.PRNGKey(args.seed, device))[0]
     like = engine.init(k_init)

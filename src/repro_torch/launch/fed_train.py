@@ -9,7 +9,7 @@ come with later slices, ROADMAP.md):
 
   PYTHONPATH=src python -m repro_torch.launch.fed_train \\
       --dataset mnist --data-dir DATA --clauses 300 --clients 20 \\
-      --rounds 2 [--encoding thermometer:2] \\
+      --rounds 2 [--encoding thermometer:2] [--writers W] \\
       [--strategy tpfl|fedtm|fedavg|fedprox|ifca|flis_dc|flis_hc \\
        --max-slots S --probe-size P] \\
       [--participation P | --active K] \\
@@ -19,9 +19,15 @@ come with later slices, ROADMAP.md):
        --error-feedback] [--mode sync|async --async-min-uploads B \\
        --buffer-capacity CAP --staleness-discount D \\
        --async-buffer device|host] [--telemetry-dir RUN_DIR \\
-       --profile-dir DIR]
+       --profile-dir DIR] [--tm-backend ref|pallas]
 
-runs on the GPU; ``--device cpu`` runs the kernels' plain versions.  It
+runs on the GPU; ``--device cpu`` runs the kernels' plain versions.
+``--tm-backend`` takes the reference's two names for its TM routes,
+which it pins bit-identical: both name the port's one route (the
+kernels on the GPU, their plain versions on the CPU).  A LEAF kind
+(``femnist``, ``synthfemnist``) under ``--data-dir`` takes the
+writer-natural split; ``--writers`` sizes the mirror when it writes the
+shards (default ``max(25, clients)``).  It
 prints the same per-round ``acc= … up= … down_bc= … down_pc= …
 active=a/K`` lines (async: `` agg= buf= evict=`` after them) and
 totals line as the reference CLI.  ``--ckpt-dir D
@@ -45,6 +51,7 @@ from repro_torch.fl.obs.events import accuracy_deciles, worst_decile_mean
 from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
                                     RuntimeConfig, SchedulerConfig,
                                     build_baseline_strategy, checkpointing)
+from repro_torch.fl.runtime.engine import TM_BACKENDS
 from repro_torch.fl.runtime.codec import CODECS, INDEX_CODINGS
 from repro_torch.fl.runtime.scheduler import SAMPLING
 
@@ -71,19 +78,24 @@ def _build_strategy(name: str, tm_cfg: tm.TMConfig,
 def build_scenario(*, dataset: str, data_dir: str | None = None,
                    encoding: str = "bool", clients: int = 20,
                    clauses: int = 48, seed: int = 0, experiment: int = 5,
-                   rounds: int = 5, local_epochs: int = 2,
+                   writers: int | None = None, rounds: int = 5,
+                   local_epochs: int = 2,
                    strategy: str = "tpfl", max_slots: int = 8,
                    probe_size: int = 64, device=None):
     """(partitioned client data, TM config, fed config, strategy), as the
     reference builds them: the registry's pool (``n_samples=6000``,
-    ``side=12``, from ``seed``; through the IDX mirror under
-    ``data_dir``), split by ``partition_pool`` from ``PRNGKey(seed + 1)``
+    ``side=12``, from ``seed``; through the mirror under ``data_dir``,
+    which writes ``writers or max(25, clients)`` hands for a LEAF kind),
+    split by ``partition_pool`` from ``PRNGKey(seed + 1)`` (LEAF kinds
+    by writer)
     into 80 / 40 / 40 train / test / confidence samples a client, a TM
     with n_states=63, s=5, T=40, and the strategy named (FLIS capped at
     ``max_slots`` rows with a ``probe_size`` probe set).  The data lies
     on ``device``, the GPU unless the caller names another."""
     pool = registry.load(dataset, data_dir, encoding=encoding,
-                         n_samples=6000, side=12, seed=seed, device=device)
+                         n_samples=6000, side=12, seed=seed,
+                         n_writers=writers or max(25, clients),
+                         device=device)
     data = natural.partition_pool(
         pool, n_clients=clients, n_train=80, n_test=40, n_conf=40,
         key=rnd.PRNGKey(seed + 1, pool.x.device), experiment=experiment)
@@ -104,13 +116,19 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--dataset", default="synthmnist",
                     choices=registry.names())
     ap.add_argument("--data-dir", default=None,
-                    help="dataset cache (IDX files; the offline mirror "
-                         "populates it, real files are used as they "
-                         "are).  Required for the real flavours; synth* "
-                         "fall back to in-memory generation without it")
+                    help="dataset cache (IDX files / LEAF shards; the "
+                         "offline mirror populates it, real files are "
+                         "used as they are).  Required for the real "
+                         "flavours; synth* fall back to in-memory "
+                         "generation without it")
     ap.add_argument("--encoding", default="bool", metavar="SPEC",
                     help="feature encoding: bool[:threshold] | "
                          "thermometer[:levels] | quantile[:levels]")
+    ap.add_argument("--writers", type=int, default=None,
+                    help="LEAF mirror size (writers ≥ clients; default "
+                         "max(25, clients)).  Only shapes a cache being "
+                         "written — existing shards win; clear the "
+                         "data dir to regenerate")
     ap.add_argument("--strategy", default="tpfl", choices=STRATEGY_CHOICES)
     ap.add_argument("--max-slots", type=int, default=8,
                     help="FLIS: server slot rows — dynamic clusters are "
@@ -157,6 +175,12 @@ def main(argv: list[str] | None = None) -> dict:
                     choices=("device", "host"),
                     help="async upload buffer: device = tensor ops on the "
                          "engine's device, host = the numpy reference loop")
+    ap.add_argument("--tm-backend", default="ref",
+                    choices=TM_BACKENDS,
+                    help="the reference's TM route names (ref | pallas), "
+                         "bit-identical there; both run the port's one "
+                         "route: the kernels on the GPU, their plain "
+                         "versions with --device cpu")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain versions)")
     ap.add_argument("--ckpt-dir", default=None)
@@ -187,14 +211,15 @@ def main(argv: list[str] | None = None) -> dict:
         aggregation=args.mode, async_min_uploads=args.async_min_uploads,
         buffer_capacity=args.buffer_capacity,
         staleness_discount=args.staleness_discount,
-        async_buffer=args.async_buffer,
+        async_buffer=args.async_buffer, tm_backend=args.tm_backend,
         checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every)
     device = (devices.default_device() if args.device == "cuda"
               else devices.resolve(args.device))
     data, tm_cfg, fed_cfg, strategy = build_scenario(
         dataset=args.dataset, data_dir=args.data_dir,
         encoding=args.encoding, clients=args.clients, clauses=args.clauses,
-        seed=args.seed, experiment=args.experiment, rounds=args.rounds,
+        seed=args.seed, experiment=args.experiment, writers=args.writers,
+        rounds=args.rounds,
         local_epochs=args.local_epochs, strategy=args.strategy,
         max_slots=args.max_slots, probe_size=args.probe_size, device=device)
     telemetry = None
@@ -226,9 +251,12 @@ def main(argv: list[str] | None = None) -> dict:
                         "upload_bytes": 0,
                         "download_bytes_broadcast": 0,
                         "download_bytes_per_client": 0}
+    writer_split = (registry.get(args.dataset).kind == "leaf"
+                    and args.data_dir is not None)
+    split = "writer-natural" if writer_split else f"exp{args.experiment}"
     print(f"{args.strategy} on {args.dataset} "
           f"[{args.encoding}, {tm_cfg.n_features}f, m={tm_cfg.n_clauses}] "
-          f"exp{args.experiment}: {args.clients} clients, "
+          f"{split}: {args.clients} clients, "
           f"K={engine.scheduler.k}/round, dropout={args.dropout}, "
           f"codec={args.codec}{'+sparse' if args.sparse else ''}, "
           f"mode={args.mode}, device={device}", flush=True)

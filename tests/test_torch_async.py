@@ -330,6 +330,37 @@ def test_weighted_mean_bit_identical(n, d, c, weights):
         _same(want, got, f"exact_products={exact}")
 
 
+@pytest.mark.parametrize("discount", [0.5, 0.25, 0.3, 0.7])
+def test_weighted_mean_flushes_subnormals_as_xla(discount):
+    """Queue C item 6: XLA:CPU runs with flush-to-zero and
+    denormals-are-zero, so subnormal values count as zeros, and products,
+    row sums and means that fall below the normal range are flushed.
+    Tiny values (subnormal ones, and ones whose discounted products and
+    means underflow) at a power-of-two discount (both forms) and at
+    another (the emulated FMA): bit for bit with the reference."""
+    rng = np.random.default_rng(int(discount * 100))
+    n, d, c = 24, 40, 3
+    vals = (rng.normal(size=(n, d)) * 1e-37).astype(np.float32)
+    vals[:, :5] = (rng.normal(size=(n, 5)) * 3e-45).astype(np.float32)
+    vals[:, 5:10] = (rng.normal(size=(n, 5)) * 2e-38).astype(np.float32)
+    assert (np.abs(vals) < np.finfo(np.float32).tiny).any()
+    ids = rng.integers(-1, c, n).astype(np.int32)
+    w = np.where(ids >= 0, np.float32(discount) ** rng.integers(0, 3, n),
+                 0).astype(np.float32)
+    want = jmc.clustered_weighted_mean(jnp.asarray(vals), jnp.asarray(ids),
+                                       jnp.asarray(w), c)
+    assert (np.asarray(want) == 0).any()
+    pow2 = discount in (0.5, 0.25)
+    for exact in ((False, True) if pow2 else (False,)):
+        got = clustered_weighted_mean(torch.as_tensor(vals),
+                                      torch.as_tensor(ids),
+                                      torch.as_tensor(w), c,
+                                      exact_products=exact)
+        _same(want, got, f"exact_products={exact}")
+        sub = (got != 0) & (got.abs() < torch.finfo(torch.float32).tiny)
+        assert not bool(sub.any())
+
+
 # -- the MLP baselines ------------------------------------------------------
 
 @pytest.mark.parametrize("name,buffer", [

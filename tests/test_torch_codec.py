@@ -8,9 +8,15 @@ vectors and the error-feedback residuals bit-identical, and the
 validation messages the same.
 
 ``aggregate`` sums non-integer uploads (a lossy wire's ``q·scale``) in
-row order, as XLA:CPU's one-hot product does for one cluster and for ten
-clusters of 17 to 300 features up to 110 rows; the limits of that order
-are pinned below (ROADMAP.md, queue C)."""
+XLA:CPU's order where it is read off this host's XLA
+(``tools/xla_dot_order.py``): four lanes at the shapes
+``clustering.four_lanes`` names (62 clusters of narrow widths, 62 and 10
+clusters at row counts that are multiples of 4), row order at one
+cluster and at ten clusters of 17 to 300 features up to 108 rows; the
+limits are pinned below (ROADMAP.md, queue C item 4)."""
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +27,9 @@ from repro.fl.runtime import codec as jcodec
 from repro_torch.core import clustering
 from repro_torch.fl.runtime import codec
 from test_torch_gpu import one_torch_thread  # noqa: F401
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import xla_dot_order  # noqa: E402
 
 
 def _vectors():
@@ -163,17 +172,23 @@ def test_aggregate_bit_identical_on_lossy_uploads(rows, n_clusters, m,
 
 
 def test_aggregate_order_limit_is_pinned():
-    """Queue C: where XLA's dot does not add the rows one after another,
-    a non-integer aggregate differs from the port's row order in the
-    last place.  At ten clusters of 300 features the first row count
-    that differs (all rows in one cluster) is 111; at 16 features XLA
-    sums 12 rows in four lanes, ((r0+r4)+r8) + ... reduced pairwise."""
-    for rows, same in ((110, True), (111, False)):
-        up, ids = _lossy_uploads(rows, 300, 10, 7, one_cluster=True)
-        ref, got = _both(up, ids, 10)
-        equal = np.array_equal(_bits(ref.cluster_weights),
-                               _bits(got.cluster_weights.numpy()))
-        assert equal == same, rows
+    """Queue C item 4: where XLA's dot adds in an order the port does
+    not emulate, a non-integer aggregate differs in the last place.  At
+    ten clusters of 300 features the first row count that differs (all
+    rows in one cluster) is 111; at 62 clusters of 20 features XLA adds 6
+    or 9 rows in yet another order, and at 32 features any row count.
+    At 16 features XLA sums 12 rows of ten clusters in four lanes,
+    ((r0+r4)+r8) + ... reduced pairwise, which the port now follows."""
+    def equal(rows, m, n_clusters):
+        up, ids = _lossy_uploads(rows, m, n_clusters, 7, one_cluster=True)
+        ref, got = _both(up, ids, n_clusters)
+        return np.array_equal(_bits(ref.cluster_weights),
+                              _bits(got.cluster_weights.numpy()))
+
+    assert equal(110, 300, 10) and not equal(111, 300, 10)
+    for rows, m in ((6, 20), (9, 20), (12, 32)):
+        assert not clustering.four_lanes(62, rows, m)
+        assert not equal(rows, m, 62), (rows, m)
     up, ids = _lossy_uploads(12, 16, 10, 7, one_cluster=True)
     ref, got = _both(up, ids, 10)
     lanes = [up[j::4].astype(np.float32) for j in range(4)]
@@ -183,8 +198,54 @@ def test_aggregate_order_limit_is_pinned():
              + (lanes[2] + lanes[3]).astype(np.float32)).astype(np.float32)
             / np.float32(12)).astype(np.float32)
     np.testing.assert_array_equal(_bits(ref.cluster_weights)[0], _bits(four))
-    assert not np.array_equal(_bits(ref.cluster_weights),
-                              _bits(got.cluster_weights.numpy()))
+    assert clustering.four_lanes(10, 12, 16)
+    np.testing.assert_array_equal(_bits(ref.cluster_weights),
+                                  _bits(got.cluster_weights.numpy()))
+
+
+@pytest.mark.parametrize("n_clusters,m,rows", [
+    (62, 16, 5), (62, 16, 6), (62, 16, 7), (62, 16, 8), (62, 16, 13),
+    (62, 8, 5), (62, 6, 9), (62, 2, 47), (62, 16, 100), (62, 20, 12),
+    (62, 48, 20), (62, 300, 20), (62, 300, 128), (10, 16, 12),
+    (10, 4, 64), (10, 17, 12), (10, 300, 108)])
+@pytest.mark.parametrize("one_cluster", [False, True])
+def test_aggregate_follows_xla_order_at_its_shapes(n_clusters, m, rows,
+                                                   one_cluster):
+    """Non-integer uploads at the shapes whose order the port emulates:
+    four lanes and a remainder apart (62 clusters of 2 to 16 features at
+    any row count, multiples of 4 rows at wider or ten clusters), row
+    order at 62 clusters of 8 features and 5 rows and at ten clusters of
+    17 to 300 features: bit for bit, clusters included that hold 3 rows
+    or more, where the two orders differ."""
+    up, ids = _lossy_uploads(rows, m, n_clusters, rows + m, one_cluster)
+    if not one_cluster:
+        ids = (ids % 3).astype(np.int32)     # three clusters, many rows each
+    ref, got = _both(up, ids, n_clusters)
+    np.testing.assert_array_equal(_bits(ref.cluster_weights),
+                                  _bits(got.cluster_weights.numpy()))
+    np.testing.assert_array_equal(np.asarray(ref.counts), got.counts.numpy())
+
+
+@pytest.mark.parametrize("n_clusters,m", [(62, 4), (62, 16), (62, 17),
+                                          (62, 300), (10, 16), (10, 24)])
+def test_four_lanes_is_this_hosts_xla(n_clusters, m):
+    """``clustering.four_lanes`` is the table ``tools/xla_dot_order.py``
+    reads off this host's XLA: wherever it names four lanes, and at ten
+    clusters of 17 or more features (row order) up to 108 rows, XLA's
+    sums over three clusters are the order's bit for bit."""
+    rng = np.random.default_rng(m)
+    for rows in list(range(4, 33)) + [48, 64, 108]:
+        lanes = clustering.four_lanes(n_clusters, rows, m)
+        if not lanes and not (n_clusters == 10 and m >= 17):
+            continue
+        up, _ = _lossy_uploads(rows, m, n_clusters, rows)
+        ids = rng.permutation(n_clusters)[rng.integers(0, 3, rows)].astype(
+            np.int32)
+        want = xla_dot_order.xla_sums(up, ids, n_clusters)
+        got = xla_dot_order.ordered_sums(up, ids, n_clusters, lanes)
+        live = np.bincount(ids, minlength=n_clusters) > 0
+        np.testing.assert_array_equal(_bits(got[live]), _bits(want[live]),
+                                      err_msg=f"rows={rows} lanes={lanes}")
 
 
 def test_aggregate_integer_uploads_exact_in_any_order():

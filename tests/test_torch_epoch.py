@@ -67,6 +67,21 @@ extern "C" int ep_plan(int N, int C, int m, int L, int kmax, const int* fit,
   for (int i = 0; i < 5; ++i) out[i] = v[i];
   return 0;
 }
+extern "C" int ep_plan_g(int N, int C, int m, int L, int kmax,
+                         const int* fit, int inc_global, int* out) {
+  EpochPlan p;
+  if (!plan_epoch(N, C, m, L, kmax, fit, &p, inc_global != 0)) return 1;
+  const int v[6] = {p.cluster, p.owned, p.smem, p.waves, p.smallest,
+                    p.inc_global};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+extern "C" int ep_takes_global(int C, int m, int L, int kmax, int force) {
+  return takes_global(C, m, L, kmax, force != 0);
+}
+extern "C" long long ep_smem_g(int C, int m, int L, int K, int inc_global) {
+  return smem_bytes(C, m, L, K, inc_global != 0);
+}
 extern "C" int ep_clause_begin(int m, int K, int r) {
   return clause_begin(m, K, r);
 }
@@ -111,7 +126,10 @@ def host(tmp_path_factory):
             ("ep_clause_begin", [i32] * 3, i32),
             ("ep_smem", [i32] * 4, ctypes.c_longlong),
             ("ep_layout", [i32] * 3 + [ptr], None),
-            ("ep_smem_block", [], i32)):
+            ("ep_smem_block", [], i32),
+            ("ep_plan_g", [i32] * 5 + [ptr, i32, ptr], i32),
+            ("ep_takes_global", [i32] * 5, i32),
+            ("ep_smem_g", [i32] * 5, ctypes.c_longlong)):
         f = getattr(h, name)
         f.argtypes, f.restype = args, res
     return h
@@ -370,6 +388,115 @@ def test_epoch_plan_fills_the_card(host, model, kmax, N, want):
         assert want == kmax or fit[want + 1] < N
     else:
         assert p["waves"] == -(-N // fit[3]) > 1
+
+
+# the plans of the shared plan (include bits in shared memory) as the
+# launcher made them before the global plan existed: (N, C, m, L), fit
+# model, kmax -> (cluster, owned, smem, waves, smallest)
+TODAYS_PLANS = {
+    ((20, 10, 300, 1568), "ideal", 16): (6, 50, 104512, 1, 3),
+    ((20, 10, 300, 1568), "gpcs", 8): (5, 60, 124544, 1, 3),
+    ((20, 10, 300, 1568), "gpcs", 16): (5, 60, 124544, 1, 3),
+    ((1, 10, 300, 1568), "gpcs", 8): (8, 38, 80448, 1, 3),
+    ((1, 10, 300, 1568), "gpcs", 16): (16, 19, 42368, 1, 3),
+    ((10, 10, 300, 1568), "ideal", 16): (13, 24, 52368, 1, 3),
+    ((10, 10, 300, 1568), "gpcs", 16): (9, 34, 72432, 1, 3),
+    ((33, 10, 300, 1568), "gpcs", 16): (3, 100, 204752, 1, 3),
+    ((132, 10, 300, 1568), "gpcs", 16): (3, 100, 204752, 4, 3),
+    ((200, 10, 300, 1568), "ideal", 16): (3, 100, 204752, 5, 3),
+    ((3, 3, 33, 130), "gpcs", 8): (8, 5, 1840, 1, 1),
+    ((4, 3, 33, 130), "gpcs", 16): (16, 3, 1696, 1, 1),
+    ((1, 10, 16, 32), "gpcs", 16): (16, 1, 1296, 1, 1),
+    ((7, 2, 1, 4000), "gpcs", 16): (1, 1, 10160, 1, 1),
+    ((2, 3, 0, 130), "gpcs", 16): (1, 0, 1424, 1, 1),
+    ((1, 1, 2000, 64), "gpcs", 8): (8, 250, 5504, 1, 1),
+    ((5, 10, 300, 3200), "gpcs", 16): (16, 19, 84384, 1, 6),
+    ((20, 10, 300, 288), "gpcs", 16): (5, 60, 25984, 1, 1),
+    ((20, 62, 300, 288), "gpcs", 16): (5, 60, 150784, 1, 4),
+    ((20, 62, 288, 1568), "gpcs", 16): (16, 18, 227552, 3, 16),
+    ((1, 10, 300, 6400), "gpcs", 16): (16, 19, 166784, 1, 12),
+}
+
+
+def _launcher_plan(host, N, C, m, L, kmax=16, model="gpcs", force=False):
+    """The plan the launcher takes: the global plan where
+    ``takes_global``, else the shared plan; (plan dict, global flag)."""
+    g = host.ep_takes_global(C, m, L, kmax, int(force))
+    fit = _fit(model, kmax)
+    out = np.zeros(6, np.int32)
+    if host.ep_plan_g(N, C, m, L, kmax, _p(fit), g, _p(out)) != 0:
+        return None, g
+    return dict(zip(("cluster", "owned", "smem", "waves", "smallest",
+                     "inc_global"), out.tolist())), g
+
+
+@pytest.mark.parametrize("key", TODAYS_PLANS, ids=str)
+def test_epoch_plan_keeps_todays_plans(host, key):
+    """Every shape the shared plan holds keeps it, unchanged: the
+    launcher does not take the global plan there, and the plan is the
+    one the launcher made before the global plan existed (at 62 classes
+    too, where the bits still fit: side 12, or 288 clauses on 16
+    blocks)."""
+    (N, C, m, L), model, kmax = key
+    p, g = _launcher_plan(host, N, C, m, L, kmax, model)
+    assert g == 0 and p["inc_global"] == 0
+    want = dict(zip(("cluster", "owned", "smem", "waves", "smallest"),
+                    TODAYS_PLANS[key]))
+    assert {k: p[k] for k in want} == want
+    assert _plan(host, N, C, m, L, kmax, model) == want
+
+
+@pytest.mark.parametrize("model,kmax,want", [
+    ("gpcs", 16, 5), ("ideal", 16, 6), ("gpcs", 8, 5)])
+def test_epoch_global_plan_at_62_classes(host, model, kmax, want):
+    """(20, 62, 300, 1568), FEMNIST at its native side: no cluster of
+    up to 16 blocks holds a client's include bits in shared memory
+    (3,645,600 B), so the shared plan has none and the launcher takes the
+    global plan, whose blocks hold only the weights and staged samples:
+    the largest cluster that runs the 20 clients in one wave."""
+    assert _plan(host, 20, 62, 300, 1568, kmax, model) is None
+    assert host.ep_smem(62, 300, 1568, 16) > host.ep_smem_block()
+    p, g = _launcher_plan(host, 20, 62, 300, 1568, kmax, model)
+    assert g == 1 and p["inc_global"] == 1
+    assert p["cluster"] == want and p["waves"] == 1 and p["smallest"] == 1
+    assert p["owned"] == -(-300 // want)
+    assert p["smem"] == host.ep_smem_g(62, 300, 1568, want, 1) \
+        <= host.ep_smem_block()
+    # the weights and the staged samples: no include words
+    assert p["smem"] == host.ep_smem(62, 300, 1568, want) \
+        - 62 * p["owned"] * 49 * 4
+    lay = np.zeros(11, np.int32)
+    host.ep_layout(62, p["owned"], 49, _p(lay))
+    assert p["smem"] == lay[10] - (lay[1] - lay[0])
+
+
+@pytest.mark.parametrize("shape", [(20, 10, 300, 1568), (10, 10, 300, 1568),
+                                   (3, 3, 33, 130), (1, 10, 16, 32)])
+def test_epoch_global_plan_can_be_forced(host, shape):
+    """The switch the tests and the smoke run use: forced, any shape the
+    shared plan holds takes the global plan, with the same clause split
+    rules and no include words in shared memory."""
+    N, C, m, L = shape
+    p, g = _launcher_plan(host, N, C, m, L, force=True)
+    shared = _plan(host, N, C, m, L)
+    assert g == 1 and p["inc_global"] == 1 and shared is not None
+    assert p["smem"] < shared["smem"] or m == 0
+    assert p["smallest"] <= shared["smallest"]
+    assert 1 <= p["cluster"] <= max(1, min(16, m))
+
+
+def test_epoch_global_plan_refuses_what_it_cannot_hold(host):
+    """The global plan still needs a block's staged samples in shared
+    memory (16 rows of W words) and a client's include words below
+    2**31."""
+    fit = _fit("gpcs", 16)
+    out = np.zeros(6, np.int32)
+    assert host.ep_takes_global(10, 300, 32 * 20000, 16, 0) == 1
+    assert host.ep_plan_g(1, 10, 300, 32 * 20000, 16, _p(fit), 1,
+                          _p(out)) != 0
+    assert host.ep_plan_g(1, 2, 16, 32 * 3000, 16, _p(fit), 1, _p(out)) == 0
+    assert host.ep_plan_g(1, 4096, 4096, 4096, 16, _p(fit), 1,
+                          _p(out)) != 0              # C·m·W ≥ 2**31
 
 
 def test_epoch_plan_refuses_what_it_cannot_hold(host):

@@ -225,6 +225,33 @@ def test_train_epoch_kernel_matches_plain_on_gpu(cuda, N, S, C, m, L):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("N,S,C,m,L,forced", [
+    (3, 17, 3, 33, 130, True), (20, 8, 10, 300, 1568, True),
+    (4, 6, 62, 300, 1568, False), (20, 4, 62, 300, 1568, False)])
+def test_train_epoch_global_plan_matches_plain_on_gpu(cuda, N, S, C, m, L,
+                                                      forced):
+    """The global plan (include bits in device memory) equals the plain
+    version bit for bit: forced at shapes the shared plan holds, and at
+    62 classes of 300 clauses (L = 1568), which only it holds; every
+    shape the shared plan holds keeps it."""
+    from repro_torch.kernels import train_epoch
+    assert train_epoch.plan(N, C, m, L, inc_global=forced).inc_global == 1
+    assert train_epoch.plan(N, C, m, L).inc_global == int(not forced)
+    rng = np.random.default_rng(5)
+    ta, w, lits = _epoch_inputs(rng, N, S, C, m, L // 2, 63)
+    args = _t(ta, w, lits, *_keys(rng, N, S, C), device=cuda)
+    kw = dict(n_states=63, T=15, p_inc=0.8, p_dec=0.2)
+    n = dict(train_epoch.PLAN_LAUNCHES)
+    got = train_epoch.train_epoch_fused(*args, **kw, inc_global=forced)
+    torch.cuda.synchronize()
+    assert train_epoch.PLAN_LAUNCHES["global"] == n["global"] + 1
+    assert train_epoch.PLAN_LAUNCHES["shared"] == n["shared"]
+    want = train_epoch.train_epoch_plain(*args, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(want[0], args[0])
+
+
+@pytest.mark.gpu
 def test_train_epoch_allocates_no_coin_plane(cuda):
     """An epoch of 20 clients x 80 samples at the paper's width through
     the main path's tm._epoch: one launch, and its peak device memory

@@ -3,7 +3,8 @@ the same bytes; the offline mirror writes byte-identical IDX files and
 ``.sha256`` sidecars; ``registry.load`` gives the same pool bits for
 every encoding, from the mirror, from a real-style drop-in (grayscale
 train and t10k pairs) and from the in-memory fallback; the LEAF kinds
-are refused with the ROADMAP item that brings them."""
+load through their mirror as writer-tagged pools (their parity with the
+reference: tests/test_torch_leaf.py)."""
 import pathlib
 
 import numpy as np
@@ -111,19 +112,23 @@ def test_registry_names_and_refusals(tmp_path):
         fed_train.main(["--device", "cpu", "--dataset", "mnist"])
     with pytest.raises(ValueError, match="unknown dataset"):
         registry.get("cifar")
-    for name in ("synthfemnist", "femnist"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            registry.load(name, tmp_path, device="cpu")
-    assert not (tmp_path / "synthfemnist").exists()
+    for name, side in (("synthfemnist", 8), ("femnist", 28)):
+        leafy = registry.load(name, tmp_path, n_samples=60, side=8,
+                              n_writers=4, device="cpu")
+        assert leafy.n_classes == 62 and leafy.n_features == side * side
+        assert torch.equal(leafy.writers.unique(),
+                           torch.arange(4, dtype=torch.int32))
+        assert (tmp_path / name / "index.json").exists()
     with pytest.raises(ValueError, match="unknown encoding"):
         registry.load("synthmnist", encoding="gray", n_samples=10,
                       device="cpu")
     pool = registry.load("synthmnist", n_samples=10, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        natural.partition_pool(
-            pool._replace(writers=torch.zeros(10, dtype=torch.int32)),
-            n_clients=2, n_train=2, n_test=1, n_conf=1,
-            key=tr.PRNGKey(0, "cpu"))
+    data = natural.partition_pool(
+        pool._replace(writers=torch.tensor([0, 0, 1, 1, 1, 2, 2, 2, 3, 3],
+                                           dtype=torch.int32)),
+        n_clients=2, n_train=2, n_test=1, n_conf=1,
+        key=tr.PRNGKey(0, "cpu"))
+    assert data.sizes.tolist() == [5, 5]
 
 
 def test_partial_pair_and_checksum_are_refused(tmp_path):

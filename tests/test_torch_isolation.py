@@ -89,6 +89,12 @@ def _host_value_makers(tmp_path):
             "mnist", tmp_path, n_samples=50),
         "write_idx_mirror": lambda: mirror.write_idx_mirror(
             tmp_path, "synthmnist", 50, 12, 0),
+        "write_leaf_mirror": lambda: mirror.write_leaf_mirror(
+            tmp_path, "synthfemnist", 50, 8, 0, n_writers=4),
+        "registry.load_leaf": lambda: registry.load(
+            "femnist", tmp_path, n_samples=50, n_writers=4),
+        "registry.load_stream": lambda: registry.load_stream(
+            "synthfemnist", tmp_path, n_samples=50, n_writers=4),
         "build_scenario": lambda: fed_train.build_scenario(
             dataset="synthmnist", clients=2),
         "key_from_numpy": lambda: convert.key_from_numpy([0, 1]),
@@ -109,7 +115,8 @@ def _host_value_makers(tmp_path):
 
 @pytest.mark.parametrize("name", [
     "PRNGKey", "partition", "make_dataset", "registry.load",
-    "registry.load_mirror", "write_idx_mirror", "build_scenario",
+    "registry.load_mirror", "write_idx_mirror", "write_leaf_mirror",
+    "registry.load_leaf", "registry.load_stream", "build_scenario",
     "key_from_numpy", "tm_params_from_numpy", "engine_state_from_numpy",
     "mlp_params_from_numpy", "flis_client_state_from_numpy",
     "server_state_from_numpy"])

@@ -48,7 +48,7 @@ SPLIT = dict(n_clients=6, experiment=5, n_train=24, n_test=12, n_conf=12)
 
 
 def _engines(rounds, strategy="tpfl", sched=None, wire=None, ckpt=None,
-             **strategy_kw):
+             tm_backend="ref", **strategy_kw):
     """The JAX engine and the port's engine, each over the population
     its own package draws from pool seed 0 and partition seed 1 (the
     same bits, pool shares ``sizes`` included: tests/test_torch_data.py),
@@ -72,11 +72,11 @@ def _engines(rounds, strategy="tpfl", sched=None, wire=None, ckpt=None,
     sched, wire = sched or {}, wire or {}
     jeng = JEngine(jstrat, jdata, JRuntimeConfig(
         rounds=rounds, scheduler=JSchedulerConfig(**sched),
-        codec=JCodecConfig(**wire), tm_backend="ref",
+        codec=JCodecConfig(**wire), tm_backend=tm_backend,
         checkpoint_dir=ckpt, checkpoint_every=1 if ckpt else 0))
     teng = Engine(tstrat, data, RuntimeConfig(
         rounds=rounds, scheduler=SchedulerConfig(**sched),
-        codec=CodecConfig(**wire)))
+        codec=CodecConfig(**wire), tm_backend=tm_backend))
     return jeng, teng
 
 
@@ -181,14 +181,35 @@ def test_fed_train_cli_on_cpu(capsys):
 
 @pytest.mark.parametrize("kw", [
     dict(backend="shardmap"), dict(client_store="mmap"),
-    dict(transport="socket"), dict(tm_backend="pallas")])
+    dict(transport="socket")])
 def test_unsupported_runtime_configs_raise(kw):
     """The reference's other runtime settings are not accepted at all:
     a config written for them fails, it does not run in process on the
     resident store (async aggregation runs since its slice:
-    tests/test_torch_async.py)."""
+    tests/test_torch_async.py; ``tm_backend`` names since the LEAF
+    slice: ``test_tm_backend_names_the_ports_one_route``)."""
     with pytest.raises(TypeError):
         RuntimeConfig(rounds=1, **kw)
+
+
+@pytest.mark.parametrize("name", ["ref", "pallas"])
+def test_tm_backend_names_the_ports_one_route(name):
+    """``tm_backend`` takes the reference's two names, which the
+    reference pins bit-identical (``ref``: jnp; ``pallas``: the fused
+    kernels, in interpret mode on the CPU); under either the port runs
+    its one route, and a round equals the JAX engine's under that name
+    bit for bit.  An unknown name raises ``ValueError`` in both."""
+    jeng, teng = _engines(rounds=1, tm_backend=name)
+    assert teng.cfg.tm_backend == name
+    jstate, jreps = jeng.run(jax.random.PRNGKey(7))
+    tstate, treps = teng.run(convert.key_from_numpy(jax.random.PRNGKey(7),
+                                                    "cpu"))
+    _same_reports(jreps, treps)
+    _same_state(jstate, tstate)
+    with pytest.raises(ValueError, match="unknown tm_backend"):
+        RuntimeConfig(rounds=1, tm_backend="cuda")
+    with pytest.raises(ValueError, match="unknown tm_backend"):
+        JRuntimeConfig(rounds=1, tm_backend="cuda")
 
 
 def test_async_codecs_and_other_strategies_are_a_later_slice(capsys):
@@ -314,6 +335,9 @@ CLI_FLAGS = {
                        "--dropout", "0.2", "--straggler", "0.3",
                        "--max-staleness", "3", "--seed", "4",
                        "--experiment", "3"],
+    "tpfl_tm_backend_pallas": ["--clients", "4", "--rounds", "2",
+                               "--clauses", "8", "--local-epochs", "1",
+                               "--tm-backend", "pallas"],
     "tpfl_int8_sparse_vrle_ef": [
         "--clients", "6", "--rounds", "2", "--clauses", "16",
         "--local-epochs", "1", "--codec", "int8", "--sparse",

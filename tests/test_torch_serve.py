@@ -469,6 +469,29 @@ def test_fed_serve_fedtm_verifies_offline_on_cpu(tmp_path, capsys, extra):
         assert (tmp_path / "data" / "synthfashion").is_dir()
 
 
+@pytest.mark.parametrize("tm_backend", ["ref", "pallas"])
+def test_fed_serve_rebuilds_the_writer_split(tmp_path, capsys, tm_backend):
+    """A LEAF run (``synthfemnist`` under ``--data-dir``, 62 classes,
+    ``--writers 6``) served with the same scenario flags: the serving
+    process rebuilds the writer-natural partition from the mirror's
+    files and every client's served prediction equals its row's offline
+    one, under either ``--tm-backend`` name."""
+    flags = FLAGS + ["--dataset", "synthfemnist", "--data-dir",
+                     str(tmp_path / "data"), "--writers", "6",
+                     "--tm-backend", tm_backend]
+    fed_train.main(flags + ["--rounds", "1", "--ckpt-dir", str(tmp_path),
+                            "--ckpt-every", "1"])
+    out = fed_serve.main(flags + ["--ckpt-dir", str(tmp_path), "--batch",
+                                  "8", "--requests", "2",
+                                  "--verify-offline"])
+    text = capsys.readouterr().out
+    assert "writer-natural" in text
+    assert "offline parity: OK (4 clients" in text
+    assert out["verified_clients"] == 4 and out["mismatches"] == 0
+    with pytest.raises(SystemExit):
+        fed_serve.main(flags[:-1] + ["cuda", "--ckpt-dir", str(tmp_path)])
+
+
 def test_port_plane_serves_a_jax_fedtm_checkpoint_as_the_jax_plane(
         tmp_path, fields, jdata):
     """A JAX-trained FedTM population, published into both packages'

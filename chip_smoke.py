@@ -96,7 +96,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the global plan, the fused votes twice a round at 62 classes), its
    round lines, round times and peak device memory; the checkpoint
    served with ``fed_serve --writers 25 --verify-offline`` (0
-   mismatches);
+   mismatches); then path (H), the mmap client store (``path_h``): (H1)
+   TPFL on int8 + sparse and FedTM on float32, both on 10 of 20 clients
+   with dropout 0.1, and async TPFL at path (F)'s settings, each 2
+   rounds at the training path's width, resident and over the store
+   (chunked population eval, chunks of 8) in process, counters zeroed
+   just before the store runs: mmap == resident bit for bit (reports but
+   the store meters, server rows, buffer lanes, the population gathered
+   back from the store) and each round's written bytes K x (row + 33);
+   (H2) ``fed_train --client-store mmap --participation 0.5`` with a
+   checkpoint a round, interrupted after round 1 and ``--resume``d,
+   equal to the uninterrupted run (state and store files), then
+   ``fed_serve --client-store mmap --verify-offline`` (0 mismatches;
+   the covering batch's personalized and fallback counts printed);
+   (H3) ``fed_train --dataset femnist --n-clients 1000 --active 20
+   --client-store mmap --store-eval sampled --sampling weighted`` over
+   path (G)'s mirror (cyclic past its 25 writers), 2 rounds: round
+   times, the ``gather`` / ``spill`` spans and the store's and the
+   stream's calls inside them, the store bytes (20 x
+   (116,733,600 + 33) written a round), the store's apparent size
+   against its ``st_blocks`` and the free space it takes (sparse files,
+   checked first with a 4 GiB truncate) and peak device memory beside
+   path (G)'s;
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
@@ -226,6 +247,16 @@ PATH_G_ARGS = PATH_G_SCENARIO + ["--rounds", "2", "--sampling", "weighted",
 PATH_G_SERVE = PATH_G_SCENARIO + [
     "--writers", str(FEMNIST_WRITERS), "--ckpt-dir", str(RUN_DIR / "ckpt_g"),
     "--batch", "32", "--requests", "8", "--verify-offline"]
+# path (H3): 1000 FEMNIST clients streamed from path (G)'s mirror (25
+# writers, cyclic past 25), 20 a round by their writers' sizes, over the
+# mmap store, the cohort evaluated
+H3_CLIENTS, H3_K, FEMNIST_LITERALS = 1000, 20, 2 * 28 * 28
+PATH_H3_ARGS = ["--dataset", "femnist", "--data-dir", str(DATA_DIR),
+                "--n-clients", str(H3_CLIENTS), "--active", str(H3_K),
+                "--client-store",
+                "mmap", "--store-eval", "sampled", "--sampling", "weighted",
+                "--rounds", "2", "--clauses", str(CLAUSES), "--local-epochs",
+                "2", "--device", "cuda"]
 # the small async FLIS-DC federation held GPU == CPU
 SMALL_F = dict(participation=0.75, dropout=0.25, straggler=0.5,
                max_staleness=2)
@@ -1020,7 +1051,279 @@ def path_g(dev):
         clauses=CLAUSES, device=dev)
     return dict(state=state, data=data, cfg=cfg, strategy=strategy,
                 epoch=cap1.args, votes=cap2.args, launches=launches,
-                plans=plans)
+                plans=plans, peak=peak)
+
+
+def _sparse_bytes(root: Path) -> tuple[int, int]:
+    """(apparent, allocated) bytes of the files under ``root``: their
+    sizes and their allocated blocks (``st_blocks`` x 512)."""
+    st = [p.stat() for p in root.iterdir() if p.is_file()]
+    return sum(s.st_size for s in st), sum(s.st_blocks * 512 for s in st)
+
+
+def path_h(dev, g_peak: int):
+    """Path (H), the mmap client store on the card.  (H1) in process at
+    the training path's width, three configurations each run resident
+    and over the store (``store_eval="full"``, chunks of 8), launch
+    counters zeroed just before the store runs: every report field but
+    the store meters, the server rows, the buffer's lanes and the
+    population gathered back from the store equal the resident run's
+    bit for bit, and each round writes K x (row + 33) bytes.  (H2) the
+    CLI: ``fed_train --client-store mmap`` with a checkpoint a round,
+    interrupted after round 1 and resumed, equal to the uninterrupted
+    run (state and store files), then ``fed_serve --client-store mmap
+    --verify-offline`` (0 mismatches, personalized and fallback rows in
+    the covering batch).  (H3) FEMNIST streamed: ``fed_train --n-clients
+    1000 --active 20 --client-store mmap --store-eval sampled`` over
+    path (G)'s mirror: round times, the ``gather`` / ``spill`` spans
+    and the store's and the stream's calls inside them, the store bytes, the store's apparent and allocated sizes and peak
+    device memory beside path (G)'s ``g_peak`` (20 resident clients)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch import random as rnd
+    from repro_torch.fl import obs
+    from repro_torch.fl.runtime import (CodecConfig, Engine, RuntimeConfig,
+                                        SchedulerConfig)
+    from repro_torch.fl.store import StreamingClientData, client_store
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fed_serve, fed_train
+
+    def zero_launches():
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+
+    def bits(a):
+        a = convert.to_numpy(a) if isinstance(a, torch.Tensor) \
+            else np.asarray(a)
+        return a.view(np.int32) if a.dtype == np.float32 else a
+
+    def same(a, b) -> bool:
+        a, b = bits(a), bits(b)
+        return a.shape == b.shape and a.dtype == b.dtype \
+            and np.array_equal(a, b)
+
+    fields = ("assignment", "cluster_counts", "per_client_accuracy",
+              "mean_accuracy")
+    counts = ("upload_bytes", "download_bytes_broadcast",
+              "download_bytes_per_client", "aggregated_uploads",
+              "buffered_uploads", "evicted_uploads")
+
+    # (H1) mmap == resident on the card, in process
+    data, _, _, tpfl = fed_train.build_scenario(
+        dataset=DATASET, data_dir=str(DATA_DIR), clients=CLIENTS,
+        clauses=CLAUSES, device=dev)
+    _, _, _, fedtm = fed_train.build_scenario(
+        dataset=DATASET, data_dir=str(DATA_DIR), clients=CLIENTS,
+        clauses=CLAUSES, strategy="fedtm", device=dev)
+    cohort = dict(participation=0.5, dropout=0.1)
+    configs = {
+        "tpfl_int8_sparse": (tpfl, dict(
+            scheduler=SchedulerConfig(**cohort),
+            codec=CodecConfig("int8", sparse=True))),
+        "fedtm_f32": (fedtm, dict(scheduler=SchedulerConfig(**cohort))),
+        "async_tpfl": (tpfl, dict(scheduler=SchedulerConfig(**PATH_F_SCHED),
+                                  **PATH_F)),
+    }
+    launches_h1 = {}
+    for name, (strat, kw) in configs.items():
+        root = RUN_DIR / f"store_h1_{name}"
+        shutil.rmtree(root, ignore_errors=True)
+        runs = {}
+        for store in ("resident", "mmap"):
+            cfg = RuntimeConfig(rounds=2, client_store=store,
+                                store_dir=str(root), store_eval="full",
+                                store_eval_chunk=8, **kw)
+            eng = Engine(strat, data, cfg)
+            if store == "mmap":
+                zero_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, reps = eng.run(rnd.PRNGKey(3, dev))
+            torch.cuda.synchronize()
+            runs[store] = (eng, state, reps, time.perf_counter() - t)
+        launches_h1[name] = dict(ops.LAUNCHES)
+        (_, rstate, rreps, rwall), (eng, state, reps, wall) = \
+            runs["resident"], runs["mmap"]
+        pop = eng.store.gather(np.arange(CLIENTS))
+        ok = all(same(getattr(a, f), getattr(b, f))
+                 for a, b in zip(rreps, reps) for f in fields)
+        ok &= all(getattr(a, f) == getattr(b, f)
+                  for a, b in zip(rreps, reps) for f in counts)
+        ok &= all(same(a, b) for a, b in zip(
+            [rstate.server.slots, *rstate[3:9]],
+            [state.server.slots, *state[3:9]]))
+        ok &= all(same(a, b) for a, b in zip(
+            client_store.flatten(rstate.client_state)[0],
+            client_store.flatten(pop["cs"])[0]))
+        if "ref_vecs" in pop:
+            ok &= same(rstate.ref_vecs, pop["ref_vecs"]) \
+                and same(rstate.ref_round, pop["ref_round"])
+        row = eng.store.row_nbytes
+        written = [r.store_written_bytes for r in reps]
+        want = [int(r.participation.idx.numel()) * (row + 33) for r in reps]
+        on_card = all(a.device.type == torch.device(dev).type for a in [
+            state.server.slots, *client_store.flatten(state.client_state)[0]])
+        print(f"path (H1) {name}: mmap == resident {ok}; wall resident "
+              f"{rwall:.3f} s, mmap {wall:.3f} s; store read "
+              f"{[r.store_read_bytes for r in reps]} B, written {written} B "
+              f"(K x (row {row} + 33) = {want}); launches "
+              f"{launches_h1[name]}", flush=True)
+        votes = 3 + (0 if name == "fedtm_f32" else 1)     # 3 eval chunks
+        if not ok or written != want or not on_card \
+                or launches_h1[name]["train_epoch_fused"] != 2 * 2 \
+                or launches_h1[name]["fused_votes_batched"] != 2 * votes:
+            raise SystemExit(f"path (H1) {name}: the mmap engine is not the "
+                             f"resident engine on the card")
+        del runs, pop
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (H2) the CLI: train over the store, interrupt and resume, serve
+    def flags(tag, rounds, *extra):
+        return SCENARIO + ["--client-store", "mmap", "--participation",
+                           "0.5", "--rounds", str(rounds), "--store-dir",
+                           str(RUN_DIR / f"store_h2{tag}"), "--ckpt-dir",
+                           str(RUN_DIR / f"ckpt_h2{tag}"), "--ckpt-every",
+                           "1", *extra]
+
+    for tag in ("", "_resumed"):
+        shutil.rmtree(RUN_DIR / f"store_h2{tag}", ignore_errors=True)
+        shutil.rmtree(RUN_DIR / f"ckpt_h2{tag}", ignore_errors=True)
+    t = time.perf_counter()
+    full = fed_train.main(flags("", 2))
+    fed_train.main(flags("_resumed", 1))
+    resumed = fed_train.main(flags("_resumed", 2, "--resume"))
+    torch.cuda.synchronize()
+    a, b = full["state"], resumed["state"]
+    files = [p.name for p in sorted((RUN_DIR / "store_h2").iterdir())]
+    same_files = all(
+        (RUN_DIR / "store_h2" / f).read_bytes()
+        == (RUN_DIR / "store_h2_resumed" / f).read_bytes() for f in files)
+    same_state = all(same(x, y) for x, y in zip(
+        [a.round_idx, a.server.slots], [b.round_idx, b.server.slots])) \
+        and resumed["acc_per_round"] == full["acc_per_round"][1:]
+    print(f"path (H2) train, interrupt, resume: "
+          f"{time.perf_counter() - t:.2f}s wall; resumed == uninterrupted: "
+          f"state {same_state}, store files {same_files} ({len(files)} "
+          f"files); store bytes read {full['store_read_bytes']} written "
+          f"{full['store_written_bytes']}", flush=True)
+    if not (same_state and same_files):
+        raise SystemExit("path (H2): the resumed mmap run is not the "
+                         "uninterrupted run")
+    tel = RUN_DIR / "telemetry_h2"
+    shutil.rmtree(tel, ignore_errors=True)
+    zero_launches()
+    t = time.perf_counter()
+    served = fed_serve.main(SCENARIO + [
+        "--client-store", "mmap", "--store-dir", str(RUN_DIR / "store_h2"),
+        "--ckpt-dir", str(RUN_DIR / "ckpt_h2"), "--batch", "32",
+        "--requests", "8", "--verify-offline", "--telemetry-dir", str(tel)])
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t
+    last = json.loads((tel / "serve_events.jsonl").read_text()
+                      .splitlines()[-1])
+    print(f"path (H2) serving from the store: {serve_wall:.2f}s wall, "
+          f"{served['requests_per_s']:.1f} req/s, p50="
+          f"{served['p50_s'] * 1e6:.0f}us p99={served['p99_s'] * 1e6:.0f}us; "
+          f"mismatches {served['mismatches']} of "
+          f"{served['verified_clients']}; covering batch personalized "
+          f"{last['personalized']}, fallback {last['fallback']}; launches "
+          f"{dict(ops.LAUNCHES)}", flush=True)
+    if served["mismatches"] != 0 or served["verified_clients"] != CLIENTS \
+            or last["batch"] != CLIENTS or not last["personalized"] \
+            or not last["fallback"]:
+        raise SystemExit(f"path (H2) serving failed: {last}")
+    for tag in ("", "_resumed"):
+        shutil.rmtree(RUN_DIR / f"store_h2{tag}", ignore_errors=True)
+
+    # (H3) FEMNIST streamed over path (G)'s mirror, 1000 clients; the
+    # store is 116.7 GB apparent, so first make sure files here are sparse
+    store = RUN_DIR / "store_h3"
+    tel = RUN_DIR / "telemetry_h3"
+    shutil.rmtree(store, ignore_errors=True)
+    shutil.rmtree(tel, ignore_errors=True)
+    # a file system may report st_blocks = size for a hole: the free
+    # space it loses is what a truncate really allocates
+    probe = RUN_DIR / "sparse_probe.bin"
+    free0 = shutil.disk_usage(RUN_DIR).free
+    with open(probe, "wb") as f:
+        f.truncate(4 * 2**30)
+    blocks = probe.stat().st_blocks * 512
+    taken = free0 - shutil.disk_usage(RUN_DIR).free
+    probe.unlink()
+    print(f"path (H3) a 4 GiB truncated file here: st_blocks x 512 = "
+          f"{blocks} B, free space taken {taken} B, "
+          f"{free0} B free", flush=True)
+    if taken >= 2**30:
+        raise SystemExit("path (H3): a truncate allocates its bytes here; "
+                         "the store's files would not be sparse")
+    free0 = shutil.disk_usage(RUN_DIR).free
+    # synced host clocks around the round and, inside its gather and
+    # spill spans, the store's and the stream's calls: where the host
+    # I/O goes
+    clocks = {}
+    clocked = [(Engine, "run_round", "round"),
+               (client_store.ClientStore, "gather", "store.gather"),
+               (client_store.ClientStore, "spill", "store.spill"),
+               (StreamingClientData, "gather_clients", "stream.gather")]
+    originals = [getattr(owner, attr) for owner, attr, _ in clocked]
+
+    def clock(fn, label):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            clocks.setdefault(label, []).append(time.perf_counter() - t)
+            return out
+        return timed
+
+    for (owner, attr, label), fn in zip(clocked, originals):
+        setattr(owner, attr, clock(fn, label))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t = time.perf_counter()
+    try:
+        out = fed_train.main(PATH_H3_ARGS + ["--store-dir", str(store),
+                                             "--telemetry-dir", str(tel)])
+        torch.cuda.synchronize()
+    finally:
+        for (owner, attr, _), fn in zip(clocked, originals):
+            setattr(owner, attr, fn)
+    wall = time.perf_counter() - t
+    rounds = clocks["round"]
+    launches_h3 = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    apparent, allocated = _sparse_bytes(store)
+    taken = free0 - shutil.disk_usage(RUN_DIR).free
+    events = obs.read_events(tel / "events.jsonl")
+    reps = out["reports"]
+    print(f"path (H3) FEMNIST streamed, {H3_CLIENTS} clients, K = {H3_K}: "
+          f"{wall:.2f}s "
+          f"wall for 2 rounds (rounds {[round(x, 4) for x in rounds]} s), "
+          f"peak device memory {peak / 2**30:.2f} GiB (path G, {CLIENTS} "
+          f"resident clients: {g_peak / 2**30:.2f} GiB); store read "
+          f"{[r.store_read_bytes for r in reps]} B, written "
+          f"{[r.store_written_bytes for r in reps]} B; store files "
+          f"{apparent} B apparent, {allocated} B in st_blocks, {taken} B "
+          f"of free space taken; launches "
+          f"{launches_h3}", flush=True)
+    for e in events:
+        print(f"path (H3) round {e['round']} spans (ms): " + ", ".join(
+            f"{k} {v * 1e3:.3f}" for k, v in e["phases"].items()),
+            flush=True)
+    print("path (H3) calls inside the spans, a round (ms): " + ", ".join(
+        f"{k} {[round(v * 1e3, 3) for v in clocks[k]]}" for k in
+        ("store.gather", "store.spill", "stream.gather")), flush=True)
+    row = 62 * CLAUSES * FEMNIST_LITERALS * 4 + 62 * CLAUSES * 4
+    if [r.store_written_bytes for r in reps] != [H3_K * (row + 33)] * 2 \
+            or apparent < H3_CLIENTS * row or taken >= apparent // 10 \
+            or launches_h3["train_epoch_fused"] != 2 * 2 \
+            or launches_h3["fused_votes_batched"] != 2 * 2 \
+            or any(r.per_client_accuracy.shape != (H3_K,) for r in reps):
+        raise SystemExit("path (H3): unexpected store bytes, sizes or "
+                         "launches")
+    shutil.rmtree(store, ignore_errors=True)
 
 
 def main() -> int:
@@ -1502,6 +1805,10 @@ def main() -> int:
 
     # path (G): FEMNIST at full width, 62 classes on the global plan
     g = path_g(dev)
+
+    # path (H): the mmap client store, in process, through the CLIs, and
+    # 1000 FEMNIST clients streamed
+    path_h(dev, g["peak"])
 
     # 9. small runs on the card against the same on the CPU: the
     # unit-weight federation, and a checkpoint and its serving

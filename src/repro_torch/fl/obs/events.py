@@ -15,8 +15,8 @@ math:
 * ``bytes``: codec-metered wire traffic by direction;
 * ``async``: aggregated / still-buffered / evicted uploads (sync: the
   last two are 0);
-* ``store``: the mmap client store's host I/O (0: the port's store is
-  resident);
+* ``store``: the mmap client store's host I/O this round (0 on the
+  resident engine);
 * ``transport``: ``None``, nothing crosses a process wire in process;
 * ``phases``: the round's phase-span wall times.
 

@@ -7,7 +7,9 @@ the sparse wire's reference lanes and the error-feedback residuals) is
 one tree, so a checkpoint is one msgpack tensor store named by the round
 it starts.  The engine keys round r with ``fold_in(k_rounds, r)`` on the
 absolute round index, so a resumed run, async or lossy, is bit-identical
-to the uninterrupted one.  A telemetry run's manifest rides along as ``manifest.json``.
+to the uninterrupted one.  A telemetry run's manifest rides along as
+``manifest.json``, an mmap run's store manifest as
+``store_manifest.json``.
 
     engine = Engine(strategy, data, cfg)
     like = engine.init(rnd.PRNGKey(0, device))      # structure template
@@ -16,6 +18,7 @@ to the uninterrupted one.  A telemetry run's manifest rides along as ``manifest.
 """
 from __future__ import annotations
 
+import json
 import pathlib
 import re
 
@@ -23,6 +26,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.fl.obs.manifest import write_manifest
 
 _PAT = re.compile(r"round_(\d+)\.msgpack$")
+STORE_MANIFEST_NAME = "store_manifest.json"
 
 
 def path_for(directory: str | pathlib.Path, round_idx: int) -> pathlib.Path:
@@ -30,14 +34,25 @@ def path_for(directory: str | pathlib.Path, round_idx: int) -> pathlib.Path:
 
 
 def save(directory: str | pathlib.Path, state,
-         manifest: dict | None = None) -> pathlib.Path:
+         manifest: dict | None = None,
+         store_manifest: dict | None = None) -> pathlib.Path:
     """Persist ``state``; the filename records the next round to run.
     ``manifest`` (the telemetry run manifest) is written beside it as
-    ``manifest.json``: provenance only, ``restore`` never reads it."""
+    ``manifest.json``: provenance only, ``restore`` never reads it.
+
+    ``store_manifest`` (the mmap engine's ``ClientStore.manifest``) is
+    written the same way as ``store_manifest.json``, the reference's
+    bytes: an mmap checkpoint is only the replicated state, the rows
+    live in the store directory, and this records the store layout the
+    checkpoint expects.  Resume is valid at the latest checkpoint only:
+    store rows advance in place past older ones."""
     path = path_for(directory, int(state.round_idx))
     ckpt.save(path, state)
     if manifest is not None:
         write_manifest(path.parent, manifest)
+    if store_manifest is not None:
+        (path.parent / STORE_MANIFEST_NAME).write_text(
+            json.dumps(store_manifest, indent=2, sort_keys=True) + "\n")
     return path
 
 

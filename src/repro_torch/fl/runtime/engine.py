@@ -8,10 +8,11 @@ hooks, every wire codec (float32, int8, int4; sparse delta with ``<u2``
 or varint+RLE indices; error feedback), the resident client population
 and the in-process executor, under any scheduler setting (partial
 participation; uniform, weighted or round-robin sampling; dropout;
-stragglers).  :class:`RuntimeConfig` therefore holds the number of
-rounds, the scheduler, the codec, the async settings, the TM route's
-name and the checkpoint cadence; the reference's other runtime settings
-(the shard-mapped backend, the mmap client store, transports) come with
+stragglers), over a resident population or the mmap client store.
+:class:`RuntimeConfig` therefore holds the number of rounds, the
+scheduler, the codec, the async settings, the TM route's name, the
+checkpoint cadence and the client store's settings; the reference's
+other runtime settings (the shard-mapped backend, transports) come with
 later slices (ROADMAP.md, queue A) and are refused, as unknown fields.
 ``tm_backend`` takes the reference's two names, ``"ref"`` and
 ``"pallas"``, which the reference pins bit-identical; both name the
@@ -57,6 +58,22 @@ each stage in a telemetry span of the reference's name:
 9. ``eval``: the cohort is scattered back and every client of the
    population is evaluated (one fused-votes launch for the TM).
 
+The mmap client store (``client_store="mmap"``, :mod:`repro_torch.fl.
+store`): the population's rows (client state and, on the sparse wire,
+the broadcast references) live in sparse files on the host, and the
+engine state carries zero-row placeholders for them.  ``gather`` reads
+the K sampled rows (digest-verified; a never-spilled row is regenerated
+by the strategy's ``init_cohort``, bit for bit its row of the full
+init) onto the engine's device; the round runs on them as on a resident
+cohort, never through the in-order shortcut; a ``spill`` span after
+``ref_track`` writes the merged rows and advanced references back; and
+``eval`` re-gathers the population in ``store_eval_chunk`` blocks
+(``store_eval="full"``, the resident report bit for bit) or evaluates
+the cohort alone (``"sampled"``: the report's accuracy and assignment
+then cover the K clients).  A :class:`~repro_torch.fl.store.
+StreamingClientData` population (``fed_train --n-clients``) streams
+each cohort's data from its LEAF shards; it needs the store.
+
 Async buffered mode (``aggregation="async"``): no barrier.  Every
 upload of a surviving client arrives, stragglers too, and lands in a
 fixed-capacity buffer, six lanes of :class:`EngineState` (so
@@ -94,6 +111,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import tempfile
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -106,14 +124,19 @@ from repro_torch.fl import masked_collectives
 from repro_torch.fl.obs.recorder import NULL as NULL_TELEMETRY
 from repro_torch.fl.runtime import checkpointing
 from repro_torch.fl.runtime.codec import CodecConfig, decode, ef_encode, encode
+from repro_torch.fl.runtime import executors
 from repro_torch.fl.runtime.executors import InProcessExecutor, applied_slots
 from repro_torch.fl.runtime.scheduler import (Participation, Scheduler,
                                               SchedulerConfig)
 from repro_torch.fl.runtime.strategy import (DOWNLOADS, ServerState,
                                              resolve_server_update)
+from repro_torch.fl.store import client_store
+from repro_torch.fl.store.client_store import ClientStore
 
 # the reference's TM route names; the port runs one route for both
 TM_BACKENDS = ("ref", "pallas")
+CLIENT_STORES = ("resident", "mmap")
+STORE_EVALS = ("full", "sampled")
 
 # the cohort hooks the engine calls on every strategy
 _HOOKS = ("init", "fused_client_step", "apply_broadcast", "fused_evaluate")
@@ -132,10 +155,30 @@ class RuntimeConfig:
     tm_backend: str = "ref"           # the reference's names, one route here
     checkpoint_dir: str | None = None
     checkpoint_every: int = 0         # 0 = never
+    # the K-active working set: "mmap" keeps the client rows (params, TA
+    # state, sparse-codec references) in a host ClientStore (the
+    # reference's memory-mapped store, its files byte for byte) and only
+    # the scheduler's K sampled rows ever reach the device
+    client_store: str = "resident"    # resident | mmap
+    store_dir: str | None = None      # mmap store root (None = fresh temp)
+    store_eval: str = "full"          # full (chunked population) | sampled
+    store_eval_chunk: int = 256       # clients per chunked-eval gather
 
     def __post_init__(self):
         if self.aggregation not in ("sync", "async"):
             raise ValueError(f"unknown aggregation {self.aggregation!r}")
+        if self.codec.error_feedback and self.client_store != "resident":
+            raise ValueError(
+                "codec.error_feedback keeps per-(client, slot) residual "
+                "memory in EngineState — available with "
+                "client_store='resident' only (the mmap store does not "
+                "carry the residual lane)")
+        if self.client_store not in CLIENT_STORES:
+            raise ValueError(f"unknown client_store {self.client_store!r}")
+        if self.store_eval not in STORE_EVALS:
+            raise ValueError(f"unknown store_eval {self.store_eval!r}")
+        if self.store_eval_chunk < 1:
+            raise ValueError("store_eval_chunk must be >= 1")
         if self.async_buffer not in ("device", "host"):
             raise ValueError(f"unknown async_buffer {self.async_buffer!r}")
         if self.tm_backend not in TM_BACKENDS:
@@ -155,7 +198,9 @@ class EngineState(NamedTuple):
     buf_seq: torch.Tensor       # (cap,) int32       insertion order
     # per-client broadcast references of the sparse-delta wire: the
     # server rows each client last received (zeros = never synced) and
-    # the round it received them (−1 = never); zero-size when dense
+    # the round it received them (−1 = never); zero-size when dense and
+    # under the mmap store (which holds them; client_state is a zero-row
+    # placeholder there too)
     ref_vecs: torch.Tensor      # (n, n_slots, d) float32, or (0, 0, 0)
     ref_round: torch.Tensor     # (n,) int32, or (0,)
     # error-feedback residuals: the quantization error each client's
@@ -176,6 +221,8 @@ class RoundReport(NamedTuple):
     aggregated_uploads: int             # uploads folded into the server
     buffered_uploads: int               # async: still waiting in the buffer
     evicted_uploads: int                # async: lost to buffer overflow
+    store_read_bytes: int = 0           # mmap store host reads this round
+    store_written_bytes: int = 0        # mmap store host writes this round
 
 
 class Engine:
@@ -208,8 +255,19 @@ class Engine:
             or getattr(strategy, "server_update", None) is not None)
         self.data = data
         self.cfg = cfg
-        self.n = int(data.x_train.shape[0])
-        self.device = data.x_train.device
+        # a streaming population knows its size and device without
+        # materializing anything; ClientData carries both in its arrays
+        self._streaming = hasattr(data, "gather_clients")
+        self._mmap = cfg.client_store == "mmap"
+        self.store: ClientStore | None = None
+        if self._streaming and not self._mmap:
+            raise ValueError(
+                "streaming client data has no materialized population "
+                "for the resident engine to index — run it with "
+                "RuntimeConfig(client_store='mmap')")
+        self.n = int(data.n_clients if self._streaming
+                     else data.x_train.shape[0])
+        self.device = data.device if self._streaming else data.x_train.device
         # weighted sampling weighs clients by the partitioner's pool
         # shares: clients holding more data are sampled more often
         self.scheduler = Scheduler(cfg.scheduler, self.n, data.sizes)
@@ -232,13 +290,17 @@ class Engine:
         self._tx_cache = None
 
     def init(self, key: torch.Tensor) -> EngineState:
-        # FLIS draws its probe set from the clients' confidence split
-        cs, server = self.strategy.init(key.to(self.device), self.n,
-                                        self.data)
+        key = key.to(self.device)
+        if self._mmap:
+            cs, server = self._init_mmap(key)
+        else:
+            # FLIS draws its probe set from the clients' confidence split
+            cs, server = self.strategy.init(key, self.n, self.data)
         shape = (self.n, self.strategy.n_slots, self.strategy.vec_dim)
         f32 = dict(dtype=torch.float32, device=self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
         codec = self.cfg.codec
+        sparse = codec.sparse and not self._mmap   # else in the store
         cap, d = self.cfg.buffer_capacity, self.strategy.vec_dim
         return EngineState(
             round_idx=torch.zeros((), **i32), client_state=cs, server=server,
@@ -249,11 +311,68 @@ class Engine:
             buf_valid=torch.zeros((cap,), dtype=torch.bool,
                                   device=self.device),
             buf_seq=torch.zeros((cap,), **i32),
-            ref_vecs=torch.zeros(shape if codec.sparse else (0, 0, 0), **f32),
-            ref_round=(torch.full((self.n,), -1, **i32) if codec.sparse
+            ref_vecs=torch.zeros(shape if sparse else (0, 0, 0), **f32),
+            ref_round=(torch.full((self.n,), -1, **i32) if sparse
                        else torch.zeros((0,), **i32)),
             ef_residual=torch.zeros(
                 shape if codec.error_feedback else (0, 0, 0), **f32))
+
+    def _init_mmap(self, key: torch.Tensor):
+        """Open the client store under ``cfg.store_dir`` (a fresh
+        temporary directory without one) and return the O(K) state's
+        client part, zero-row placeholders, and the server.
+
+        Strategies with the O(K) init hooks (``init_cohort(key, ids, n)
+        == init(key, n)[0][ids]`` bit for bit, and ``init_server``)
+        never draw the population: the store regenerates each cohort's
+        unwritten rows on the device and copies them to the host.  The
+        others fall back to one full ``init`` whose rows are served by
+        index from host memory: O(N) host memory once, still O(K) on the
+        device."""
+        strat = self.strategy
+        cohort = getattr(strat, "init_cohort", None)
+        init_server = getattr(strat, "init_server", None)
+        if cohort is not None and init_server is not None:
+            server = init_server(key, self.n)
+
+            def cs_init(ids):
+                return cohort(key, ids, self.n)
+        else:
+            cs, server = strat.init(key, self.n, self.data)
+            rows = client_store.tree_map(client_store.to_host, cs)
+
+            def cs_init(ids):
+                return client_store.tree_map(lambda a: a[ids], rows)
+
+        row = client_store.tree_map(lambda a: client_store.to_host(a)[0],
+                                    cs_init(np.zeros((1,), np.int64)))
+        n_slots, d = strat.n_slots, strat.vec_dim
+        sparse = self.cfg.codec.sparse
+        template = {"cs": row}
+        if sparse:
+            # a never-synced client's reference: zeros, round −1, as in
+            # the resident init
+            template["ref_vecs"] = np.zeros((n_slots, d), np.float32)
+            template["ref_round"] = np.asarray(-1, np.int32)
+
+        def init_fn(ids):
+            out = {"cs": cs_init(ids)}
+            if sparse:
+                out["ref_vecs"] = np.zeros((ids.size, n_slots, d),
+                                           np.float32)
+                out["ref_round"] = np.full((ids.size,), -1, np.int32)
+            return out
+
+        root = self.cfg.store_dir or tempfile.mkdtemp(
+            prefix="client_store_")
+        self.store = ClientStore(root, self.n, template, init_fn=init_fn)
+        placeholder = client_store.tree_map(
+            lambda a: self._on_device(np.zeros((0,) + a.shape, a.dtype)),
+            row)
+        return placeholder, server
+
+    def _on_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
 
     def run(self, key: torch.Tensor, state: EngineState | None = None,
             rounds: int | None = None
@@ -265,6 +384,13 @@ class Engine:
         k_init, k_rounds = rnd.split(key.to(self.device)).unbind(0)
         if state is None:
             state = self.init(k_init)
+        elif self._mmap:
+            # resuming over an existing store: reopen it keyed by THIS
+            # run's k_init, so rows never sampled before the checkpoint
+            # fault in as the uninterrupted run would have drawn them
+            # (the state a caller built to restore into may have used
+            # another key)
+            self.init(k_init)
         reports = []
         start = int(state.round_idx)
         n_rounds = self.cfg.rounds if rounds is None else rounds
@@ -276,8 +402,16 @@ class Engine:
             reports.append(rep)
             every = self.cfg.checkpoint_every
             if self.cfg.checkpoint_dir and every and (r + 1) % every == 0:
-                checkpointing.save(self.cfg.checkpoint_dir, state,
-                                   manifest=self.obs.manifest)
+                if self._mmap:
+                    # the checkpoint is the replicated state only; the
+                    # rows are the store, flushed beside it so the two
+                    # resume together
+                    self.store.flush()
+                checkpointing.save(
+                    self.cfg.checkpoint_dir, state,
+                    manifest=self.obs.manifest,
+                    store_manifest=(self.store.manifest if self._mmap
+                                    else None))
         return state, reports
 
     def run_round(self, state: EngineState, round_key: torch.Tensor
@@ -285,13 +419,18 @@ class Engine:
         obs = self.obs            # telemetry spans/fences — no-ops when off
         r = int(state.round_idx)
         sync = self.cfg.aggregation == "sync"
+        store = self.store
+        if self._mmap:
+            io0 = (store.io_read_bytes, store.io_written_bytes)
         with obs.span("schedule"):
             part = self.scheduler.sample(r, round_key)
             # a sync barrier drops late uploads; async buffers them
             arrive = part.active & (part.staleness == 0) if sync \
                 else part.active
-        # the cohort is the population in order: nothing is gathered
-        in_order = self.scheduler.full_in_order
+        # the cohort is the population in order: nothing is gathered (the
+        # mmap store always stages its rows through gather and spill)
+        in_order = self.scheduler.full_in_order and not self._mmap
+        sub_refs = None
         with obs.span("gather"):
             keys = rnd.split(round_key, self.n)
             if in_order:
@@ -299,8 +438,20 @@ class Engine:
             else:
                 idx = part.idx.long()
                 keys = keys[idx]
-                sub_cs = tree.map(lambda a: a[idx], state.client_state)
-                sub_data = tree.map(lambda a: a[idx], self.data)
+                if self._mmap:
+                    # the K sampled rows off the host store, onto the
+                    # engine's device; the same per-client keys
+                    np_ids = part.idx.cpu().numpy()
+                    bundle = client_store.tree_map(self._on_device,
+                                                   store.gather(np_ids))
+                    sub_cs = bundle["cs"]
+                    if self.cfg.codec.sparse:
+                        sub_refs = (bundle["ref_vecs"], bundle["ref_round"])
+                else:
+                    sub_cs = tree.map(lambda a: a[idx], state.client_state)
+                sub_data = (self.data.gather_clients(np_ids)
+                            if self._streaming
+                            else tree.map(lambda a: a[idx], self.data))
             obs.fence(keys)
         # local work starts from the rows a client holds after the
         # (possibly lossy) broadcast, not the server's own precision
@@ -312,7 +463,8 @@ class Engine:
                 self.strategy, sub_cs, tx_server, sub_data, keys)
             obs.fence(new_sub, vecs, slots)
         with obs.span("uplink_codec"):
-            dec, up_bytes, ef = self._wire_uplink(state, vecs, slots, part)
+            dec, up_bytes, ef = self._wire_uplink(state, vecs, slots, part,
+                                                  sub_refs)
             obs.fence(dec)
         if self._assign is not None and sync:
             # metering and the sparse references used the tags that
@@ -355,32 +507,89 @@ class Engine:
                 None if self.scheduler.all_arrive else arrive)
             obs.fence(merged)
         with obs.span("ref_track"):
-            refs = self._update_refs(state, part, arrive, applied,
-                                     rx_server, r)
+            if sub_refs is not None:
+                sub_refs = self._advance_ref_rows(
+                    sub_refs[0].cpu().numpy().copy(),
+                    sub_refs[1].cpu().numpy().copy(),
+                    arrive.cpu().numpy(), applied.cpu().numpy(),
+                    rx_server.cpu().numpy(), r, self._downloads)
+            refs = (state.ref_vecs, state.ref_round) if self._mmap else \
+                self._update_refs(state, part, arrive, applied, rx_server, r)
             obs.fence(refs)
+        if self._mmap:
+            # the merged rows and their advanced references back to the
+            # host store: the round keeps no per-client device state
+            with obs.span("spill"):
+                bundle = {"cs": merged}
+                if sub_refs is not None:
+                    bundle["ref_vecs"], bundle["ref_round"] = sub_refs
+                store.spill(np_ids, bundle)
         with obs.span("eval"):
-            if in_order:
-                cs, assignment = merged, applied
+            if self._mmap:
+                cs = state.client_state        # the rows live in the store
+                acc, assignment = self._store_eval(idx, merged, applied,
+                                                   sub_data)
             else:
-                cs = tree.map(lambda a, m: a.index_put((idx,), m),
-                              state.client_state, merged)
-                assignment = torch.full(
-                    (self.n, applied.shape[1]), -1, dtype=torch.int32,
-                    device=self.device).index_put((idx,), applied)
-            acc = self.executor.evaluate(self.strategy, cs,
-                                         self.data.x_test, self.data.y_test)
+                if in_order:
+                    cs, assignment = merged, applied
+                else:
+                    cs = tree.map(lambda a, m: a.index_put((idx,), m),
+                                  state.client_state, merged)
+                    assignment = self._scatter_assignment(idx, applied)
+                acc = self.executor.evaluate(self.strategy, cs,
+                                             self.data.x_test,
+                                             self.data.y_test)
             obs.fence(acc)
+        store_io = ((store.io_read_bytes - io0[0],
+                     store.io_written_bytes - io0[1]) if self._mmap
+                    else (0, 0))
         rep = RoundReport(
             round_idx=r, mean_accuracy=acc.mean(), per_client_accuracy=acc,
             assignment=assignment, cluster_counts=counts,
             participation=part, upload_bytes=up_bytes,
             download_bytes_broadcast=down_bc,
             download_bytes_per_client=down_pc, aggregated_uploads=n_agg,
-            buffered_uploads=n_buf, evicted_uploads=n_evict)
+            buffered_uploads=n_buf, evicted_uploads=n_evict,
+            store_read_bytes=store_io[0], store_written_bytes=store_io[1])
         new_state = EngineState(
             state.round_idx + 1, cs, server, *buf,
             ref_vecs=refs[0], ref_round=refs[1], ef_residual=ef)
         return new_state, rep
+
+    def _scatter_assignment(self, idx, applied):
+        """The population's (N, j) assignment: the cohort's applied
+        slots at its ids, −1 elsewhere."""
+        return torch.full((self.n, applied.shape[1]), -1, dtype=torch.int32,
+                          device=self.device).index_put((idx,), applied)
+
+    def _store_eval(self, idx, merged, applied, sub_data):
+        """The mmap counterpart of the resident eval: ``(acc,
+        assignment)``.  ``store_eval="full"`` re-gathers the whole
+        population in ``store_eval_chunk`` blocks (the round has spilled
+        its rows already) and evaluates each, the resident report bit
+        for bit; ``"sampled"`` (the simulated-scale setting) evaluates
+        the K merged rows only, and the accuracy and assignment cover
+        the cohort."""
+        if self.cfg.store_eval == "sampled":
+            acc = self.executor.evaluate(self.strategy, merged,
+                                         sub_data.x_test, sub_data.y_test)
+            return acc, applied
+
+        def gather_cs(ids):
+            return client_store.tree_map(self._on_device,
+                                         self.store.gather(ids)["cs"])
+
+        def gather_xy(ids):
+            if self._streaming:
+                d = self.data.gather_clients(ids)
+                return d.x_test, d.y_test
+            j = torch.as_tensor(ids, device=self.device)
+            return self.data.x_test[j], self.data.y_test[j]
+
+        acc = executors.evaluate_population(
+            self.executor, self.strategy, gather_cs, gather_xy, self.n,
+            self.cfg.store_eval_chunk)
+        return acc, self._scatter_assignment(idx, applied)
 
     # -- the async buffer ----------------------------------------------------
 
@@ -511,14 +720,15 @@ class Engine:
         return self.cfg.codec.name == "float32" and not self.cfg.codec.sparse
 
     def _wire_uplink(self, state: EngineState, vecs, slots,
-                     part: Participation):
+                     part: Participation, sub_refs=None):
         """Encode every upload of a surviving client to a real frame,
         meter it (slot id <i4 + frame) and decode what the aggregator
         sees; returns ``(decoded, bytes, ef_residual)``.  A dropped
         client and slot −1 send nothing; a straggler's frame was sent,
         so it is metered and its residual advances.  Sparse deltas are
         encoded against the client's tracked reference row; only the K
-        sampled reference and residual rows leave the device."""
+        sampled reference and residual rows leave the device (the mmap
+        engine hands its store-gathered rows in as ``sub_refs``)."""
         cfg = self.cfg.codec
         np_slots = slots.cpu().numpy()
         active = part.active.cpu().numpy()
@@ -528,8 +738,12 @@ class Engine:
                     state.ef_residual)
         idx = part.idx.long()
         np_vecs = np.asarray(vecs.detach().cpu().numpy(), np.float32)
-        np_refs = (state.ref_vecs[idx].cpu().numpy() if cfg.sparse
-                   else None)
+        if not cfg.sparse:
+            np_refs = None
+        elif sub_refs is not None:
+            np_refs = sub_refs[0].cpu().numpy()
+        else:
+            np_refs = state.ref_vecs[idx].cpu().numpy()
         sub_ef = (np.array(state.ef_residual[idx].cpu().numpy())
                   if cfg.error_feedback else None)
         dec = np.zeros_like(np_vecs)

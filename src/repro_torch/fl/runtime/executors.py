@@ -18,6 +18,7 @@ staleness weight / validity / insertion order (cap,).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import tree
@@ -34,6 +35,25 @@ def applied_slots(slots: torch.Tensor, counts: torch.Tensor,
     slot row must not overwrite fresh local training)."""
     fed = counts[slots.clamp(min=0).long()] > 0
     return torch.where(arrive[:, None] & (slots >= 0) & fed, slots, -1)
+
+
+def evaluate_population(executor, strategy, gather_cs, gather_data,
+                        n: int, chunk: int) -> torch.Tensor:
+    """Every client's accuracy over a host-side client store, in chunks
+    of ``chunk`` clients: the mmap engine's ``store_eval="full"``.
+
+    ``gather_cs(ids)`` / ``gather_data(ids) -> (x_test, y_test)`` bring
+    each chunk's rows to the device (store gather, streaming ingestion),
+    so only ``chunk`` clients are resident at a time.  A client's
+    accuracy depends on its own row and data alone, so the concatenated
+    vector equals one evaluation of the whole population."""
+    accs = []
+    for c0 in range(0, n, chunk):
+        ids = np.arange(c0, min(c0 + chunk, n), dtype=np.int64)
+        cs = gather_cs(ids)
+        x, y = gather_data(ids)
+        accs.append(executor.evaluate(strategy, cs, x, y))
+    return torch.cat(accs)
 
 
 class InProcessExecutor:

@@ -65,6 +65,14 @@ def resolve_server_update(strategy):
     return getattr(strategy, "server_update", None) or default_server_update
 
 
+def _tm_init_cohort(cfg: tm.TMConfig, key: torch.Tensor, ids,
+                    n_clients: int) -> tm.TMParams:
+    """Rows ``ids`` of ``init_params(cfg, split(key, n_clients))``: the
+    same per-client keys, drawn for the cohort only."""
+    ids = torch.as_tensor(ids, dtype=torch.long, device=key.device)
+    return tm.init_params(cfg, rnd.split(key, n_clients)[ids])
+
+
 @dataclasses.dataclass(frozen=True)
 class TPFLStrategy:
     """Confidence-clustered selective sharing on the Tsetlin Machine."""
@@ -98,6 +106,21 @@ class TPFLStrategy:
         server = torch.zeros((self.n_slots, self.vec_dim),
                              dtype=torch.float32, device=key.device)
         return params, ServerState(server)
+
+    # -- the O(K) init hooks (client_store="mmap") -------------------------
+    # The store regenerates never-spilled rows per cohort:
+    # ``init_cohort(key, ids, n) == init(key, n)[0][ids]`` bit for bit
+    # (the same key split, indexed) and ``init_server`` is the server
+    # part alone.  Only the (n, 2) key table is O(N), and transient.
+
+    def init_cohort(self, key: torch.Tensor, ids, n_clients: int):
+        return _tm_init_cohort(self.tm_cfg, key, ids, n_clients)
+
+    def init_server(self, key: torch.Tensor, n_clients: int) -> ServerState:
+        del n_clients
+        return ServerState(torch.zeros((self.n_slots, self.vec_dim),
+                                       dtype=torch.float32,
+                                       device=key.device))
 
     def fused_client_step(self, cs: tm.TMParams, slots: torch.Tensor,
                           d: ClientData, keys: torch.Tensor):
@@ -552,6 +575,16 @@ class FedTMStrategy:
         server = torch.zeros((1, self.vec_dim), dtype=torch.float32,
                              device=key.device)
         return params, ServerState(server)
+
+    # the O(K) init hooks, TPFLStrategy's contract
+    def init_cohort(self, key: torch.Tensor, ids, n_clients: int):
+        return _tm_init_cohort(self.tm_cfg, key, ids, n_clients)
+
+    def init_server(self, key: torch.Tensor, n_clients: int) -> ServerState:
+        del n_clients
+        return ServerState(torch.zeros((1, self.vec_dim),
+                                       dtype=torch.float32,
+                                       device=key.device))
 
     def fused_client_step(self, cs: tm.TMParams, slots: torch.Tensor,
                           d: ClientData, keys: torch.Tensor):

@@ -1,17 +1,26 @@
 """The serving plane: client id → personalized model → prediction, in
 mixed-cluster batches.
 
-Counterpart of ``repro/fl/serve/plane.py`` for the resident population.
-A :class:`ServingPlane` holds exactly one *active* model version — an
-immutable :class:`ActiveModel` snapshot of (version, engine state)
-pulled from the :class:`~repro_torch.fl.serve.registry.ModelRegistry` —
-and answers batched requests over heterogeneous clients:
+Counterpart of ``repro/fl/serve/plane.py``.  A :class:`ServingPlane`
+holds exactly one *active* model version — an immutable
+:class:`ActiveModel` snapshot of (version, engine state) pulled from the
+:class:`~repro_torch.fl.serve.registry.ModelRegistry` — and answers
+batched requests over heterogeneous clients:
 
-**Resolution.**  Each requested client id resolves to its row of
-``state.client_state``, the row it is evaluated with offline: training
-folded the assigned slot row in at every broadcast, so each row already
-is the cluster-resolved personalized model.  The reference's mmap
-client store is a later slice (ROADMAP.md).
+**Resolution.**  Each requested client id resolves to the row it is
+evaluated with offline:
+
+* a resident checkpoint carries the population in
+  ``state.client_state``; training folded the assigned slot row in at
+  every broadcast, so each row already is the cluster-resolved
+  personalized model;
+* with the training run's mmap
+  :class:`~repro_torch.fl.store.ClientStore` attached, spilled rows are
+  gathered (digest-verified) onto the plane's device as the
+  personalized model, and a never-sampled client falls back to the
+  store's deterministic per-client init, the row the engine's own
+  population eval resolves for it.  Each batch's personalized /
+  fallback split goes to telemetry.
 
 **Inference.**  The whole batch — R requests against up to R distinct
 models — is one call of ``strategy.predict_batched`` (each request its
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.fl.store import client_store
 from repro_torch.fl.serve.registry import ModelRegistry, RegistryError
 from repro_torch.fl.serve.telemetry import NULL_SERVE
 
@@ -54,20 +64,20 @@ class ServingPlane:
 
     ``like`` is a fresh ``engine.init(key)`` state — the structure
     template every registry pull decodes into, and whose device the
-    plane serves on.  ``resolve_hook``, if given, runs inside ``predict``
-    right after the active snapshot is taken — a test seam for racing
-    warm swaps against in-flight requests."""
+    plane serves on.  ``store`` attaches the training run's mmap
+    ``ClientStore`` (keyed by the same ``k_init``); without it the
+    active checkpoint must carry a resident population.
+    ``resolve_hook``, if given, runs inside ``predict`` right after the
+    active snapshot is taken — a test seam for racing warm swaps
+    against in-flight requests."""
 
     def __init__(self, strategy, registry: ModelRegistry, like, *,
                  store=None, telemetry=None,
                  resolve_hook: Callable[["ServingPlane"], None] | None
                  = None):
-        if store is not None:
-            raise NotImplementedError(
-                "serving from the mmap client store is a later slice of "
-                "the port (ROADMAP.md); serve a resident population")
         self.strategy = strategy
         self.registry = registry
+        self.store = store
         self.obs = telemetry if telemetry is not None else NULL_SERVE
         self._like = like
         self._resolve_hook = resolve_hook
@@ -99,15 +109,19 @@ class ServingPlane:
 
     def _resolve_rows(self, state, uniq: np.ndarray):
         """Stacked per-client rows for the unique requested ids, plus
-        the personalized mask (all True: every resident row is the
-        client's own model)."""
+        the personalized mask (False = deterministic-init fallback)."""
+        if self.store is not None:
+            rows = client_store.tree_map(
+                lambda a: torch.from_numpy(a).to(self.device),
+                self.store.gather(uniq)["cs"])
+            return rows, self.store.written_mask(uniq)
         cs = state.client_state
         n = tree.leaves(cs)[0].shape[0]
         if n == 0:
             raise RegistryError(
                 "the active checkpoint carries no resident population "
-                "(it was written by the mmap engine), which the port "
-                "cannot serve yet")
+                "(it was written by the mmap engine) — attach the "
+                "training run's ClientStore to serve personalized rows")
         if uniq.size and int(uniq.max()) >= n:
             raise RegistryError(
                 f"client id {int(uniq.max())} is outside the trained "

@@ -1,10 +1,12 @@
 """Federated serving CLI: personalized inference as a service.
 
-Counterpart of ``repro/launch/fed_serve.py`` for what the port supports:
-every strategy (TPFL, FedTM and the MLP baselines) over a resident
-population.  ``fed_train --ckpt-dir D --ckpt-every
-k`` leaves round checkpoints behind; this CLI stands up the serving
-plane over them:
+Counterpart of ``repro/launch/fed_serve.py``: every strategy (TPFL,
+FedTM and the MLP baselines) over a resident population or the training
+run's mmap client store (``--client-store mmap --store-dir D``: spilled
+rows serve personalized models, never-sampled clients fall back to
+their deterministic init, as training would have drawn them).
+``fed_train --ckpt-dir D --ckpt-every k`` leaves round checkpoints
+behind; this CLI stands up the serving plane over them:
 
 1. **Publish.**  The newest checkpoint under ``--ckpt-dir`` is placed
    into the ``--registry`` as an immutable version (sha256
@@ -102,6 +104,12 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--buffer-capacity", type=int, default=64,
                     help="the async buffer's entries in the training "
                          "run's state (its --buffer-capacity)")
+    ap.add_argument("--client-store", default="resident",
+                    dest="client_store", choices=("resident", "mmap"))
+    ap.add_argument("--store-dir", default=None, metavar="DIR",
+                    help="the training run's client-store root: spilled "
+                         "rows serve personalized models, unwritten rows "
+                         "fall back to deterministic init (mmap only)")
     # registry / serving
     ap.add_argument("--ckpt-dir", default=None,
                     help="training checkpoint directory; its newest "
@@ -138,8 +146,11 @@ def main(argv: list[str] | None = None) -> dict:
     engine = Engine(strategy, data, RuntimeConfig(
         codec=CodecConfig(args.codec, sparse=args.sparse,
                           error_feedback=args.error_feedback),
-        buffer_capacity=args.buffer_capacity, tm_backend=args.tm_backend))
-    # the engine's key chain is k_init, k_rounds = split(PRNGKey(seed))
+        buffer_capacity=args.buffer_capacity, tm_backend=args.tm_backend,
+        client_store=args.client_store, store_dir=args.store_dir))
+    # the engine's key chain is k_init, k_rounds = split(PRNGKey(seed));
+    # serving re-derives k_init so an mmap store's never-spilled rows
+    # fault in as the training run would have drawn them
     k_init = rnd.split(rnd.PRNGKey(args.seed, device))[0]
     like = engine.init(k_init)
 
@@ -159,14 +170,14 @@ def main(argv: list[str] | None = None) -> dict:
                          f"--ckpt-dir offered no checkpoint to publish")
 
     plane = ServingPlane(engine.strategy, registry, like,
-                         telemetry=telemetry)
+                         store=engine.store, telemetry=telemetry)
     plane.refresh()
     n = args.clients
     n_test = int(data.x_test.shape[1])
     print(f"serving {args.strategy} version {plane.active_version} "
           f"[{device}] over "
-          f"{n} clients (store=resident): {args.requests} batches of "
-          f"{args.batch}", flush=True)
+          f"{n} clients (store={args.client_store}): {args.requests} "
+          f"batches of {args.batch}", flush=True)
 
     x_test = data.x_test
     latencies = []

@@ -19,7 +19,9 @@ come with later slices, ROADMAP.md):
        --error-feedback] [--mode sync|async --async-min-uploads B \\
        --buffer-capacity CAP --staleness-discount D \\
        --async-buffer device|host] [--telemetry-dir RUN_DIR \\
-       --profile-dir DIR] [--tm-backend ref|pallas]
+       --profile-dir DIR] [--tm-backend ref|pallas] \\
+      [--client-store resident|mmap --store-dir DIR \\
+       --store-eval full|sampled] [--n-clients N]
 
 runs on the GPU; ``--device cpu`` runs the kernels' plain versions.
 ``--tm-backend`` takes the reference's two names for its TM routes,
@@ -27,10 +29,18 @@ which it pins bit-identical: both name the port's one route (the
 kernels on the GPU, their plain versions on the CPU).  A LEAF kind
 (``femnist``, ``synthfemnist``) under ``--data-dir`` takes the
 writer-natural split; ``--writers`` sizes the mirror when it writes the
-shards (default ``max(25, clients)``).  It
+shards (default ``max(25, clients)``).  ``--client-store mmap``
+keeps the client rows in a host store of sparse files under
+``--store-dir`` (a fresh temporary directory without one; reuse it with
+``--ckpt-dir`` to resume) and only the K sampled rows on the device;
+``--store-eval sampled`` evaluates the cohort alone.  ``--n-clients N``
+streams a LEAF population of N clients from the shards under
+``--data-dir`` (cyclic over the writers past their count; mirror
+default 25 writers), cohort by cohort; it needs the mmap store.  It
 prints the same per-round ``acc= … up= … down_bc= … down_pc= …
-active=a/K`` lines (async: `` agg= buf= evict=`` after them) and
-totals line as the reference CLI.  ``--ckpt-dir D
+active=a/K`` lines (async: `` agg= buf= evict=`` after them), totals
+line and, under the store, ``client store: read=… written=…`` line as
+the reference CLI.  ``--ckpt-dir D
 --ckpt-every k`` saves the engine state every k rounds; ``--resume``
 continues from the newest checkpoint in D and completes the requested
 ``--rounds`` in total.  ``--telemetry-dir`` records a manifest and one
@@ -54,6 +64,7 @@ from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
 from repro_torch.fl.runtime.engine import TM_BACKENDS
 from repro_torch.fl.runtime.codec import CODECS, INDEX_CODINGS
 from repro_torch.fl.runtime.scheduler import SAMPLING
+from repro_torch.fl.store import StreamingClientData
 
 STRATEGY_CHOICES = ("tpfl", "fedavg", "fedprox", "ifca", "flis_dc",
                     "flis_hc", "fedtm")
@@ -137,6 +148,14 @@ def main(argv: list[str] | None = None) -> dict:
                     help="FLIS: size of the server-side probe set drawn "
                          "from the confidence split")
     ap.add_argument("--clients", type=int, default=20)
+    ap.add_argument("--n-clients", type=int, default=None,
+                    dest="n_clients", metavar="N",
+                    help="simulated-scale population: stream per-writer "
+                         "LEAF shards on demand for the sampled cohort "
+                         "instead of materializing the pool (clients "
+                         "map cyclically onto writers beyond the writer "
+                         "count).  Requires --data-dir and --client-store "
+                         "mmap.  Overrides --clients")
     ap.add_argument("--active", type=int, default=None, metavar="K",
                     help="sample K clients per round (sets "
                          "--participation K/N)")
@@ -183,6 +202,21 @@ def main(argv: list[str] | None = None) -> dict:
                          "versions with --device cpu")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain versions)")
+    # host-side client store
+    ap.add_argument("--client-store", default="resident",
+                    dest="client_store", choices=("resident", "mmap"),
+                    help="mmap keeps client rows in a host store of "
+                         "sparse files and gathers / spills only the K "
+                         "sampled rows a round: device memory O(K), "
+                         "bit-identical to resident")
+    ap.add_argument("--store-dir", default=None, metavar="DIR",
+                    help="client-store root (default: a fresh temporary "
+                         "directory); reuse it with --ckpt-dir to resume")
+    ap.add_argument("--store-eval", default="full", dest="store_eval",
+                    choices=("full", "sampled"),
+                    help="mmap evaluation scope: full = the population in "
+                         "chunks (the resident reports), sampled = the K "
+                         "merged clients only")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
@@ -194,11 +228,27 @@ def main(argv: list[str] | None = None) -> dict:
                     help="also write a torch.profiler trace of the run")
     args = ap.parse_args(argv)
 
+    streaming = args.n_clients is not None
+    if streaming:
+        if args.client_store != "mmap":
+            raise SystemExit(
+                "--n-clients streams the population on demand — it "
+                "requires --client-store mmap (there is no materialized "
+                "pool for the resident engine to hold)")
+        if args.data_dir is None:
+            raise SystemExit("--n-clients needs --data-dir (LEAF shards "
+                             "to stream; the mirror writes them)")
+        if args.strategy in ("flis_dc", "flis_hc"):
+            raise SystemExit(
+                "flis_* draws its server probe set from materialized "
+                "client data at init — not available on a streamed "
+                "population; use --clients instead of --n-clients")
+    n_clients = args.n_clients if streaming else args.clients
     participation = args.participation
     if args.active is not None:
-        if not 0 < args.active <= args.clients:
-            raise SystemExit(f"--active must be in [1, {args.clients}]")
-        participation = args.active / args.clients
+        if not 0 < args.active <= n_clients:
+            raise SystemExit(f"--active must be in [1, {n_clients}]")
+        participation = args.active / n_clients
     rt_cfg = RuntimeConfig(
         rounds=args.rounds,
         scheduler=SchedulerConfig(
@@ -212,16 +262,41 @@ def main(argv: list[str] | None = None) -> dict:
         buffer_capacity=args.buffer_capacity,
         staleness_discount=args.staleness_discount,
         async_buffer=args.async_buffer, tm_backend=args.tm_backend,
-        checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every)
+        checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every,
+        client_store=args.client_store, store_dir=args.store_dir,
+        store_eval=args.store_eval)
     device = (devices.default_device() if args.device == "cuda"
               else devices.resolve(args.device))
-    data, tm_cfg, fed_cfg, strategy = build_scenario(
-        dataset=args.dataset, data_dir=args.data_dir,
-        encoding=args.encoding, clients=args.clients, clauses=args.clauses,
-        seed=args.seed, experiment=args.experiment, writers=args.writers,
-        rounds=args.rounds,
-        local_epochs=args.local_epochs, strategy=args.strategy,
-        max_slots=args.max_slots, probe_size=args.probe_size, device=device)
+    if streaming:
+        # the reference's streaming constants: the mirror's 6000 samples
+        # at side 12 over 25 writers, the data key PRNGKey(seed + 1),
+        # 80 / 40 / 40 samples a client
+        pool = registry.load_stream(
+            args.dataset, args.data_dir, encoding=args.encoding,
+            n_samples=6000, side=12, seed=args.seed,
+            n_writers=args.writers or 25, device=device)
+        data = StreamingClientData(
+            pool, n_clients=n_clients, n_train=80, n_test=40, n_conf=40,
+            key=rnd.PRNGKey(args.seed + 1, device), device=device)
+        tm_cfg = tm.TMConfig(n_classes=pool.n_classes,
+                             n_clauses=args.clauses,
+                             n_features=pool.n_features, n_states=63,
+                             s=5.0, T=40)
+        fed_cfg = federation.FedConfig(n_clients=n_clients,
+                                       rounds=args.rounds,
+                                       local_epochs=args.local_epochs)
+        strategy = _build_strategy(args.strategy, tm_cfg, fed_cfg, pool,
+                                   max_slots=args.max_slots,
+                                   probe_size=args.probe_size)
+    else:
+        data, tm_cfg, fed_cfg, strategy = build_scenario(
+            dataset=args.dataset, data_dir=args.data_dir,
+            encoding=args.encoding, clients=args.clients,
+            clauses=args.clauses, seed=args.seed,
+            experiment=args.experiment, writers=args.writers,
+            rounds=args.rounds, local_epochs=args.local_epochs,
+            strategy=args.strategy, max_slots=args.max_slots,
+            probe_size=args.probe_size, device=device)
     telemetry = None
     if args.telemetry_dir or args.profile_dir:
         telemetry = obs.RunRecorder(run_dir=args.telemetry_dir,
@@ -231,8 +306,9 @@ def main(argv: list[str] | None = None) -> dict:
         telemetry.start(obs.build_manifest(
             config=rt_cfg, seed=args.seed, device=device,
             extra={"strategy": args.strategy, "dataset": args.dataset,
-                   "encoding": args.encoding, "n_clients": args.clients,
-                   "client_store": "resident", "rounds": args.rounds,
+                   "encoding": args.encoding, "n_clients": n_clients,
+                   "client_store": args.client_store,
+                   "rounds": args.rounds,
                    "argv": argv}))
     state, remaining = None, None
     if args.resume and args.ckpt_dir:
@@ -253,11 +329,17 @@ def main(argv: list[str] | None = None) -> dict:
                         "download_bytes_per_client": 0}
     writer_split = (registry.get(args.dataset).kind == "leaf"
                     and args.data_dir is not None)
-    split = "writer-natural" if writer_split else f"exp{args.experiment}"
+    if streaming:
+        split = f"streamed ({len(pool.users)} writers, cyclic)"
+    elif writer_split:
+        split = "writer-natural"
+    else:
+        split = f"exp{args.experiment}"
     print(f"{args.strategy} on {args.dataset} "
           f"[{args.encoding}, {tm_cfg.n_features}f, m={tm_cfg.n_clauses}] "
-          f"{split}: {args.clients} clients, "
-          f"K={engine.scheduler.k}/round, dropout={args.dropout}, "
+          f"{split}: {n_clients} clients, "
+          f"K={engine.scheduler.k}/round, store={args.client_store}, "
+          f"dropout={args.dropout}, "
           f"codec={args.codec}{'+sparse' if args.sparse else ''}, "
           f"mode={args.mode}, device={device}", flush=True)
     if engine.scheduler.p is not None:
@@ -272,11 +354,13 @@ def main(argv: list[str] | None = None) -> dict:
         if telemetry is not None:
             telemetry.close()
 
-    up = down_bc = down_pc = 0
+    up = down_bc = down_pc = st_rd = st_wr = 0
     for rep in reports:
         up += rep.upload_bytes
         down_bc += rep.download_bytes_broadcast
         down_pc += rep.download_bytes_per_client
+        st_rd += rep.store_read_bytes
+        st_wr += rep.store_written_bytes
         extra = ""
         if args.mode == "async":
             extra = (f" agg={rep.aggregated_uploads}"
@@ -294,6 +378,11 @@ def main(argv: list[str] | None = None) -> dict:
           f"download_broadcast={down_bc}B ({down_bc/1e6:.4f}MB) "
           f"download_per_client={down_pc}B ({down_pc/1e6:.4f}MB)",
           flush=True)
+    if args.client_store == "mmap":
+        print(f"client store: read={st_rd}B written={st_wr}B "
+              f"({engine.store.written_count()} of {engine.n} rows "
+              f"materialized, {engine.store.row_nbytes}B/row)",
+              flush=True)
     deciles = accuracy_deciles(reports[-1].per_client_accuracy)
     print("final per-client accuracy deciles: "
           + " ".join(f"p{10 * i}={d:.3f}" for i, d in enumerate(deciles)),
@@ -307,6 +396,7 @@ def main(argv: list[str] | None = None) -> dict:
             "final_accuracy_deciles": deciles,
             "upload_bytes": up, "download_bytes_broadcast": down_bc,
             "download_bytes_per_client": down_pc,
+            "store_read_bytes": st_rd, "store_written_bytes": st_wr,
             "reports": reports, "state": state}
 
 

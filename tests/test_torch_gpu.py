@@ -610,6 +610,62 @@ def test_scheduler_same_on_gpu_and_cpu(cuda, kw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("wire", [{}, dict(name="int8", sparse=True)],
+                         ids=["float32", "int8_sparse"])
+def test_gpu_mmap_round_matches_resident_and_cpu(cuda, tmp_path, wire):
+    """A small TPFL federation over the mmap client store (3 of 6 clients
+    a round with drops, chunked population eval) on the card equals the
+    resident federation on the card and the same mmap federation on the
+    CPU, bit for bit: reports, server rows and the population read back
+    from the store (whose files are the CPU store's bytes); the gathered
+    rows land on the card."""
+    sched = SchedulerConfig(participation=0.5, dropout=0.3)
+    runs = {}
+    for tag, dev, store in (("cpu", "cpu", "mmap"), ("gpu", "cuda", "mmap"),
+                            ("resident", "cuda", "resident")):
+        data = _population(dev, 6, n_train=16)
+        eng = Engine(TPFLStrategy(ttm.TMConfig(**TM), local_epochs=2), data,
+                     RuntimeConfig(rounds=2, scheduler=sched,
+                                   codec=CodecConfig(**wire),
+                                   client_store=store, store_eval_chunk=4,
+                                   store_dir=str(tmp_path / tag)))
+        seen = []
+        train = eng.executor.train
+
+        def spy(strategy, sub_cs, *a, **kw):
+            seen.append(sub_cs.ta_state.device)
+            return train(strategy, sub_cs, *a, **kw)
+
+        eng.executor.train = spy
+        state, reps = eng.run(tr.PRNGKey(3, "cpu"))
+        assert {d.type for d in seen} == {torch.device(dev).type}
+        runs[tag] = (eng, state, reps)
+    geng, gstate, greps = runs["gpu"]
+    rows = convert.tm_params_from_numpy(
+        *geng.store.gather(np.arange(6))["cs"], device=cuda)
+    for other in ("cpu", "resident"):
+        _, state, reps = runs[other]
+        for a, b in zip(reps, greps):
+            # the float32 mean's sum order is the device's own
+            for f in ("per_client_accuracy", "assignment", "cluster_counts",
+                      *(("mean_accuracy",) if other == "resident" else ())):
+                assert torch.equal(getattr(a, f).cpu(),
+                                   getattr(b, f).cpu()), (other, f)
+            assert (a.upload_bytes, a.download_bytes_per_client) == \
+                (b.upload_bytes, b.download_bytes_per_client)
+        assert torch.equal(state.server.slots.cpu(), gstate.server.slots.cpu())
+    for a, b in zip(runs["resident"][1].client_state, rows):
+        assert torch.equal(a, b)
+    assert [r.store_written_bytes for r in greps] == \
+        [r.store_written_bytes for r in runs["cpu"][2]] == \
+        [3 * (geng.store.row_nbytes + 33)] * 2
+    runs["cpu"][0].store.flush()
+    geng.store.flush()
+    for p in sorted((tmp_path / "cpu").iterdir()):
+        assert (tmp_path / "gpu" / p.name).read_bytes() == p.read_bytes()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("strategy,sched", [
     ("tpfl", dict(participation=0.5, dropout=0.3, straggler=0.3)),
     ("fedtm", dict(participation=0.5, sampling="weighted", dropout=0.3))])

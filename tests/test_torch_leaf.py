@@ -42,6 +42,7 @@ from repro.fl.runtime import CodecConfig as JCodecConfig
 from repro.fl.runtime import Engine as JEngine
 from repro.fl.runtime import RuntimeConfig as JRuntimeConfig
 from repro.fl.runtime import TPFLStrategy as JTPFLStrategy
+from repro.fl.store import StreamingClientData as JStreamingClientData
 from repro.launch import fed_train as jfed_train
 from repro_torch import convert
 from repro_torch import random as tr
@@ -50,7 +51,8 @@ from repro_torch.core import tm as ttm
 from repro_torch.data import partition
 from repro_torch.data.ingest import fetch, idx, leaf, mirror, natural, registry
 from repro_torch.fl.runtime import (CodecConfig, Engine, RuntimeConfig,
-                                    TPFLStrategy)
+                                    SchedulerConfig, TPFLStrategy)
+from repro_torch.fl.store import StreamingClientData
 from repro_torch.launch import fed_train
 from test_torch_data import _same_client_data
 from test_torch_gpu import one_torch_thread  # noqa: F401
@@ -363,6 +365,149 @@ def test_partition_writers_refusals(mirrors):
     with pytest.raises(ValueError, match="no writer identities"):
         natural.partition_writers(plain, n_clients=2, n_train=4, n_test=2,
                                   n_conf=2, key=tr.PRNGKey(0, "cpu"))
+
+
+# -- streaming cohorts (StreamingClientData) ----------------------------------
+
+STREAMS = {  # n_clients, cohort ids, encoding, n_train / n_test / n_conf
+    "le_writers": (5, [4, 0, 2], "bool", (24, 8, 8)),
+    "all_writers": (12, [11, 3, 7, 0], "thermometer:3", (16, 8, 8)),
+    "cyclic": (30, [29, 3, 15, 12, 0, 3], "bool", (16, 8, 8)),
+}
+
+
+def _streams(mirrors, case, seed=4):
+    n, ids, encoding, (n_train, n_test, n_conf) = STREAMS[case]
+    kw = dict(n_clients=n, n_train=n_train, n_test=n_test, n_conf=n_conf)
+    ref = JStreamingClientData(
+        jregistry.load_stream("synthfemnist", mirrors / "jax6",
+                              encoding=encoding),
+        key=jax.random.PRNGKey(seed), **kw)
+    ours = StreamingClientData(
+        registry.load_stream("synthfemnist", mirrors / "port6",
+                             encoding=encoding, device="cpu"),
+        key=tr.PRNGKey(seed, "cpu"), device="cpu", **kw)
+    return ref, ours, np.asarray(ids), kw, encoding
+
+
+@pytest.mark.parametrize("case", STREAMS)
+def test_streaming_gather_equals_the_reference(mirrors, case):
+    """``gather_clients(ids)`` equals the JAX one field for field, over
+    fewer clients than writers (contiguous writer groups), one a writer
+    and more clients than writers (cyclic), with repeated ids; the
+    ``sizes`` table too.  Up to the writer count the rows are the port's
+    ``partition_writers`` rows of the materialized pool, and the live
+    reference's."""
+    ref, ours, ids, kw, encoding = _streams(mirrors, case)
+    np.testing.assert_array_equal(ours.sizes, ref.sizes)
+    assert ours.sizes.dtype == np.int64 and ours.device.type == "cpu"
+    got = ours.gather_clients(ids)
+    _same_client_data(ref.gather_clients(ids), got)
+    if kw["n_clients"] <= 12:
+        pool = registry.load("synthfemnist", mirrors / "port6",
+                             encoding=encoding, device="cpu", **MIRROR)
+        full = natural.partition_writers(pool, key=tr.PRNGKey(4, "cpu"),
+                                         **kw)
+        jfull = jnatural.partition_writers(
+            jregistry.load("synthfemnist", mirrors / "jax6",
+                           encoding=encoding, **MIRROR),
+            key=jax.random.PRNGKey(4), **kw)
+        _same_client_data(jfull, full)
+        for f, a in zip(full._fields, full):
+            assert torch.equal(getattr(got, f), a[torch.as_tensor(ids)]), f
+        np.testing.assert_array_equal(ours.sizes, full.sizes.numpy())
+
+
+def test_streaming_parses_only_the_cohorts_shards(mirrors, monkeypatch):
+    """A spy on the shard reader: a cohort whose writers all live in the
+    first shard parses that shard alone; adding a client of the last
+    writer parses the second too; the constructor parses none."""
+    parsed = []
+    real = leaf._parse_shard
+
+    def spy(path, verify=True):
+        parsed.append(Path(path).name)
+        return real(path, verify)
+
+    monkeypatch.setattr(leaf, "_parse_shard", spy)
+    _, ours, _, _, _ = _streams(mirrors, "cyclic")
+    assert parsed == []
+    ours.gather_clients([0, 3, 15])           # writers 0, 3, 3
+    assert parsed == ["all_data_0.json"]
+    parsed.clear()
+    ours.gather_clients([0, 23])              # writers 0, 11
+    assert parsed == ["all_data_0.json", "all_data_1.json"]
+    with pytest.raises(ValueError, match="out of range"):
+        ours.gather_clients([30])
+
+
+def test_streaming_data_needs_the_store(mirrors):
+    """The resident engine refuses a streamed population with the
+    reference's message; the mmap engine takes its size, device and
+    weighted-sampling table from it."""
+    ref, ours, _, _, _ = _streams(mirrors, "cyclic")
+    jstrat = JTPFLStrategy(jtm.TMConfig(n_classes=62, n_clauses=8,
+                                        n_features=64, n_states=63, s=5.0,
+                                        T=10), local_epochs=1)
+    tstrat = TPFLStrategy(ttm.TMConfig(n_classes=62, n_clauses=8,
+                                       n_features=64, n_states=63, s=5.0,
+                                       T=10), local_epochs=1)
+    msgs = []
+    for eng, strat, data, cfg in (
+            (JEngine, jstrat, ref, JRuntimeConfig), (Engine, tstrat, ours,
+                                                     RuntimeConfig)):
+        with pytest.raises(ValueError, match="streaming client data") as e:
+            eng(strat, data, cfg(rounds=1))
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+    eng = Engine(tstrat, ours, RuntimeConfig(
+        rounds=1, client_store="mmap",
+        scheduler=SchedulerConfig(participation=0.1, sampling="weighted")))
+    assert eng.n == 30 and eng.device.type == "cpu"
+    assert torch.equal(eng.scheduler.p, torch.as_tensor(
+        ours.sizes, dtype=torch.float32) / float(ours.sizes.sum()))
+
+
+STREAM_FLAGS = ["--dataset", "synthfemnist", "--writers", "8", "--n-clients",
+                "20", "--active", "4", "--client-store", "mmap",
+                "--store-eval", "sampled", "--sampling", "weighted",
+                "--clauses", "8", "--local-epochs", "1", "--rounds", "2"]
+
+
+def test_fed_train_streaming_prints_the_reference_lines(tmp_path, capsys):
+    """``fed_train --n-clients 20 --client-store mmap --store-eval
+    sampled`` over 8 writers (cyclic) on the CPU: the JAX CLI's round,
+    totals, weighted-sampling, store and decile lines, and its dict
+    (accuracies, bytes, store bytes); the store directories hold the
+    same bytes.  The reference's refusals are kept."""
+    flags = STREAM_FLAGS + ["--data-dir"]
+    ours = fed_train.main(["--device", "cpu", *flags, str(tmp_path / "p"),
+                           "--store-dir", str(tmp_path / "ps")])
+    port_text = capsys.readouterr().out
+    ref = jfed_train.main([*flags, str(tmp_path / "j"), "--store-dir",
+                           str(tmp_path / "js")])
+    ref_text = capsys.readouterr().out
+    assert "streamed (8 writers, cyclic)" in port_text
+    keep = ("client store:",)
+    lines = [ln for ln in port_text.splitlines() if ln.startswith(keep)]
+    assert lines == [ln for ln in ref_text.splitlines()
+                     if ln.startswith(keep)] and len(lines) == 1
+    assert _report_lines(port_text) == _report_lines(ref_text)
+    np.testing.assert_allclose(ours["acc_per_round"], ref["acc_per_round"],
+                               rtol=0, atol=1e-6)
+    for f in ("upload_bytes", "download_bytes_broadcast",
+              "download_bytes_per_client", "store_read_bytes",
+              "store_written_bytes"):
+        assert ours[f] == ref[f], f
+    assert ours["store_written_bytes"] > 0
+    assert _files(tmp_path / "ps") == _files(tmp_path / "js")
+    for extra, match in ((["--client-store", "resident"], "requires"),
+                         (["--strategy", "flis_dc"], "probe set")):
+        with pytest.raises(SystemExit, match=match):
+            fed_train.main(["--device", "cpu", *flags, str(tmp_path / "p"),
+                            *extra])
+    with pytest.raises(SystemExit, match="needs --data-dir"):
+        fed_train.main(["--device", "cpu", *STREAM_FLAGS])
 
 
 # -- fetch, through file:// URLs only ----------------------------------------

@@ -180,14 +180,14 @@ def test_fed_train_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(backend="shardmap"), dict(client_store="mmap"),
-    dict(transport="socket")])
+    dict(backend="shardmap"), dict(transport="socket")])
 def test_unsupported_runtime_configs_raise(kw):
     """The reference's other runtime settings are not accepted at all:
-    a config written for them fails, it does not run in process on the
-    resident store (async aggregation runs since its slice:
-    tests/test_torch_async.py; ``tm_backend`` names since the LEAF
-    slice: ``test_tm_backend_names_the_ports_one_route``)."""
+    a config written for them fails, it does not run in process (async
+    aggregation runs since its slice: tests/test_torch_async.py;
+    ``tm_backend`` names since the LEAF slice:
+    ``test_tm_backend_names_the_ports_one_route``; the mmap client store
+    since its slice: tests/test_torch_store.py)."""
     with pytest.raises(TypeError):
         RuntimeConfig(rounds=1, **kw)
 
@@ -217,8 +217,9 @@ def test_async_codecs_and_other_strategies_are_a_later_slice(capsys):
     object without the cohort hooks is refused by the engine, naming
     them (every strategy of the reference runs since the baselines'
     slice: tests/test_torch_baselines*.py; ``--mode async`` since the
-    async slice: tests/test_torch_async.py)."""
-    for flags in (["--transport", "socket"], ["--client-store", "mmap"]):
+    async slice: tests/test_torch_async.py; ``--client-store`` since the
+    store's slice: tests/test_torch_leaf.py)."""
+    for flags in (["--transport", "socket"],):
         with pytest.raises(SystemExit) as exc:
             fed_train.main(["--device", "cpu", *flags])
         assert exc.value.code == 2

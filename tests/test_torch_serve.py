@@ -9,7 +9,9 @@
 * the warm swap is atomic under an in-flight request, and refresh never
   downgrades;
 * served == offline in the port, and the port's plane on a JAX-trained
-  checkpoint returns the JAX plane's predictions;
+  checkpoint returns the JAX plane's predictions; over an mmap store
+  (personalized and fallback rows in one batch) the port's plane returns
+  the JAX plane's predictions, from the CLI too;
 * ``fed_train --ckpt-every 1`` then ``--resume`` equals the
   uninterrupted run, and ``fed_serve --device cpu --verify-offline``
   passes on a port-trained run, TPFL or FedTM (``--strategy fedtm``),
@@ -31,6 +33,7 @@ from repro.data import partition as jpartition
 from repro.data import synthetic as jsynthetic
 from repro.fl.runtime import Engine as JEngine
 from repro.fl.runtime import RuntimeConfig as JRuntimeConfig
+from repro.fl.runtime import SchedulerConfig as JSchedulerConfig
 from repro.fl.runtime import TPFLStrategy as JTPFLStrategy
 from repro.fl.runtime.strategy import FedTMStrategy as JFedTMStrategy
 from repro.fl.runtime import checkpointing as jcheckpointing
@@ -42,7 +45,8 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.core import tm as ttm
 from repro_torch.data import partition, synthetic
 from repro_torch.fl.runtime import (Engine, FedTMStrategy, RuntimeConfig,
-                                    TPFLStrategy, checkpointing)
+                                    SchedulerConfig, TPFLStrategy,
+                                    checkpointing)
 from repro_torch.fl.serve import (ChecksumError, ModelRegistry,
                                   RegistryError, ServeTelemetry,
                                   ServingPlane)
@@ -334,11 +338,58 @@ def test_predict_without_active_version_is_loud(tmp_path, fields):
         plane.predict(np.arange(2), fields["x_test"][:2, 0])
 
 
-def test_mmap_store_is_a_later_slice(tmp_path, fields):
-    engine = _engine(fields)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServingPlane(engine.strategy, ModelRegistry(tmp_path / "r"),
-                     _like(engine), store=object())
+def test_mmap_store_served_equals_offline_and_the_jax_plane(
+        tmp_path, fields, jdata):
+    """Each package trains 2 rounds at participation 0.5 over its mmap
+    store; each plane serves its own store.  A batch of every client
+    twice mixes personalized (spilled) and fallback (never-sampled,
+    faulted in under the training run's k_init) rows; the port's
+    predictions equal the JAX plane's, and each equals ``tm.predict`` on
+    the row the plane resolved.  The stores hold the same bytes."""
+    sched = dict(participation=0.5)
+    jeng = JEngine(JTPFLStrategy(jtm.TMConfig(**TM), local_epochs=1), jdata,
+                   JRuntimeConfig(rounds=2, client_store="mmap",
+                                  store_dir=str(tmp_path / "js"),
+                                  scheduler=JSchedulerConfig(**sched),
+                                  checkpoint_dir=str(tmp_path / "jc"),
+                                  checkpoint_every=2))
+    jeng.run(jax.random.PRNGKey(0))
+    jreg = JModelRegistry(tmp_path / "jreg")
+    jreg.publish(jcheckpointing.latest(tmp_path / "jc"))
+    jplane = JServingPlane(
+        jeng.strategy, jreg,
+        jeng.init(jax.random.split(jax.random.PRNGKey(0))[0]),
+        store=jeng.store)
+    jplane.refresh()
+    cfg = RuntimeConfig(rounds=2, client_store="mmap",
+                        store_dir=str(tmp_path / "ts"),
+                        scheduler=SchedulerConfig(**sched),
+                        checkpoint_dir=str(tmp_path / "tc"),
+                        checkpoint_every=2)
+    engine = _engine(fields, cfg)
+    engine.run(tr.PRNGKey(0, "cpu"))
+    reg = ModelRegistry(tmp_path / "treg")
+    reg.publish(checkpointing.latest(tmp_path / "tc"))
+    like = _like(engine)            # reopens the store under k_init
+    plane = ServingPlane(engine.strategy, reg, like, store=engine.store)
+    plane.refresh()
+    ids, x = _mixed_batch(fields)
+    got = plane.predict(ids, x)
+    np.testing.assert_array_equal(got, np.asarray(jplane.predict(ids, x)))
+    rows, written = plane._resolve_rows(None, np.arange(N_CLIENTS))
+    assert written.any() and not written.all()
+    np.testing.assert_array_equal(
+        written, jeng.store.written_mask(np.arange(N_CLIENTS)))
+    assert rows.ta_state.device == plane.device
+    cfg_tm = engine.strategy.tm_cfg
+    for j, c in enumerate(ids):
+        row = ttm.TMParams(*(a[c] for a in rows))
+        want = int(ttm.predict(row, torch.as_tensor(x[j:j + 1]), cfg_tm)[0])
+        assert int(got[j]) == want
+    engine.store.flush()
+    jeng.store.flush()
+    for p in sorted((tmp_path / "js").iterdir()):
+        assert (tmp_path / "ts" / p.name).read_bytes() == p.read_bytes()
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +495,27 @@ def test_fed_serve_verifies_offline_on_cpu(tmp_path, capsys):
              (tmp_path / "tel" / "serve_events.jsonl").read_text()
              .splitlines()]
     assert kinds == ["publish", "swap"] + ["batch"] * 4
+
+
+def test_fed_serve_from_the_mmap_store_on_cpu(tmp_path, capsys):
+    """``fed_train --client-store mmap --store-dir D --participation
+    0.5``, then ``fed_serve --client-store mmap --store-dir D
+    --verify-offline``: 0 mismatches, and the covering batch mixes
+    personalized and fallback rows (the serve events count both)."""
+    store = ["--client-store", "mmap", "--store-dir", str(tmp_path / "s")]
+    fed_train.main(FLAGS + store + ["--rounds", "1", "--participation",
+                                    "0.5", "--ckpt-dir", str(tmp_path / "c"),
+                                    "--ckpt-every", "1"])
+    out = fed_serve.main(FLAGS + store + [
+        "--ckpt-dir", str(tmp_path / "c"), "--batch", "4", "--requests", "2",
+        "--verify-offline", "--telemetry-dir", str(tmp_path / "tel")])
+    text = capsys.readouterr().out
+    assert "(store=mmap)" in text and "offline parity: OK (4 clients" in text
+    assert out["mismatches"] == 0 and out["verified_clients"] == 4
+    last = json.loads((tmp_path / "tel" / "serve_events.jsonl").read_text()
+                      .splitlines()[-1])
+    assert last["batch"] == 4 and last["personalized"] == 2 \
+        and last["fallback"] == 2
 
 
 @pytest.mark.parametrize("extra", [

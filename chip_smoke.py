@@ -117,7 +117,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (116,733,600 + 33) written a round), the store's apparent size
    against its ``st_blocks`` and the free space it takes (sparse files,
    checked first with a 4 GiB truncate) and peak device memory beside
-   path (G)'s;
+   path (G)'s; then path (I), the transports (``path_i``), at the
+   training path's width with 4 workers of 5 clients each: (I1) the
+   loopback transport on the identity wire, 2 rounds, counters zeroed
+   just before, equal to the in-process engine on the card bit for bit
+   (every report field but the wire gauges, the meters, the final
+   state), its wire bytes a round, the fused epoch once per worker per
+   local epoch at N = 5 and the fused votes twice per worker a round, and
+   one N = 5 epoch held exactly against its plain version; (I2) loopback
+   on int8 + error feedback at participation 0.5, dropout 0.1,
+   stragglers 0.3, bit for bit against the in-process engine; (I3) async
+   loopback at path (F)'s settings, 3 rounds, each round's observed
+   staleness, an injected disconnect retried (the run unperturbed) and
+   one dropped upload (one arrival and one frame fewer); (I4) the card's
+   compute mode (an exclusive mode stops the run with that reason), then
+   ``fed_train --transport socket --workers 4`` in a subprocess at the
+   training path's flags with telemetry: ``acc_per_round`` and the byte
+   totals equal the in-process CLI's, every worker process on the card
+   with the fused epoch launched (the ``transport worker`` line each
+   writes to stderr at SHUTDOWN), the start-up (spawn to the last
+   HELLO), the round times beside the in-process CLI's and each
+   process's peak device memory;
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
@@ -143,8 +163,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and Type II rows, bytes against hashing, and its time with no row
    listed); the fused epoch on the global plan at path (G)'s last epoch
    (1g) and forced at the training path's epoch beside the shared plan
-   (1f), and the batched fused votes at path (G)'s 62 classes (2g), each
-   by events, alone, against its plain version and its bound;
+   (1f), the batched fused votes at path (G)'s 62 classes (2g), and the
+   fused epoch at path (I)'s worker block of 5 clients (1w), each by
+   events, alone, against its plain version and its bound;
 11. profile one more full-width round of the training path, one of
    path (B), one of path (C), one of path (D), one IFCA round of path
    (E), one async round of path (F) and one FEMNIST round of path (G)
@@ -161,6 +182,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import shutil
 import statistics
@@ -1326,6 +1348,322 @@ def path_h(dev, g_peak: int):
     shutil.rmtree(store, ignore_errors=True)
 
 
+# path (I): the transports at the training path's width; 4 worker peers
+# or processes own 5 clients each
+I_WORKERS = 4
+PATH_I2_SCHED = dict(participation=0.5, dropout=0.1, straggler=0.3)
+PATH_I4_ARGS = SCENARIO + ["--rounds", "2", "--transport", "socket",
+                           "--workers", str(I_WORKERS)]
+# the socket CLI in a subprocess: fed_train's main, its transport's
+# launch (start-up: spawn to the last HELLO) clocked, the result printed
+I4_CODE = """
+import json, os, subprocess, sys, time
+import torch
+from repro_torch.fl.transport.runner import TransportEngine
+from repro_torch.fl.transport.socket_transport import SocketTransport
+launch = SocketTransport.launch.__func__
+def timed(cls, *a, **kw):
+    t = time.perf_counter()
+    out = launch(cls, *a, **kw)
+    print('I4_STARTUP ' + repr(time.perf_counter() - t), flush=True)
+    return out
+SocketTransport.launch = classmethod(timed)
+shutdown = TransportEngine._shutdown
+def probed(self, transport):
+    # each process's device memory, contexts included, while all live
+    apps = subprocess.run(
+        ['nvidia-smi', '--query-compute-apps=pid,used_memory',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print('I4_APPS ' + json.dumps({
+        'server': os.getpid(), 'workers': [p.pid for p in transport.procs],
+        'apps': apps}), flush=True)
+    return shutdown(self, transport)
+TransportEngine._shutdown = probed
+from repro_torch.launch.fed_train import main
+out = main(sys.argv[1:])
+torch.cuda.synchronize()
+print('I4_RESULT ' + json.dumps({
+    'acc_per_round': out['acc_per_round'],
+    'upload_bytes': out['upload_bytes'],
+    'download_bytes_broadcast': out['download_bytes_broadcast'],
+    'download_bytes_per_client': out['download_bytes_per_client'],
+    'wire': [[r.wire_tx_bytes, r.wire_rx_bytes] for r in out['reports']],
+    'server_peak_bytes': torch.cuda.max_memory_allocated()}), flush=True)
+"""
+
+
+def path_i(dev, main_result, main_rounds, err):
+    """Path (I), the transports on the card at the training path's width.
+    (I1) loopback, ``I_WORKERS`` worker peers, identity wire, 2 rounds,
+    counters zeroed just before: every report field but the wire gauges,
+    the meters and the final state equal the in-process engine's bit for
+    bit (``mean_accuracy`` within 1e-6); the wire bytes a round; kernel 1
+    once per worker per local epoch at the worker's block (N = 5), kernel
+    2 twice per worker a round; one N = 5 epoch of kernel 1 held exactly
+    against its plain version.  (I2) loopback on int8 + error feedback,
+    participation 0.5, dropout 0.1, stragglers 0.3, against the
+    in-process engine bit for bit.  (I3) async loopback at path (F)'s
+    settings, 3 rounds: the observed staleness of each round; an
+    injected disconnect (retried: the run unperturbed) and one dropped
+    upload (one arrival and one frame fewer).  (I4) ``fed_train
+    --transport socket --workers 4`` in a subprocess at the training
+    path's flags: metrics and bytes equal the in-process CLI's
+    (``main_result``), every worker on the card with kernel 1 launched;
+    start-up, round times beside ``main_rounds`` and each process's peak
+    device memory.  Returns the captured N = 5 epoch's arguments."""
+    import torch
+    from repro_torch import convert
+    from repro_torch import random as rnd
+    from repro_torch.fl import obs
+    from repro_torch.fl.runtime import (CodecConfig, Engine, RuntimeConfig,
+                                        SchedulerConfig)
+    from repro_torch.fl.transport import FaultPlan, RetryPolicy, \
+        TransportEngine
+    from repro_torch.kernels import ops, train_epoch
+    from repro_torch.launch import fed_train
+
+    data, _, _, tpfl = fed_train.build_scenario(
+        dataset=DATASET, data_dir=str(DATA_DIR), clients=CLIENTS,
+        clauses=CLAUSES, device=dev)
+
+    def bits(a):
+        a = convert.to_numpy(a)
+        return a.view(np.int32) if a.dtype == np.float32 else a
+
+    def same(a, b) -> bool:
+        a, b = bits(a), bits(b)
+        return a.shape == b.shape and a.dtype == b.dtype \
+            and np.array_equal(a, b)
+
+    def same_runs(ref, ours, wire=False) -> bool:
+        (rst, rreps), (st, reps) = ref, ours
+        ok = len(rreps) == len(reps)
+        for a, b in zip(rreps, reps):
+            ok &= all(same(getattr(a, f), getattr(b, f)) for f in (
+                "assignment", "cluster_counts", "per_client_accuracy"))
+            ok &= all(same(x, y) for x, y in zip(a.participation,
+                                                 b.participation))
+            ok &= all(getattr(a, f) == getattr(b, f) for f in (
+                "round_idx", "upload_bytes", "download_bytes_broadcast",
+                "download_bytes_per_client", "aggregated_uploads",
+                "buffered_uploads", "evicted_uploads") + ((
+                    "wire_tx_bytes", "wire_rx_bytes", "observed_staleness")
+                    if wire else ()))
+            ok &= abs(float(a.mean_accuracy) - float(b.mean_accuracy)) \
+                <= 1e-6
+        ok &= all(same(x, y) for x, y in zip(
+            [*rst.client_state, rst.server.slots, *rst[3:]],
+            [*st.client_state, st.server.slots, *st[3:]]))
+        return bool(ok)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    epochs_n = []
+    orig = ops.train_epoch_fused
+    loop_rounds = []
+    run_round = TransportEngine._round
+
+    def timed_round(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_round(self, *a, **kw)
+        torch.cuda.synchronize()
+        loop_rounds.append(time.perf_counter() - t)
+        return out
+
+    def watch(*a, **kw):
+        epochs_n.append(int(a[0].shape[0]))
+        return orig(*a, **kw)
+
+    # (I1) loopback, identity wire, against the in-process engine
+    key = rnd.PRNGKey(3, dev)
+    ref, ref_s = timed(lambda: Engine(tpfl, data, RuntimeConfig(
+        rounds=2)).run(key))
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    ops.train_epoch_fused = watch
+    TransportEngine._round = timed_round
+    try:
+        with Capture(ops, "train_epoch_fused") as cap:
+            loop, loop_s = timed(lambda: TransportEngine(
+                tpfl, data, RuntimeConfig(rounds=2, transport="loopback",
+                                          workers=I_WORKERS)).run(key))
+    finally:
+        ops.train_epoch_fused = orig
+        TransportEngine._round = run_round
+    launches = dict(ops.LAUNCHES)
+    ok = same_runs(ref, loop)
+    wire = [(r.wire_tx_bytes, r.wire_rx_bytes) for r in loop[1]]
+    print(f"path (I1) loopback, {I_WORKERS} worker peers, identity wire: "
+          f"== in-process {ok}; wall in-process {ref_s:.3f} s, loopback "
+          f"{loop_s:.3f} s (rounds {[round(x, 4) for x in loop_rounds]} "
+          f"s; in-process CLI {[round(x, 4) for x in main_rounds]} s); "
+          f"wire (tx, rx) a round {wire} B; launches "
+          f"{launches}; kernel 1 clients a launch {epochs_n}", flush=True)
+    per_worker = CLIENTS // I_WORKERS
+    if not ok or epochs_n != [per_worker] * (I_WORKERS * 2 * 2) \
+            or launches["fused_votes_batched"] != I_WORKERS * 2 * 2 \
+            or any(tx <= 0 or rx <= 0 for tx, rx in wire):
+        raise SystemExit("path (I1): the loopback transport is not the "
+                         "in-process engine on the card, or its kernels "
+                         "did not launch once per worker per epoch")
+    a1w, kw1w = cap.args
+    got = ops.train_epoch_fused(*a1w, **kw1w)
+    want = train_epoch.train_epoch_plain(*a1w, **kw1w)
+    what = (f"a worker's block N={a1w[0].shape[0]} plan "
+            f"{train_epoch.plan(*a1w[0].shape)}")
+    moved = int((want[0] != a1w[0]).sum())
+    exact("train_epoch_fused", got[0], want[0],
+          f"{what} TA states ({moved} changed)", err)
+    exact("train_epoch_fused", got[1], want[1], f"{what} weights", err)
+    if moved == 0:
+        raise SystemExit("train_epoch_fused changed nothing at N = 5")
+    del got, want, ref, loop
+
+    # (I2) loopback on int8 + error feedback, partial participation
+    cfg2 = dict(rounds=2, codec=CodecConfig("int8", error_feedback=True),
+                scheduler=SchedulerConfig(**PATH_I2_SCHED))
+    key = rnd.PRNGKey(4, dev)
+    ref, ref_s = timed(lambda: Engine(tpfl, data, RuntimeConfig(
+        **cfg2)).run(key))
+    loop, loop_s = timed(lambda: TransportEngine(tpfl, data, RuntimeConfig(
+        **cfg2, transport="loopback", workers=I_WORKERS)).run(key))
+    ok = same_runs(ref, loop)
+    print(f"path (I2) loopback, int8 + error feedback, 10 of 20, dropout "
+          f"0.1, stragglers 0.3: == in-process {ok}; wall in-process "
+          f"{ref_s:.3f} s, loopback {loop_s:.3f} s; up "
+          f"{[r.upload_bytes for r in loop[1]]} B, wire (tx, rx) "
+          f"{[(r.wire_tx_bytes, r.wire_rx_bytes) for r in loop[1]]} B, "
+          f"active {[int(r.participation.active.sum()) for r in loop[1]]}",
+          flush=True)
+    if not ok:
+        raise SystemExit("path (I2): the lossy loopback run is not the "
+                         "in-process engine's on the card")
+    del ref, loop
+
+    # (I3) async loopback at path (F)'s settings, with faults
+    cfg3 = RuntimeConfig(rounds=3, transport="loopback", workers=I_WORKERS,
+                         scheduler=SchedulerConfig(**PATH_F_SCHED),
+                         **PATH_F)
+    key = rnd.PRNGKey(5, dev)
+    clean, clean_s = timed(lambda: TransportEngine(tpfl, data, cfg3).run(
+        key))
+    for r in clean[1]:
+        print(f"path (I3) async round {r.round_idx}: agg "
+              f"{r.aggregated_uploads} buf {r.buffered_uploads} evict "
+              f"{r.evicted_uploads}, up={r.upload_bytes}B, observed "
+              f"{r.observed_staleness}", flush=True)
+    part0 = clean[1][0].participation
+    on_time = (part0.active & (part0.staleness == 0)).cpu().numpy()
+    victim = int(part0.idx.cpu().numpy()[np.nonzero(on_time)[0][0]])
+    faulty = TransportEngine(tpfl, data, cfg3,
+                             faults=FaultPlan(disconnect=((1, 0),)),
+                             retry=RetryPolicy(attempts=2, backoff=0.001)
+                             ).run(key)
+    dropped = TransportEngine(tpfl, data, cfg3,
+                              faults=FaultPlan(drop=((0, victim),))).run(key)
+    c0, d0 = clean[1][0], dropped[1][0]
+    ok_fault = same_runs(clean, faulty, wire=True)
+    ok_drop = (d0.observed_staleness["sampled"]
+               == c0.observed_staleness["sampled"] - 1
+               and d0.upload_bytes == c0.upload_bytes - (4 + 4 * CLAUSES))
+    print(f"path (I3) async loopback, 3 rounds: wall {clean_s:.3f} s; "
+          f"observed stragglers "
+          f"{[r.observed_staleness['stragglers'] for r in clean[1]]}; an "
+          f"injected disconnect retried, run unperturbed: {ok_fault}; "
+          f"client {victim}'s round-0 upload dropped: arrivals "
+          f"{c0.observed_staleness['sampled']} -> "
+          f"{d0.observed_staleness['sampled']}, up {c0.upload_bytes} -> "
+          f"{d0.upload_bytes} B: {ok_drop}", flush=True)
+    if not (ok_fault and ok_drop) or not any(
+            r.observed_staleness["stragglers"] for r in clean[1]) \
+            or not sum(r.aggregated_uploads for r in clean[1]):
+        raise SystemExit("path (I3): the async transport lost, or let in, "
+                         "an upload it should not have")
+    del clean, faulty, dropped, data, tpfl
+
+    # (I4) the socket transport: worker processes on this card
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"path (I4) compute mode: {mode}", flush=True)
+    if mode.lower().startswith("exclusive"):
+        raise SystemExit(f"path (I4): compute mode {mode}: a second CUDA "
+                         f"context cannot open, so {I_WORKERS} socket "
+                         f"worker processes cannot share this card")
+    tel = RUN_DIR / "telemetry_i4"
+    shutil.rmtree(tel, ignore_errors=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", I4_CODE, *PATH_I4_ARGS, "--telemetry-dir",
+         str(tel)], capture_output=True, text=True, env=env, timeout=900)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise SystemExit(f"path (I4): the socket run exited "
+                         f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                         f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if line.startswith(("round ", "totals:")):
+            print(f"path (I4) {line}", flush=True)
+    out = json.loads(next(x for x in lines if x.startswith("I4_RESULT "))
+                     .split(" ", 1)[1])
+    startup = float(next(x for x in lines if x.startswith("I4_STARTUP "))
+                    .split(" ", 1)[1])
+    workers = [json.loads(x.split("transport worker ", 1)[1])
+               for x in proc.stderr.splitlines()
+               if x.startswith("transport worker ")]
+    apps = json.loads(next(x for x in lines if x.startswith("I4_APPS "))
+                      .split(" ", 1)[1])
+    roles = {str(apps["server"]): "server"} | {
+        str(pid): f"worker {r}" for r, pid in enumerate(apps["workers"])}
+
+    def app(line):
+        pid, _, used = (x.strip() for x in line.partition(","))
+        return f"{roles.get(pid, 'pid ' + pid)} {used}"
+
+    print("path (I4) device memory by process before SHUTDOWN "
+          "(nvidia-smi, contexts included): "
+          + ("; ".join(map(app, apps["apps"])) or "none listed"), flush=True)
+    rounds = [e["phases"]["round"] for e in obs.read_events(
+        tel / "events.jsonl")]
+    print(f"path (I4) socket, {I_WORKERS} worker processes: {wall:.2f} s "
+          f"wall; start-up (spawn to the last HELLO) {startup:.3f} s; "
+          f"rounds {[round(x, 4) for x in rounds]} s (in-process CLI "
+          f"{[round(x, 4) for x in main_rounds]} s); wire (tx, rx) "
+          f"{out['wire']} B; peak device memory server "
+          f"{out['server_peak_bytes'] / 2**20:.1f} MiB, workers "
+          + ", ".join(f"{w['rank']} {w['peak_bytes'] / 2**20:.1f} MiB"
+                      for w in sorted(workers, key=lambda w: w["rank"])),
+          flush=True)
+    for w in sorted(workers, key=lambda w: w["rank"]):
+        print(f"path (I4) worker {w['rank']}: device {w['device']}, "
+              f"launches {w['launches']}", flush=True)
+    same_cli = (out["acc_per_round"] == main_result["acc_per_round"]
+                and all(out[k] == main_result[k] for k in (
+                    "upload_bytes", "download_bytes_broadcast",
+                    "download_bytes_per_client")))
+    print(f"check path (I4) socket CLI == in-process CLI "
+          f"(acc_per_round, bytes): {same_cli}", flush=True)
+    if not same_cli or sorted(w["rank"] for w in workers) \
+            != list(range(I_WORKERS)) or any(
+            not w["device"].startswith("cuda")
+            or w["launches"]["train_epoch_fused"] != 2 * 2
+            or w["launches"]["fused_votes_batched"] == 0 for w in workers):
+        raise SystemExit("path (I4): the socket run differs from the "
+                         "in-process CLI, or a worker ran no kernel 1 on "
+                         "the card")
+    return a1w, kw1w
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1810,6 +2148,10 @@ def main() -> int:
     # 1000 FEMNIST clients streamed
     path_h(dev, g["peak"])
 
+    # path (I): the transports, loopback worker peers and socket worker
+    # processes on this card
+    a1w, kw1w = path_i(dev, result, round_s, err)
+
     # 9. small runs on the card against the same on the CPU: the
     # unit-weight federation, and a checkpoint and its serving
     small = []
@@ -2054,6 +2396,29 @@ def main() -> int:
           f"bytes {k1c_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operations "
           f"{k1c_ops / INT32_OPS_PER_S * 1e3:.4f} ms)", flush=True)
     del a1c, cap1c
+    # kernel 1 on path (I)'s last worker epoch: a worker's block of 5
+    # clients, its bound counted from this epoch's Type I rows
+    n1w = a1w[0].shape[0]
+    k1w_plan = train_epoch.plan(*a1w[0].shape)
+    k1w_alone = device_ms(lambda: ops.train_epoch_fused(*a1w, **kw1w), 5,
+                          "train_epoch_kernel")
+    k1w_ms = cuda_ms(lambda: ops.train_epoch_fused(*a1w, **kw1w), reps=5)
+    stats_w = {}
+    k1w_plain = cuda_ms(lambda: train_epoch.train_epoch_plain(
+        *a1w, **kw1w, stats=stats_w), reps=1, warmup=0)
+    k1w_bytes = (2 * 4 * n1w * C * m * L + 2 * 4 * n1w * C * m
+                 + 4 * n1w * S * L + 4 * n1w * S * 2 + 8 * n1w * S * 2 * 3 * 2)
+    k1w_ops = (mix["units"] * (stats_w["type1_rows"] * L + n1w * 2 * S * m)
+               + (2 * S) * n1w * m * W)
+    k1w_bound = max(k1w_bytes / HBM_BYTES_PER_S, k1w_ops / INT32_OPS_PER_S)
+    print(f"train_epoch_fused at path (I)'s worker block (N={n1w}, plan "
+          f"{k1w_plan}, {k1w_plan.cluster * n1w} blocks): {k1w_alone:.4f} "
+          f"ms alone, {k1w_ms:.4f} ms by events, plain {k1w_plain:.1f} ms, "
+          f"library none; bound {k1w_bound * 1e3:.4f} ms "
+          f"({stats_w['type1_rows']} Type I rows, bytes "
+          f"{k1w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operations "
+          f"{k1w_ops / INT32_OPS_PER_S * 1e3:.4f} ms)", flush=True)
+    del a1w, kw1w
     # kernel 1 on the global plan: path (G)'s last epoch (62 classes), and
     # forced on the training path's epoch (C = 10) beside its shared plan
     a1g, kw1g = g["epoch"]

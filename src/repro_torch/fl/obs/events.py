@@ -17,8 +17,13 @@ math:
   last two are 0);
 * ``store``: the mmap client store's host I/O this round (0 on the
   resident engine);
-* ``transport``: ``None``, nothing crosses a process wire in process;
-* ``phases``: the round's phase-span wall times.
+* ``transport``: the framed bytes the real transport (loopback or
+  socket, ``repro_torch.fl.transport``) put on and took off the wire
+  this round and, under async aggregation, the observed staleness of
+  the uploads that arrived; ``None`` in process, where nothing crosses
+  a wire;
+* ``phases``: the round's phase-span wall times, the transport's
+  ``wire_tx`` / ``wire_rx`` spans included.
 
 :func:`to_jsonable` coerces numpy and torch scalars and arrays, paths and
 non-finite floats into plain JSON values before anything is written.
@@ -144,9 +149,25 @@ def round_event(report, spans: dict | None = None,
             "read_bytes": int(getattr(report, "store_read_bytes", 0)),
             "written_bytes": int(getattr(report, "store_written_bytes", 0)),
         },
-        "transport": None,
+        "transport": _transport_gauges(report),
         "phases": dict(spans) if spans else None,
     }
+
+
+def _transport_gauges(report) -> dict | None:
+    """Per-direction framed-byte gauges and the observed arrival
+    staleness of the real transport; ``None`` when nothing crossed a
+    process wire (the in-process engine)."""
+    tx = int(getattr(report, "wire_tx_bytes", 0))
+    rx = int(getattr(report, "wire_rx_bytes", 0))
+    observed = getattr(report, "observed_staleness", None)
+    if tx == 0 and rx == 0 and observed is None:
+        return None
+    gauges = {"wire_tx_bytes": tx, "wire_rx_bytes": rx}
+    if observed is not None:
+        # the runner's arrival_participation(...).summary() dict
+        gauges["observed"] = observed
+    return gauges
 
 
 def append_event(path: str | pathlib.Path, event: dict) -> dict:

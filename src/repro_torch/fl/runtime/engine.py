@@ -11,9 +11,13 @@ participation; uniform, weighted or round-robin sampling; dropout;
 stragglers), over a resident population or the mmap client store.
 :class:`RuntimeConfig` therefore holds the number of rounds, the
 scheduler, the codec, the async settings, the TM route's name, the
-checkpoint cadence and the client store's settings; the reference's
-other runtime settings (the shard-mapped backend, transports) come with
-later slices (ROADMAP.md, queue A) and are refused, as unknown fields.
+checkpoint cadence, the client store's settings and the transport
+(``transport``, ``workers``: the same round with the client half run by
+worker peers over framed messages, in process behind queues or as
+socket subprocesses, :mod:`repro_torch.fl.transport`, whose
+``TransportEngine`` drives this engine's server half); the reference's
+shard-mapped backend comes with a later slice (ROADMAP.md, queue A) and
+is refused, as an unknown field.
 ``tm_backend`` takes the reference's two names, ``"ref"`` and
 ``"pallas"``, which the reference pins bit-identical; both name the
 port's one route (the kernels on the GPU, their plain versions on the
@@ -136,6 +140,7 @@ from repro_torch.fl.store.client_store import ClientStore
 # the reference's TM route names; the port runs one route for both
 TM_BACKENDS = ("ref", "pallas")
 CLIENT_STORES = ("resident", "mmap")
+TRANSPORTS = ("inprocess", "loopback", "socket")
 STORE_EVALS = ("full", "sampled")
 
 # the cohort hooks the engine calls on every strategy
@@ -163,10 +168,44 @@ class RuntimeConfig:
     store_dir: str | None = None      # mmap store root (None = fresh temp)
     store_eval: str = "full"          # full (chunked population) | sampled
     store_eval_chunk: int = 256       # clients per chunked-eval gather
+    # where the round's client half runs (repro_torch.fl.transport):
+    # "inprocess" is this engine's function calls; "loopback" runs the
+    # same round protocol through in-memory length-prefixed frames to
+    # worker peers in this process; "socket" runs M worker subprocesses
+    # over local TCP, where staleness and dropout are observed arrivals
+    transport: str = "inprocess"      # inprocess | loopback | socket
+    workers: int = 0                  # worker peers (>= 1 under a transport)
 
     def __post_init__(self):
         if self.aggregation not in ("sync", "async"):
             raise ValueError(f"unknown aggregation {self.aggregation!r}")
+        if self.transport not in TRANSPORTS:
+            raise ValueError(
+                f"unknown transport {self.transport!r}; choose from "
+                f"{TRANSPORTS} (see docs/transport.md)")
+        if self.transport != "inprocess" and self.workers < 1:
+            raise ValueError(
+                f"transport={self.transport!r} partitions the client "
+                "population over worker peers — set workers >= 1 "
+                f"(got workers={self.workers})")
+        if self.transport == "inprocess" and self.workers != 0:
+            raise ValueError(
+                f"workers={self.workers} is a transport knob; "
+                "transport='inprocess' runs no workers (leave workers=0)")
+        if self.transport != "inprocess" and self.aggregation == "async" \
+                and self.codec.sparse:
+            raise ValueError(
+                "sparse delta coding needs encoder and decoder to agree "
+                "on the reference rows at decode time; the arrival-"
+                "driven async transport decodes uploads rounds after "
+                "they were encoded, so run sparse=True with "
+                "aggregation='sync' or transport='inprocess'")
+        if self.transport != "inprocess" and self.client_store != "resident":
+            raise ValueError(
+                f"transport={self.transport!r} requires "
+                "client_store='resident': worker processes own their "
+                "client rows, which contradicts the single-process mmap "
+                "store")
         if self.codec.error_feedback and self.client_store != "resident":
             raise ValueError(
                 "codec.error_feedback keeps per-(client, slot) residual "
@@ -223,6 +262,14 @@ class RoundReport(NamedTuple):
     evicted_uploads: int                # async: lost to buffer overflow
     store_read_bytes: int = 0           # mmap store host reads this round
     store_written_bytes: int = 0        # mmap store host writes this round
+    # the real transport's gauges: framed bytes the server put on and
+    # took off the wire this round, envelopes and headers included (0 in
+    # process, where nothing crosses a wire)
+    wire_tx_bytes: int = 0              # server → clients, framed
+    wire_rx_bytes: int = 0              # clients → server, framed
+    # the async transport's observed staleness summary of the uploads
+    # that arrived this round (None in process, where it is a schedule)
+    observed_staleness: Any = None
 
 
 class Engine:

@@ -17,7 +17,9 @@ Sampling policies:
 
 Dropout loses a sampled client's upload (it gets no broadcast either);
 a straggler's upload arrives ``staleness ∈ [1, max_staleness]`` rounds
-late, which the sync engine treats as a drop.
+late, which the sync engine treats as a drop.  A real transport server
+records what it observed instead (:func:`arrival_participation`): the
+uploads that crossed the wire in a round, with their arrival lags.
 
 ``sample`` draws on the host and moves the result to the key's device
 in one copy: the draw is a few hundred elementwise ops on K-element
@@ -32,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import device as devices
 from repro_torch import random as rnd
 
 SAMPLING = ("uniform", "weighted", "round_robin")
@@ -77,6 +80,32 @@ class Participation(NamedTuple):
             "stragglers": int((active & (stale > 0)).sum()),
             "staleness_hist": hist.tolist(),
         }
+
+
+def arrival_participation(client_ids, observed_lag,
+                          device=None) -> Participation:
+    """Participation as a real transport server observed one round: the
+    uploads that crossed the wire, with their arrival lags (arrival round
+    − source round; 0 = produced and delivered in the same round), as
+    the reference's.  Every listed upload arrived, so ``active`` is all
+    True, and :meth:`Participation.summary` gives the observed staleness
+    histogram in the scheduled view's schema.  The tensors lie on
+    ``device`` (the GPU unless the caller names another)."""
+    ids = np.asarray(client_ids, np.int32).ravel()
+    lag = np.asarray(observed_lag, np.int32).ravel()
+    if ids.shape != lag.shape:
+        raise ValueError(
+            f"arrival_participation: client_ids{ids.shape} and "
+            f"observed_lag{lag.shape} must be the same length")
+    if lag.size and int(lag.min()) < 0:
+        raise ValueError(
+            "arrival_participation: negative observed lag — an upload "
+            "cannot arrive before the round that produced it")
+    dev = devices.resolve(device)
+    return Participation(
+        idx=torch.from_numpy(ids).to(dev),
+        active=torch.ones((ids.size,), dtype=torch.bool, device=dev),
+        staleness=torch.from_numpy(lag).to(dev))
 
 
 class Scheduler:

@@ -3,9 +3,10 @@
 Counterpart of ``repro/launch/fed_train.py``'s CLI for the configuration
 this slice of the port supports: every strategy of the reference (TPFL,
 FedTM, and the MLP baselines FedAvg, FedProx, IFCA, FLIS-DC, FLIS-HC),
-sync or async, in process, under the reference's scheduler and wire
-codec flags, on the reference's data path (the reference's other knobs
-come with later slices, ROADMAP.md):
+sync or async, in process or over the real transport, under the
+reference's scheduler and wire codec flags, on the reference's data path
+(the reference's shard-mapped backend comes with a later slice,
+ROADMAP.md):
 
   PYTHONPATH=src python -m repro_torch.launch.fed_train \\
       --dataset mnist --data-dir DATA --clauses 300 --clients 20 \\
@@ -21,7 +22,8 @@ come with later slices, ROADMAP.md):
        --async-buffer device|host] [--telemetry-dir RUN_DIR \\
        --profile-dir DIR] [--tm-backend ref|pallas] \\
       [--client-store resident|mmap --store-dir DIR \\
-       --store-eval full|sampled] [--n-clients N]
+       --store-eval full|sampled] [--n-clients N] \\
+      [--transport inprocess|loopback|socket --workers M]
 
 runs on the GPU; ``--device cpu`` runs the kernels' plain versions.
 ``--tm-backend`` takes the reference's two names for its TM routes,
@@ -40,7 +42,14 @@ default 25 writers), cohort by cohort; it needs the mmap store.  It
 prints the same per-round ``acc= … up= … down_bc= … down_pc= …
 active=a/K`` lines (async: `` agg= buf= evict=`` after them), totals
 line and, under the store, ``client store: read=… written=…`` line as
-the reference CLI.  ``--ckpt-dir D
+the reference CLI.  ``--transport
+loopback --workers M`` runs the round's client half in M worker peers
+behind in-memory framed queues (the in-process run bit for bit);
+``--transport socket`` in M worker subprocesses over local TCP, each
+rebuilding its block of the scenario on the run's device (every worker
+on the server's card on a GPU host); the round lines then end with
+``wire_tx=…B wire_rx=…B``, the framed bytes that crossed the wire.
+``--ckpt-dir D
 --ckpt-every k`` saves the engine state every k rounds; ``--resume``
 continues from the newest checkpoint in D and completes the requested
 ``--rounds`` in total.  ``--telemetry-dir`` records a manifest and one
@@ -61,7 +70,7 @@ from repro_torch.fl.obs.events import accuracy_deciles, worst_decile_mean
 from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
                                     RuntimeConfig, SchedulerConfig,
                                     build_baseline_strategy, checkpointing)
-from repro_torch.fl.runtime.engine import TM_BACKENDS
+from repro_torch.fl.runtime.engine import TM_BACKENDS, TRANSPORTS
 from repro_torch.fl.runtime.codec import CODECS, INDEX_CODINGS
 from repro_torch.fl.runtime.scheduler import SAMPLING
 from repro_torch.fl.store import StreamingClientData
@@ -185,6 +194,18 @@ def main(argv: list[str] | None = None) -> dict:
                     help="sparse-delta index stream: u2 = raw uint16 "
                          "indices, vrle = varint gap/run-length pairs "
                          "(requires --sparse)")
+    # real transport (docs/transport.md)
+    ap.add_argument("--transport", default="inprocess", choices=TRANSPORTS,
+                    help="where the round's client half runs: inprocess = "
+                         "the single-process engine, loopback = worker "
+                         "peers behind in-memory framed queues (bit-"
+                         "identical to inprocess), socket = worker "
+                         "subprocesses over local TCP exchanging the "
+                         "encoded frames as length-prefixed messages")
+    ap.add_argument("--workers", type=int, default=0, metavar="M",
+                    help="transport worker peers; the population is "
+                         "partitioned into M contiguous blocks (required "
+                         ">= 1 for --transport loopback/socket)")
     # aggregation mode
     ap.add_argument("--mode", default="sync", choices=("sync", "async"))
     ap.add_argument("--async-min-uploads", type=int, default=4)
@@ -264,7 +285,13 @@ def main(argv: list[str] | None = None) -> dict:
         async_buffer=args.async_buffer, tm_backend=args.tm_backend,
         checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every,
         client_store=args.client_store, store_dir=args.store_dir,
-        store_eval=args.store_eval)
+        store_eval=args.store_eval, transport=args.transport,
+        workers=args.workers)
+    # (a streamed population needs the mmap store, which RuntimeConfig
+    # refuses under a transport)
+    if args.transport != "inprocess" and args.resume:
+        raise SystemExit("--resume is an in-process engine feature; "
+                         "transport runs restart from round 0")
     device = (devices.default_device() if args.device == "cuda"
               else devices.resolve(args.device))
     if streaming:
@@ -301,7 +328,27 @@ def main(argv: list[str] | None = None) -> dict:
     if args.telemetry_dir or args.profile_dir:
         telemetry = obs.RunRecorder(run_dir=args.telemetry_dir,
                                     profile_dir=args.profile_dir)
-    engine = Engine(strategy, data, rt_cfg, telemetry=telemetry)
+    runner = None
+    if args.transport != "inprocess":
+        from repro_torch.fl.transport import TransportEngine
+        spec = None
+        if args.transport == "socket":
+            # the worker subprocesses rebuild the identical scenario from
+            # these knobs on the run's device (build_scenario is
+            # deterministic in them)
+            spec = {"scenario": dict(
+                dataset=args.dataset, data_dir=args.data_dir,
+                encoding=args.encoding, clients=args.clients,
+                clauses=args.clauses, seed=args.seed,
+                experiment=args.experiment, writers=args.writers,
+                rounds=args.rounds, local_epochs=args.local_epochs,
+                strategy=args.strategy, max_slots=args.max_slots,
+                probe_size=args.probe_size, device=str(device))}
+        runner = TransportEngine(strategy, data, rt_cfg,
+                                 telemetry=telemetry, spec=spec)
+        engine = runner.eng
+    else:
+        engine = Engine(strategy, data, rt_cfg, telemetry=telemetry)
     if telemetry is not None:
         telemetry.start(obs.build_manifest(
             config=rt_cfg, seed=args.seed, device=device,
@@ -335,21 +382,30 @@ def main(argv: list[str] | None = None) -> dict:
         split = "writer-natural"
     else:
         split = f"exp{args.experiment}"
+    if runner is not None:
+        kind = "peers" if args.transport == "loopback" else "processes"
+        where = f"{args.transport} transport, {args.workers} worker {kind}"
+    else:
+        where = "in-process"
     print(f"{args.strategy} on {args.dataset} "
           f"[{args.encoding}, {tm_cfg.n_features}f, m={tm_cfg.n_clauses}] "
           f"{split}: {n_clients} clients, "
           f"K={engine.scheduler.k}/round, store={args.client_store}, "
           f"dropout={args.dropout}, "
           f"codec={args.codec}{'+sparse' if args.sparse else ''}, "
-          f"mode={args.mode}, device={device}", flush=True)
+          f"mode={args.mode}, backend={where}, device={device}",
+          flush=True)
     if engine.scheduler.p is not None:
         p = engine.scheduler.p
         print(f"weighted sampling from partition sizes: "
               f"p in [{float(p.min()):.4f}, {float(p.max()):.4f}]",
               flush=True)
     try:
-        state, reports = engine.run(rnd.PRNGKey(args.seed, device),
-                                    state=state, rounds=remaining)
+        if runner is not None:
+            state, reports = runner.run(rnd.PRNGKey(args.seed, device))
+        else:
+            state, reports = engine.run(rnd.PRNGKey(args.seed, device),
+                                        state=state, rounds=remaining)
     finally:
         if telemetry is not None:
             telemetry.close()
@@ -366,6 +422,9 @@ def main(argv: list[str] | None = None) -> dict:
             extra = (f" agg={rep.aggregated_uploads}"
                      f" buf={rep.buffered_uploads}"
                      f" evict={rep.evicted_uploads}")
+        if runner is not None:
+            extra += (f" wire_tx={rep.wire_tx_bytes}B"
+                      f" wire_rx={rep.wire_rx_bytes}B")
         print(f"round {rep.round_idx:3d}: "
               f"acc={float(rep.mean_accuracy):.4f} "
               f"w10%={worst_decile_mean(rep.per_client_accuracy):.4f} "

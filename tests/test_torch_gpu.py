@@ -856,3 +856,76 @@ def test_gpu_baseline_served_equals_offline(cuda, tmp_path):
                                   "8", "--requests", "2",
                                   "--verify-offline"])
     assert out["verified_clients"] == 4 and out["mismatches"] == 0
+
+
+def _run_lanes(state, reps):
+    """A run's final state and reports as numpy (arrays) and its counts
+    (ints: meters, then the wire gauges), for GPU / CPU equality."""
+    arrays = convert.to_numpy(
+        [*state.client_state, state.server.slots, state.ef_residual]
+        + [(r.per_client_accuracy, r.assignment, r.cluster_counts)
+           for r in reps])
+    ints = [(r.upload_bytes, r.download_bytes_broadcast,
+             r.download_bytes_per_client, r.aggregated_uploads,
+             r.wire_tx_bytes, r.wire_rx_bytes) for r in reps]
+    return arrays, ints
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire,sched", [
+    ({}, {}),
+    (dict(name="int8", error_feedback=True),
+     dict(participation=0.75, dropout=0.25, straggler=0.3))],
+    ids=["identity", "int8_ef_partial"])
+def test_gpu_loopback_matches_in_process_and_cpu(cuda, wire, sched):
+    """The loopback transport on the card (two worker peers, each
+    launching the kernels on its block) equals the in-process engine on
+    the card and the loopback on the CPU, bit for bit."""
+    from repro_torch.fl.transport import TransportEngine
+    cfg = RuntimeConfig(rounds=2, codec=CodecConfig(**wire),
+                        scheduler=SchedulerConfig(**sched))
+    loop = RuntimeConfig(rounds=2, codec=CodecConfig(**wire),
+                         scheduler=SchedulerConfig(**sched),
+                         transport="loopback", workers=2)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        data = _population(dev, 4, n_train=16)
+        strat = TPFLStrategy(ttm.TMConfig(**TM), local_epochs=2)
+        n = ops.LAUNCHES["train_epoch_fused"]
+        runs[dev, "loopback"] = _run_lanes(*TransportEngine(
+            strat, data, loop).run(tr.PRNGKey(5, dev)))
+        if dev == "cuda":
+            assert ops.LAUNCHES["train_epoch_fused"] > n
+            runs[dev, "inprocess"] = _run_lanes(*Engine(
+                strat, data, cfg).run(tr.PRNGKey(5, dev)))
+    np.testing.assert_equal(runs["cpu", "loopback"],
+                            runs["cuda", "loopback"])
+    (arrays, ints), (ref_arrays, ref_ints) = (runs["cuda", "loopback"],
+                                              runs["cuda", "inprocess"])
+    np.testing.assert_equal(arrays, ref_arrays)
+    assert [r[:4] for r in ints] == [r[:4] for r in ref_ints]
+    assert all(r[4] > 0 and r[5] > 0 for r in ints)
+
+
+@pytest.mark.gpu
+def test_gpu_socket_matches_in_process(cuda, capfd):
+    """``fed_train --transport socket --workers 2`` on the card: two
+    worker processes, each on the card with its own kernel launches,
+    print the in-process run's metrics."""
+    import json
+    flags = ["--clients", "4", "--rounds", "2", "--clauses", "16",
+             "--local-epochs", "2", "--device", "cuda"]
+    ref = fed_train.main(flags)
+    out = fed_train.main(flags + ["--transport", "socket", "--workers", "2"])
+    assert out["acc_per_round"] == ref["acc_per_round"]
+    for k in ("upload_bytes", "download_bytes_broadcast",
+              "download_bytes_per_client"):
+        assert out[k] == ref[k], k
+    workers = [json.loads(line.split("transport worker ", 1)[1])
+               for line in capfd.readouterr().err.splitlines()
+               if line.startswith("transport worker ")]
+    assert sorted(w["rank"] for w in workers) == [0, 1]
+    for w in workers:
+        assert w["device"].startswith("cuda")
+        assert w["launches"]["train_epoch_fused"] == 2 * 2
+        assert w["launches"]["fused_votes_batched"] > 0

@@ -74,6 +74,10 @@ def _host_value_makers(tmp_path):
     from repro_torch import random as tr
     from repro_torch.data import partition, synthetic
     from repro_torch.data.ingest import mirror, registry
+    from repro_torch.fl.runtime import RuntimeConfig
+    from repro_torch.fl.runtime.scheduler import arrival_participation
+    from repro_torch.fl.transport.worker import (runtime_config_to_dict,
+                                                 worker_from_spec)
     from repro_torch.launch import fed_train
     x, y, _ = synthetic.make_dataset("synthmnist", 50, tr.PRNGKey(0, "cpu"),
                                      side=12)
@@ -110,6 +114,12 @@ def _host_value_makers(tmp_path):
                 np.zeros(2)),
         "server_state_from_numpy": lambda: convert.server_state_from_numpy(
             np.zeros((2, 3)), (np.zeros((4, 3)), np.zeros(2))),
+        "arrival_participation": lambda: arrival_participation([1], [0]),
+        "worker_from_spec": lambda: worker_from_spec({
+            "runtime": runtime_config_to_dict(RuntimeConfig(
+                transport="socket", workers=1)),
+            "scenario": {"dataset": "synthmnist", "clients": 2,
+                         "device": "cuda"}, "key": [0, 0]}, 0),
     }
 
 
@@ -119,7 +129,8 @@ def _host_value_makers(tmp_path):
     "registry.load_leaf", "registry.load_stream", "build_scenario",
     "key_from_numpy", "tm_params_from_numpy", "engine_state_from_numpy",
     "mlp_params_from_numpy", "flis_client_state_from_numpy",
-    "server_state_from_numpy"])
+    "server_state_from_numpy", "arrival_participation",
+    "worker_from_spec"])
 def test_tensors_from_host_values_default_to_the_gpu(monkeypatch, tmp_path,
                                                      name):
     """The partition draws on its key's device, so a GPU default for the

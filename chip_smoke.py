@@ -137,7 +137,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    with the fused epoch launched (the ``transport worker`` line each
    writes to stderr at SHUTDOWN), the start-up (spawn to the last
    HELLO), the round times beside the in-process CLI's and each
-   process's peak device memory;
+   process's peak device memory; then path (J), the multi-device backend
+   (``path_j``): (J1) ``fed_train --mesh clients:1`` on one NCCL rank on
+   ``cuda:0``, ``--collective gather`` and ``psum``, each with a
+   checkpoint a round and telemetry, its round lines and checkpoint
+   files equal to the training path's (the in-process CLI's) byte for
+   byte, its round times, the rank's launches (the fused epoch once per
+   local epoch, the fused votes twice a round) and its collective bytes
+   against ``collective_payload_bytes``; (J2) 4 ``gloo`` ranks all on
+   ``cuda:0`` through ``mesh.run_federations`` (sync TPFL on the
+   identity wire, gather and psum; TPFL on int8 + sparse on 10 of 20
+   clients, the staged path; FLIS-DC, the assign stage; async TPFL at
+   path (F)'s settings, psum), each against the in-process engine on
+   the card (the TM runs bit for bit, FLIS-DC within ``E_TOL``), with
+   each rank's device, launches and metered bytes;
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
@@ -163,9 +176,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and Type II rows, bytes against hashing, and its time with no row
    listed); the fused epoch on the global plan at path (G)'s last epoch
    (1g) and forced at the training path's epoch beside the shared plan
-   (1f), the batched fused votes at path (G)'s 62 classes (2g), and the
-   fused epoch at path (I)'s worker block of 5 clients (1w), each by
-   events, alone, against its plain version and its bound;
+   (1f), the batched fused votes at path (G)'s 62 classes (2g), the
+   fused epoch at path (I)'s worker block of 5 clients (1w) and at path
+   (J2)'s rank block of 3 (1j, exact against its plain version), each
+   by events, alone, against its plain version and its bound;
 11. profile one more full-width round of the training path, one of
    path (B), one of path (C), one of path (D), one IFCA round of path
    (E), one async round of path (F) and one FEMNIST round of path (G)
@@ -1664,6 +1678,191 @@ def path_i(dev, main_result, main_rounds, err):
     return a1w, kw1w
 
 
+# path (J): the multi-device backend (a clients mesh) at the training
+# path's width: (J1) the CLI on one NCCL rank, (J2) 4 gloo ranks sharing
+# cuda:0 through the library
+J1_ARGS = SCENARIO + ["--rounds", "2", "--ckpt-every", "1", "--mesh",
+                      "clients:1"]
+J_RANKS = 4
+CKPT_NAMES = ("round_000001.msgpack", "round_000002.msgpack")
+
+
+def _meter(out: dict, rounds: int) -> tuple[str, bool]:
+    """The collective bytes (and seconds: host clock, card synced) each
+    rank metered, and whether every rank's aggregation moved
+    ``collective_payload_bytes`` a round."""
+    payload = out["collective_payload_bytes"]
+    ok = True
+    parts = []
+    for rank, m in enumerate(out["meter"]):
+        agg = m["bytes"]["aggregate"] - m["pad"]["aggregate"]
+        ok &= agg == rounds * payload
+        parts.append(f"rank {rank}: " + ", ".join(
+            f"{k} {v} B in {m['seconds'][k]:.4f} s ({m['calls'][k]} calls"
+            + (f", {m['pad'][k]} B padding" if m["pad"][k] else "") + ")"
+            for k, v in sorted(m["bytes"].items())))
+    return (f"aggregate {agg} B = {rounds} x collective_payload_bytes "
+            f"{payload} B: {ok}; " + "; ".join(parts)), bool(ok)
+
+
+def path_j(dev, main_result):
+    """Path (J), the shard-mapped backend over ``torch.distributed`` at
+    the training path's width.  (J1) ``fed_train --mesh clients:1`` on
+    NCCL, ``cuda:0``, with ``--collective gather`` and ``psum``: each run's
+    round lines and checkpoint files equal the in-process CLI's
+    (``main_result``, ``RUN_DIR / "ckpt"``) byte for byte; its round times
+    (telemetry), the rank's launches (kernel 1 once per local epoch,
+    kernel 2 twice a round) and collective bytes against
+    ``collective_payload_bytes``.  (J2) 4 ``gloo`` ranks all on ``cuda:0``
+    through ``mesh.run_federations``: sync TPFL on the identity wire (the
+    fused round), gather and psum; TPFL on int8 + sparse, 10 of 20 clients
+    (the staged path, kernel 1 at each rank's block of 3); FLIS-DC (the
+    assign stage); async TPFL at path (F)'s settings, psum.  Each run
+    against the in-process engine on the card: the TM runs bit for bit,
+    FLIS-DC's integers exact and its floats within ``E_TOL``; each
+    rank's launches, devices and metered bytes (the mesh builder has
+    checked that gloo runs every collective on the card's tensors).
+    Returns J2's round times."""
+    import torch
+    from repro_torch import convert
+    from repro_torch import random as rnd
+    from repro_torch import tree
+    from repro_torch.fl import obs
+    from repro_torch.fl.runtime import (CodecConfig, Engine, RuntimeConfig,
+                                        SchedulerConfig)
+    from repro_torch.launch import fed_train
+    from repro_torch.launch import mesh as mesh_lib
+
+    # (J1) the CLI on one NCCL rank
+    for coll in ("gather", "psum"):
+        ck, tel = RUN_DIR / f"ckpt_j1_{coll}", RUN_DIR / f"telemetry_j1_{coll}"
+        shutil.rmtree(ck, ignore_errors=True)
+        shutil.rmtree(tel, ignore_errors=True)
+        t = time.perf_counter()
+        out = fed_train.main(J1_ARGS + ["--collective", coll, "--ckpt-dir",
+                                        str(ck), "--telemetry-dir",
+                                        str(tel)])
+        wall = time.perf_counter() - t
+        ran = out["mesh"]
+        rounds = [e["phases"]["round"]
+                  for e in obs.read_events(tel / "events.jsonl")]
+        same_lines = out["round_lines"] == main_result["round_lines"]
+        same_ckpt = all((ck / n).read_bytes()
+                        == (RUN_DIR / "ckpt" / n).read_bytes()
+                        for n in CKPT_NAMES)
+        line, ok_bytes = _meter(ran, 2)
+        launches = ran["launches"][0]
+        print(f"path (J1) fed_train --mesh clients:1 --collective {coll}: "
+              f"{wall:.2f} s wall (spawn, scenario, 2 rounds); rounds "
+              f"{[round(x, 4) for x in rounds]} s; {ran['backend']} on "
+              f"{ran['devices']}; launches "
+              f"{launches}; round lines == in-process CLI {same_lines}; "
+              f"checkpoints == in-process CLI's bytes {same_ckpt}",
+              flush=True)
+        print(f"path (J1) {coll} collectives: {line}", flush=True)
+        if not (same_lines and same_ckpt and ok_bytes) \
+                or ran["backend"] != "nccl" or ran["devices"] != ["cuda:0"] \
+                or launches["train_epoch_fused"] != 2 * 2 \
+                or launches["fused_votes_batched"] != 2 * 2:
+            raise SystemExit(f"path (J1): the {coll} mesh CLI is not the "
+                             f"in-process CLI on the card, or its rank ran "
+                             f"off the card or without its kernels")
+
+    # (J2) 4 gloo ranks sharing cuda:0, through the library
+    data, _, _, tpfl = fed_train.build_scenario(
+        dataset=DATASET, data_dir=str(DATA_DIR), clients=CLIENTS,
+        clauses=CLAUSES, device=dev)
+    _, _, _, flis = fed_train.build_scenario(
+        dataset=DATASET, data_dir=str(DATA_DIR), clients=CLIENTS,
+        clauses=CLAUSES, strategy="flis_dc", device=dev)
+    lossy = dict(codec=CodecConfig("int8", sparse=True),
+                 scheduler=SchedulerConfig(participation=10 / 20))
+    runs = {  # name: (strategy, runtime settings, launches a rank)
+        "sync TPFL, identity wire (fused round), gather":
+            (tpfl, dict(rounds=2), (4, 4)),
+        "sync TPFL, identity wire (fused round), psum":
+            (tpfl, dict(rounds=2, mesh_collective="psum"), (4, 4)),
+        "TPFL int8 + sparse, 10 of 20 (staged, N = 3 a rank), gather":
+            (tpfl, dict(rounds=2, **lossy), (4, 4)),
+        "FLIS-DC (assign stage), gather":
+            (flis, dict(rounds=2), (0, 0)),
+        "async TPFL at path (F)'s settings, psum":
+            (tpfl, dict(rounds=3, mesh_collective="psum",
+                        scheduler=SchedulerConfig(**PATH_F_SCHED),
+                        **PATH_F), (6, 6)),
+    }
+    host_data = tree.map(lambda a: a.cpu(), data)
+    jobs = [dict(strategy=st, data=host_data, seed=7, config=RuntimeConfig(
+        backend="shardmap", **kw)) for st, kw, _ in runs.values()]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results = mesh_lib.spawn(mesh_lib.run_federations, J_RANKS, jobs,
+                             device="cuda", shared_device=True)
+    world = time.perf_counter() - t
+    print(f"path (J2) {J_RANKS} gloo ranks on cuda:0: {world:.2f} s wall "
+          f"(spawn, the ranks' start-up, {len(jobs)} runs)", flush=True)
+
+    def bits(a):
+        a = np.ascontiguousarray(convert.to_numpy(a))
+        return a.view(np.int32) if a.dtype == np.float32 else a
+
+    def same(a, b, tol=False) -> bool:
+        a, b = convert.to_numpy(a), convert.to_numpy(b)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if tol and a.dtype == np.float32:
+            return bool(np.allclose(b, a, **E_TOL))
+        return bool(np.array_equal(bits(a), bits(b)))
+
+    times = {}
+    for (name, (st, kw, (k1, k2))), res in zip(runs.items(), results):
+        ref_kw = {k: v for k, v in kw.items() if k != "mesh_collective"}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rstate, rreps = Engine(st, data, RuntimeConfig(**ref_kw)).run(
+            rnd.PRNGKey(7, dev))
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t
+        mlp = st is flis
+        ok = len(rreps) == len(res["reports"])
+        for a, b in zip(rreps, res["reports"]):
+            ok &= all(same(getattr(a, f), getattr(b, f), tol=mlp) for f in (
+                "assignment", "cluster_counts", "per_client_accuracy"))
+            ok &= all(same(x, y) for x, y in zip(a.participation,
+                                                  b.participation))
+            ok &= all(getattr(a, f) == getattr(b, f) for f in (
+                "upload_bytes", "download_bytes_broadcast",
+                "download_bytes_per_client", "aggregated_uploads",
+                "buffered_uploads", "evicted_uploads"))
+            ok &= abs(float(a.mean_accuracy) - float(b.mean_accuracy)) \
+                <= (1e-5 if mlp else 1e-6)
+        la = tree.leaves(tuple(rstate))
+        lb = tree.leaves(tuple(res["state"]))
+        ok &= len(la) == len(lb) and all(
+            same(x, y, tol=mlp) for x, y in zip(la, lb))
+        exact_bits = len(la) == len(lb) and all(
+            same(x, y) for x, y in zip(la, lb))
+        rounds = [e["phases"]["round"] for e in res["events"]]
+        times[name] = rounds
+        line, ok_bytes = _meter(res, kw["rounds"])
+        launched = [(r["train_epoch_fused"], r["fused_votes_batched"])
+                    for r in res["launches"]]
+        print(f"path (J2) {name}: == in-process on the card {ok} "
+              f"(state bit for bit {exact_bits}); rounds "
+              f"{[round(x, 4) for x in rounds]} s (run {res['seconds']:.3f}"
+              f" s; in process {ref_s:.3f} s); devices {res['devices']}; "
+              f"(kernel 1, kernel 2) launches a rank {launched}", flush=True)
+        print(f"path (J2) {name} collectives: {line}", flush=True)
+        if not (ok and ok_bytes) or (not mlp and not exact_bits) \
+                or res["backend"] != "gloo" \
+                or res["devices"] != ["cuda:0"] * J_RANKS \
+                or launched != [(k1, k2)] * J_RANKS:
+            raise SystemExit(f"path (J2) {name}: the mesh run is not the "
+                             f"in-process engine on the card, or a rank ran "
+                             f"off the card or without its kernels")
+    return times
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2152,6 +2351,10 @@ def main() -> int:
     # processes on this card
     a1w, kw1w = path_i(dev, result, round_s, err)
 
+    # path (J): the multi-device backend, the CLI on one NCCL rank and 4
+    # gloo ranks sharing this card
+    path_j(dev, result)
+
     # 9. small runs on the card against the same on the CPU: the
     # unit-weight federation, and a checkpoint and its serving
     small = []
@@ -2397,28 +2600,43 @@ def main() -> int:
           f"{k1c_ops / INT32_OPS_PER_S * 1e3:.4f} ms)", flush=True)
     del a1c, cap1c
     # kernel 1 on path (I)'s last worker epoch: a worker's block of 5
-    # clients, its bound counted from this epoch's Type I rows
-    n1w = a1w[0].shape[0]
-    k1w_plan = train_epoch.plan(*a1w[0].shape)
-    k1w_alone = device_ms(lambda: ops.train_epoch_fused(*a1w, **kw1w), 5,
-                          "train_epoch_kernel")
-    k1w_ms = cuda_ms(lambda: ops.train_epoch_fused(*a1w, **kw1w), reps=5)
-    stats_w = {}
-    k1w_plain = cuda_ms(lambda: train_epoch.train_epoch_plain(
-        *a1w, **kw1w, stats=stats_w), reps=1, warmup=0)
-    k1w_bytes = (2 * 4 * n1w * C * m * L + 2 * 4 * n1w * C * m
-                 + 4 * n1w * S * L + 4 * n1w * S * 2 + 8 * n1w * S * 2 * 3 * 2)
-    k1w_ops = (mix["units"] * (stats_w["type1_rows"] * L + n1w * 2 * S * m)
-               + (2 * S) * n1w * m * W)
-    k1w_bound = max(k1w_bytes / HBM_BYTES_PER_S, k1w_ops / INT32_OPS_PER_S)
-    print(f"train_epoch_fused at path (I)'s worker block (N={n1w}, plan "
-          f"{k1w_plan}, {k1w_plan.cluster * n1w} blocks): {k1w_alone:.4f} "
-          f"ms alone, {k1w_ms:.4f} ms by events, plain {k1w_plain:.1f} ms, "
-          f"library none; bound {k1w_bound * 1e3:.4f} ms "
-          f"({stats_w['type1_rows']} Type I rows, bytes "
-          f"{k1w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operations "
-          f"{k1w_ops / INT32_OPS_PER_S * 1e3:.4f} ms)", flush=True)
-    del a1w, kw1w
+    # clients (1w), and its first 3 clients, the block each rank of path
+    # (J2) trains on 10 of 20 clients (1j, held exactly against its plain
+    # version first); each bound counted from the epoch's Type I rows
+    a1j = tuple(a[:3].contiguous() for a in a1w)
+    got = ops.train_epoch_fused(*a1j, **kw1w)
+    want = train_epoch.train_epoch_plain(*a1j, **kw1w)
+    what = f"a rank's block N=3 plan {train_epoch.plan(*a1j[0].shape)}"
+    exact("train_epoch_fused", got[0], want[0], f"{what} TA states", err)
+    exact("train_epoch_fused", got[1], want[1], f"{what} weights", err)
+    del got, want
+    for label, a1x in (("path (I)'s worker block", a1w),
+                       ("path (J2)'s rank block", a1j)):
+        n1w = a1x[0].shape[0]
+        k1w_plan = train_epoch.plan(*a1x[0].shape)
+        k1w_alone = device_ms(lambda: ops.train_epoch_fused(*a1x, **kw1w), 5,
+                              "train_epoch_kernel")
+        k1w_ms = cuda_ms(lambda: ops.train_epoch_fused(*a1x, **kw1w), reps=5)
+        stats_w = {}
+        k1w_plain = cuda_ms(lambda: train_epoch.train_epoch_plain(
+            *a1x, **kw1w, stats=stats_w), reps=1, warmup=0)
+        k1w_bytes = (2 * 4 * n1w * C * m * L + 2 * 4 * n1w * C * m
+                     + 4 * n1w * S * L + 4 * n1w * S * 2
+                     + 8 * n1w * S * 2 * 3 * 2)
+        k1w_ops = (mix["units"] * (stats_w["type1_rows"] * L
+                                   + n1w * 2 * S * m)
+                   + (2 * S) * n1w * m * W)
+        k1w_bound = max(k1w_bytes / HBM_BYTES_PER_S,
+                        k1w_ops / INT32_OPS_PER_S)
+        print(f"train_epoch_fused at {label} (N={n1w}, plan "
+              f"{k1w_plan}, {k1w_plan.cluster * n1w} blocks): "
+              f"{k1w_alone:.4f} ms alone, {k1w_ms:.4f} ms by events, plain "
+              f"{k1w_plain:.1f} ms, library none; bound "
+              f"{k1w_bound * 1e3:.4f} ms ({stats_w['type1_rows']} Type I "
+              f"rows, bytes {k1w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+              f"operations {k1w_ops / INT32_OPS_PER_S * 1e3:.4f} ms)",
+              flush=True)
+    del a1w, a1j, kw1w
     # kernel 1 on the global plan: path (G)'s last epoch (62 classes), and
     # forced on the training path's epoch (C = 10) beside its shared plan
     a1g, kw1g = g["epoch"]

@@ -3,7 +3,8 @@
 Counterpart of ``repro/fl/obs/manifest.py``.  One ``manifest.json`` per
 run directory, written before the first round: the resolved
 configuration (``RuntimeConfig`` with its scheduler and codec, dataclasses
-flattened), the seed, the device inventory, the git sha the run was
+flattened), the seed, the clients mesh (``{axis: ranks}``, None in
+process), the device inventory, the git sha the run was
 built from, and the torch and CUDA versions (where the reference records
 jax's).  The same dict rides along with engine checkpoints
 (:func:`repro_torch.fl.runtime.checkpointing.save`).
@@ -47,17 +48,21 @@ def _flatten_config(obj: Any) -> Any:
 
 
 def build_manifest(config: Any = None, seed: int | None = None,
-                   device=None, extra: dict | None = None) -> dict:
+                   device=None, extra: dict | None = None,
+                   mesh=None) -> dict:
     """The provenance dict.  ``config`` is any dataclass (nested ones are
     flattened); ``device`` the run's device (``platform`` is ``gpu`` for
-    a CUDA device, else ``cpu``); ``extra`` free-form caller fields (CLI
-    argv, dataset name, strategy...)."""
+    a CUDA device, else ``cpu``); ``mesh`` the run's clients mesh (a
+    :class:`~repro_torch.launch.mesh.ClientsMesh`) or None in process;
+    ``extra`` free-form caller fields (CLI argv, dataset name,
+    strategy...)."""
     dev = torch.device(device) if device is not None else None
     n_gpus = torch.cuda.device_count() if torch.cuda.is_available() else 0
     manifest = {
         "config": _flatten_config(config),
         "seed": seed,
-        "mesh": None,
+        "mesh": ({str(k): int(v) for k, v in mesh.shape.items()}
+                 if mesh is not None else None),
         "devices": {
             "count": n_gpus,
             "platform": (None if dev is None

@@ -1,23 +1,22 @@
-"""The federated round engine on one device, sync or async.
+"""The federated round engine, sync or async, on one device or a mesh.
 
-Counterpart of ``repro/fl/runtime/engine.py`` for the configuration this
-slice of the port supports: sync barrier or async buffered aggregation,
-every strategy of the reference (TPFL, FedTM, FedAvg / FedProx, IFCA,
-FLIS-DC / HC) with its server-side ``assign`` and ``server_update``
-hooks, every wire codec (float32, int8, int4; sparse delta with ``<u2``
-or varint+RLE indices; error feedback), the resident client population
-and the in-process executor, under any scheduler setting (partial
-participation; uniform, weighted or round-robin sampling; dropout;
-stragglers), over a resident population or the mmap client store.
+Counterpart of ``repro/fl/runtime/engine.py``: sync barrier or async
+buffered aggregation, every strategy of the reference (TPFL, FedTM,
+FedAvg / FedProx, IFCA, FLIS-DC / HC) with its server-side ``assign``
+and ``server_update`` hooks, every wire codec (float32, int8, int4;
+sparse delta with ``<u2`` or varint+RLE indices; error feedback), under
+any scheduler setting (partial participation; uniform, weighted or
+round-robin sampling; dropout; stragglers), over a resident population
+or the mmap client store, in process or shard-mapped over a clients
+mesh.
 :class:`RuntimeConfig` therefore holds the number of rounds, the
-scheduler, the codec, the async settings, the TM route's name, the
+scheduler, the codec, the async settings, the backend (``backend``,
+``mesh_axis``, ``mesh_collective``), the TM route's name, the
 checkpoint cadence, the client store's settings and the transport
 (``transport``, ``workers``: the same round with the client half run by
 worker peers over framed messages, in process behind queues or as
 socket subprocesses, :mod:`repro_torch.fl.transport`, whose
-``TransportEngine`` drives this engine's server half); the reference's
-shard-mapped backend comes with a later slice (ROADMAP.md, queue A) and
-is refused, as an unknown field.
+``TransportEngine`` drives this engine's server half).
 ``tm_backend`` takes the reference's two names, ``"ref"`` and
 ``"pallas"``, which the reference pins bit-identical; both name the
 port's one route (the kernels on the GPU, their plain versions on the
@@ -99,6 +98,25 @@ routes, bit for bit the same:
   over the matured buffer rows when they are folded in, not when they
   were sent (:meth:`Engine._fold_host_buffer`).
 
+The shard-mapped backend (``backend="shardmap"``, ``Engine(...,
+mesh=...)`` with a :class:`~repro_torch.launch.mesh.ClientsMesh`): the
+same engine runs on every rank of a ``torch.distributed`` clients group
+from the same seed (SPMD), so the schedule, the codec, the ``assign``
+hook and the async insert are replicated and every rank holds the same
+server state, buffer lanes and population; the
+:class:`~repro_torch.fl.runtime.executors.ShardMapExecutor` computes each
+rank's block of the cohort and makes the outputs whole by collectives,
+the aggregation one masked collective (``mesh_collective``: ``gather``,
+bit for bit the in-process engine; ``psum``, the (C, m) accumulator,
+exact on integer uploads).  On the identity wire under a sync barrier,
+with the population in order and no ``assign`` hook, the whole round is
+one executor call in a ``fused_round`` span (then the spans are
+``schedule``, ``gather``, ``fused_round``, ``downlink``, ``eval``, as
+in the reference).  Only rank 0 writes checkpoints; over the mmap store
+only rank 0 holds the store and the rows reach the others by broadcast
+(:class:`~repro_torch.fl.runtime.executors.RankZeroStore`).  The
+caller gives telemetry to rank 0 alone.
+
 The key chain matches the reference: ``k_init, k_rounds = split(key)``,
 round r runs under ``fold_in(k_rounds, r)``.  With the same data and key
 every report field and the final state (client state, server rows,
@@ -129,7 +147,11 @@ from repro_torch.fl.obs.recorder import NULL as NULL_TELEMETRY
 from repro_torch.fl.runtime import checkpointing
 from repro_torch.fl.runtime.codec import CodecConfig, decode, ef_encode, encode
 from repro_torch.fl.runtime import executors
-from repro_torch.fl.runtime.executors import InProcessExecutor, applied_slots
+from repro_torch.fl.runtime.executors import (COLLECTIVES,
+                                              InProcessExecutor,
+                                              RankZeroStore,
+                                              ShardMapExecutor,
+                                              applied_slots)
 from repro_torch.fl.runtime.scheduler import (Participation, Scheduler,
                                               SchedulerConfig)
 from repro_torch.fl.runtime.strategy import (DOWNLOADS, ServerState,
@@ -137,6 +159,7 @@ from repro_torch.fl.runtime.strategy import (DOWNLOADS, ServerState,
 from repro_torch.fl.store import client_store
 from repro_torch.fl.store.client_store import ClientStore
 
+BACKENDS = ("inprocess", "shardmap")
 # the reference's TM route names; the port runs one route for both
 TM_BACKENDS = ("ref", "pallas")
 CLIENT_STORES = ("resident", "mmap")
@@ -157,6 +180,9 @@ class RuntimeConfig:
     buffer_capacity: int = 64         # fixed-capacity async upload buffer
     staleness_discount: float = 0.5   # matured weight = discount**staleness
     async_buffer: str = "device"      # device (tensor ops) | host (reference)
+    backend: str = "inprocess"        # inprocess | shardmap
+    mesh_axis: str = "clients"        # the mesh's axis: "clients" only
+    mesh_collective: str = "gather"   # gather (bit-exact) | psum (C·m bytes)
     tm_backend: str = "ref"           # the reference's names, one route here
     checkpoint_dir: str | None = None
     checkpoint_every: int = 0         # 0 = never
@@ -200,6 +226,12 @@ class RuntimeConfig:
                 "driven async transport decodes uploads rounds after "
                 "they were encoded, so run sparse=True with "
                 "aggregation='sync' or transport='inprocess'")
+        if self.transport != "inprocess" and self.backend != "inprocess":
+            raise ValueError(
+                f"transport={self.transport!r} distributes clients over "
+                "worker processes — it composes with backend='inprocess' "
+                f"only, not backend={self.backend!r} (shard_map is "
+                "single-process mesh parallelism)")
         if self.transport != "inprocess" and self.client_store != "resident":
             raise ValueError(
                 f"transport={self.transport!r} requires "
@@ -218,10 +250,24 @@ class RuntimeConfig:
             raise ValueError(f"unknown store_eval {self.store_eval!r}")
         if self.store_eval_chunk < 1:
             raise ValueError("store_eval_chunk must be >= 1")
-        if self.async_buffer not in ("device", "host"):
-            raise ValueError(f"unknown async_buffer {self.async_buffer!r}")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}")
         if self.tm_backend not in TM_BACKENDS:
             raise ValueError(f"unknown tm_backend {self.tm_backend!r}")
+        if self.mesh_collective not in COLLECTIVES:
+            raise ValueError(
+                f"unknown mesh_collective {self.mesh_collective!r}")
+        if self.mesh_axis != "clients":
+            # the port's mesh (launch.mesh.ClientsMesh) has this one axis
+            raise ValueError(f"mesh has no {self.mesh_axis!r} axis: the "
+                             f"clients mesh's one axis is 'clients'")
+        if self.async_buffer not in ("device", "host"):
+            raise ValueError(f"unknown async_buffer {self.async_buffer!r}")
+        if self.backend == "shardmap" and self.aggregation == "async" \
+                and self.async_buffer == "host":
+            raise ValueError(
+                "the host-buffered async reference is in-process only — "
+                "the shard-mapped backend runs async_buffer='device'")
 
 
 class EngineState(NamedTuple):
@@ -276,7 +322,7 @@ class Engine:
     """Round orchestrator for one strategy over one client population."""
 
     def __init__(self, strategy, data: ClientData, cfg: RuntimeConfig,
-                 telemetry=None):
+                 telemetry=None, mesh=None):
         missing = [h for h in _HOOKS if not hasattr(strategy, h)]
         if missing:
             raise TypeError(
@@ -300,6 +346,12 @@ class Engine:
         self._async_hooks = cfg.aggregation == "async" and (
             self._assign is not None
             or getattr(strategy, "server_update", None) is not None)
+        if self._async_hooks and cfg.backend == "shardmap":
+            raise ValueError(
+                "async + server-side assign/server_update hooks "
+                "aggregate on the in-process host buffer path — run "
+                "this strategy with backend='inprocess' (the shard-"
+                "mapped async program hard-codes the hook-less fold)")
         self.data = data
         self.cfg = cfg
         # a streaming population knows its size and device without
@@ -318,7 +370,19 @@ class Engine:
         # weighted sampling weighs clients by the partitioner's pool
         # shares: clients holding more data are sampled more often
         self.scheduler = Scheduler(cfg.scheduler, self.n, data.sizes)
-        self.executor = InProcessExecutor()
+        # the clients mesh this rank belongs to (None in process)
+        self.mesh = mesh if cfg.backend == "shardmap" else None
+        if cfg.backend == "shardmap":
+            self.executor = ShardMapExecutor(
+                self.mesh, collective=cfg.mesh_collective)
+            if self.mesh.device != self.device:
+                raise ValueError(
+                    f"the data lie on {self.device}, this rank of the "
+                    f"mesh computes on {self.mesh.device}")
+        else:
+            self.executor = InProcessExecutor()
+        # rank 0 alone writes checkpoints and the store
+        self._rank0 = self.mesh is None or self.mesh.rank == 0
         # discount**staleness by staleness: Python's double pow cast once
         # to float32, as each host insert does
         self._discount = torch.as_tensor(np.asarray(
@@ -410,9 +474,13 @@ class Engine:
                 out["ref_round"] = np.full((ids.size,), -1, np.int32)
             return out
 
-        root = self.cfg.store_dir or tempfile.mkdtemp(
-            prefix="client_store_")
-        self.store = ClientStore(root, self.n, template, init_fn=init_fn)
+        store = None
+        if self._rank0:
+            root = self.cfg.store_dir or tempfile.mkdtemp(
+                prefix="client_store_")
+            store = ClientStore(root, self.n, template, init_fn=init_fn)
+        self.store = (store if self.mesh is None
+                      else RankZeroStore(self.mesh, store, template))
         placeholder = client_store.tree_map(
             lambda a: self._on_device(np.zeros((0,) + a.shape, a.dtype)),
             row)
@@ -448,7 +516,8 @@ class Engine:
             self.obs.on_round(rep)
             reports.append(rep)
             every = self.cfg.checkpoint_every
-            if self.cfg.checkpoint_dir and every and (r + 1) % every == 0:
+            if self.cfg.checkpoint_dir and every and (r + 1) % every == 0 \
+                    and self._rank0:
                 if self._mmap:
                     # the checkpoint is the replicated state only; the
                     # rows are the store, flushed beside it so the two
@@ -500,77 +569,100 @@ class Engine:
                             if self._streaming
                             else tree.map(lambda a: a[idx], self.data))
             obs.fence(keys)
-        # local work starts from the rows a client holds after the
-        # (possibly lossy) broadcast, not the server's own precision
-        with obs.span("broadcast_encode"):
-            tx_server = self._wire_tx_server(state.server.slots)
-            obs.fence(tx_server)
-        with obs.span("client_step"):
-            new_sub, vecs, slots = self.executor.train(
-                self.strategy, sub_cs, tx_server, sub_data, keys)
-            obs.fence(new_sub, vecs, slots)
-        with obs.span("uplink_codec"):
-            dec, up_bytes, ef = self._wire_uplink(state, vecs, slots, part,
-                                                  sub_refs)
-            obs.fence(dec)
-        if self._assign is not None and sync:
-            # metering and the sparse references used the tags that
-            # crossed the wire; aggregation and the broadcast use these.
-            # Async assigns over the buffer when it folds it in
-            with obs.span("assign"):
-                slots = self.executor.assign(self.strategy, state.server,
-                                             dec, slots, arrive)
-                obs.fence(slots)
+        fused = None
+        if sync and in_order and self.mesh is not None \
+                and self._wire_is_identity() and self._assign is None:
+            # the whole round as one executor call: each rank trains,
+            # aggregates (one collective), applies and evaluates its block
+            with obs.span("fused_round"):
+                fused = self.executor.fused_sync_round(
+                    self.strategy, sub_cs, state.server, sub_data, keys,
+                    arrive)
+                obs.fence(fused)
         buf = self._buf_of(state)
         n_buf = n_evict = 0
-        if sync:
-            with obs.span("aggregate"):
-                agg, counts = self.executor.masked_mean(self.strategy, dec,
-                                                        slots, arrive)
-                obs.fence(agg, counts)
-            with obs.span("server_update"):
-                server = self._server_update(state.server, agg, counts)
-                obs.fence(server)
-            n_agg = int((slots[arrive] >= 0).sum())
-        elif self.cfg.async_buffer == "host" or self._async_hooks:
-            with obs.span("aggregate"):
-                server, counts, n_agg, n_buf, n_evict, buf = \
-                    self._aggregate_async_host(state, dec, slots, part, r)
-                obs.fence(server, counts)
+        refs = (state.ref_vecs, state.ref_round)
+        ef = state.ef_residual
+        if fused is not None:
+            merged, server, counts, applied, acc, slots = fused
+            with obs.span("downlink"):
+                up_bytes = self._identity_upload_bytes(slots, part.active)
+                _, down_bc, down_pc = self._wire_downlink(
+                    server.slots, counts, arrive, applied)
         else:
-            with obs.span("aggregate"):
-                srv_mat, counts, n_agg, n_buf, n_evict, buf = \
-                    self._aggregate_async(state, dec, slots, part)
-                server = state.server._replace(slots=srv_mat)
-                obs.fence(server, counts)
-        with obs.span("downlink"):
-            applied = applied_slots(slots, counts, arrive)
-            rx_server, down_bc, down_pc = self._wire_downlink(
-                server.slots, counts, arrive, applied)
-            obs.fence(rx_server)
-        with obs.span("apply_merge"):
-            merged = self.executor.apply_merge(
-                self.strategy, new_sub, applied, rx_server, sub_cs,
-                None if self.scheduler.all_arrive else arrive)
-            obs.fence(merged)
-        with obs.span("ref_track"):
-            if sub_refs is not None:
-                sub_refs = self._advance_ref_rows(
-                    sub_refs[0].cpu().numpy().copy(),
-                    sub_refs[1].cpu().numpy().copy(),
-                    arrive.cpu().numpy(), applied.cpu().numpy(),
-                    rx_server.cpu().numpy(), r, self._downloads)
-            refs = (state.ref_vecs, state.ref_round) if self._mmap else \
-                self._update_refs(state, part, arrive, applied, rx_server, r)
-            obs.fence(refs)
-        if self._mmap:
-            # the merged rows and their advanced references back to the
-            # host store: the round keeps no per-client device state
-            with obs.span("spill"):
-                bundle = {"cs": merged}
+            # local work starts from the rows a client holds after the
+            # (possibly lossy) broadcast, not the server's own precision
+            with obs.span("broadcast_encode"):
+                tx_server = self._wire_tx_server(state.server.slots)
+                obs.fence(tx_server)
+            with obs.span("client_step"):
+                new_sub, vecs, slots = self.executor.train(
+                    self.strategy, sub_cs, tx_server, sub_data, keys)
+                obs.fence(new_sub, vecs, slots)
+            with obs.span("uplink_codec"):
+                dec, up_bytes, ef = self._wire_uplink(state, vecs, slots,
+                                                      part, sub_refs)
+                obs.fence(dec)
+            if self._assign is not None and sync:
+                # metering and the sparse references used the tags that
+                # crossed the wire; aggregation and the broadcast use
+                # these.  Async assigns over the buffer when it folds it in
+                with obs.span("assign"):
+                    slots = self.executor.assign(self.strategy,
+                                                 state.server, dec, slots,
+                                                 arrive)
+                    obs.fence(slots)
+            if sync:
+                with obs.span("aggregate"):
+                    agg, counts = self.executor.masked_mean(
+                        self.strategy, dec, slots, arrive)
+                    obs.fence(agg, counts)
+                with obs.span("server_update"):
+                    server = self._server_update(state.server, agg, counts)
+                    obs.fence(server)
+            elif self.cfg.async_buffer == "host" or self._async_hooks:
+                with obs.span("aggregate"):
+                    server, counts, n_agg, n_buf, n_evict, buf = \
+                        self._aggregate_async_host(state, dec, slots, part,
+                                                   r)
+                    obs.fence(server, counts)
+            else:
+                with obs.span("aggregate"):
+                    srv_mat, counts, n_agg, n_buf, n_evict, buf = \
+                        self._aggregate_async(state, dec, slots, part)
+                    server = state.server._replace(slots=srv_mat)
+                    obs.fence(server, counts)
+            with obs.span("downlink"):
+                applied = applied_slots(slots, counts, arrive)
+                rx_server, down_bc, down_pc = self._wire_downlink(
+                    server.slots, counts, arrive, applied)
+                obs.fence(rx_server)
+            with obs.span("apply_merge"):
+                merged = self.executor.apply_merge(
+                    self.strategy, new_sub, applied, rx_server, sub_cs,
+                    None if self.scheduler.all_arrive else arrive)
+                obs.fence(merged)
+            with obs.span("ref_track"):
                 if sub_refs is not None:
-                    bundle["ref_vecs"], bundle["ref_round"] = sub_refs
-                store.spill(np_ids, bundle)
+                    sub_refs = self._advance_ref_rows(
+                        sub_refs[0].cpu().numpy().copy(),
+                        sub_refs[1].cpu().numpy().copy(),
+                        arrive.cpu().numpy(), applied.cpu().numpy(),
+                        rx_server.cpu().numpy(), r, self._downloads)
+                refs = (state.ref_vecs, state.ref_round) if self._mmap \
+                    else self._update_refs(state, part, arrive, applied,
+                                           rx_server, r)
+                obs.fence(refs)
+            if self._mmap:
+                # the merged rows and their advanced references back to the
+                # host store: the round keeps no per-client device state
+                with obs.span("spill"):
+                    bundle = {"cs": merged}
+                    if sub_refs is not None:
+                        bundle["ref_vecs"], bundle["ref_round"] = sub_refs
+                    store.spill(np_ids, bundle)
+        if sync:
+            n_agg = int((slots[arrive] >= 0).sum())
         with obs.span("eval"):
             if self._mmap:
                 cs = state.client_state        # the rows live in the store
@@ -583,9 +675,12 @@ class Engine:
                     cs = tree.map(lambda a, m: a.index_put((idx,), m),
                                   state.client_state, merged)
                     assignment = self._scatter_assignment(idx, applied)
-                acc = self.executor.evaluate(self.strategy, cs,
-                                             self.data.x_test,
-                                             self.data.y_test)
+                if fused is None:
+                    acc = self.executor.evaluate(self.strategy, cs,
+                                                 self.data.x_test,
+                                                 self.data.y_test)
+            # on a mesh the accuracies were gathered into one tensor on
+            # this rank's device, so their mean is the in-process mean
             obs.fence(acc)
         store_io = ((store.io_read_bytes - io0[0],
                      store.io_written_bytes - io0[1]) if self._mmap
@@ -766,6 +861,24 @@ class Engine:
         the codec tests): the round needs no host codec boundary."""
         return self.cfg.codec.name == "float32" and not self.cfg.codec.sparse
 
+    def _identity_upload_bytes(self, slots, active) -> int:
+        """The identity wire's meter: a 4-byte slot id and 4·d payload
+        bytes for each shared slot of each surviving client (the staged
+        and the fused round both meter with it)."""
+        shared = (slots.cpu().numpy()[active.cpu().numpy()] >= 0).sum()
+        return int(shared) * (4 + 4 * self.strategy.vec_dim)
+
+    def collective_payload_bytes(self) -> int | None:
+        """Per-rank payload of the aggregation collective on the mesh,
+        the gauge the run manifest records (None in process, where the
+        aggregate is a local reduction)."""
+        if self.cfg.backend != "shardmap":
+            return None
+        return masked_collectives.collective_payload_bytes(
+            self.cfg.mesh_collective,
+            self.scheduler.k * self.strategy.j_slots,
+            self.strategy.vec_dim, self.strategy.n_slots)
+
     def _wire_uplink(self, state: EngineState, vecs, slots,
                      part: Participation, sub_refs=None):
         """Encode every upload of a surviving client to a real frame,
@@ -780,8 +893,7 @@ class Engine:
         np_slots = slots.cpu().numpy()
         active = part.active.cpu().numpy()
         if self._wire_is_identity():
-            d = self.strategy.vec_dim
-            return (vecs, int((np_slots[active] >= 0).sum()) * (4 + 4 * d),
+            return (vecs, self._identity_upload_bytes(slots, part.active),
                     state.ef_residual)
         idx = part.idx.long()
         np_vecs = np.asarray(vecs.detach().cpu().numpy(), np.float32)

@@ -3,10 +3,9 @@
 Counterpart of ``repro/launch/fed_train.py``'s CLI for the configuration
 this slice of the port supports: every strategy of the reference (TPFL,
 FedTM, and the MLP baselines FedAvg, FedProx, IFCA, FLIS-DC, FLIS-HC),
-sync or async, in process or over the real transport, under the
-reference's scheduler and wire codec flags, on the reference's data path
-(the reference's shard-mapped backend comes with a later slice,
-ROADMAP.md):
+sync or async, in process, over the real transport or shard-mapped
+over a clients mesh, under the reference's scheduler and wire codec
+flags, on the reference's data path:
 
   PYTHONPATH=src python -m repro_torch.launch.fed_train \\
       --dataset mnist --data-dir DATA --clauses 300 --clients 20 \\
@@ -23,7 +22,9 @@ ROADMAP.md):
        --profile-dir DIR] [--tm-backend ref|pallas] \\
       [--client-store resident|mmap --store-dir DIR \\
        --store-eval full|sampled] [--n-clients N] \\
-      [--transport inprocess|loopback|socket --workers M]
+      [--transport inprocess|loopback|socket --workers M] \\
+      [--backend inprocess|shardmap] [--mesh clients[:N] \\
+       --collective gather|psum]
 
 runs on the GPU; ``--device cpu`` runs the kernels' plain versions.
 ``--tm-backend`` takes the reference's two names for its TM routes,
@@ -49,6 +50,14 @@ behind in-memory framed queues (the in-process run bit for bit);
 rebuilding its block of the scenario on the run's device (every worker
 on the server's card on a GPU host); the round lines then end with
 ``wire_tx=…B wire_rx=…B``, the framed bytes that crossed the wire.
+``--mesh clients:N`` (or ``--backend shardmap``, every visible device)
+runs the round over a clients mesh of N ranks, one engine a rank
+(``repro_torch.launch.mesh``): on GPUs one NCCL rank per card (N at
+most the cards visible), with ``--device cpu`` N ``gloo`` processes;
+``--collective gather`` aggregates bit for bit as in process, ``psum``
+by one all-reduce of the (C, m) accumulator.  Rank 0 prints the same
+lines, records telemetry and writes the checkpoints (the in-process
+run's files, byte for byte); ``--resume`` restores on every rank.
 ``--ckpt-dir D
 --ckpt-every k`` saves the engine state every k rounds; ``--resume``
 continues from the newest checkpoint in D and completes the requested
@@ -70,10 +79,12 @@ from repro_torch.fl.obs.events import accuracy_deciles, worst_decile_mean
 from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
                                     RuntimeConfig, SchedulerConfig,
                                     build_baseline_strategy, checkpointing)
-from repro_torch.fl.runtime.engine import TM_BACKENDS, TRANSPORTS
+from repro_torch.fl.runtime.engine import BACKENDS, TM_BACKENDS, TRANSPORTS
+from repro_torch.fl.runtime.executors import COLLECTIVES
 from repro_torch.fl.runtime.codec import CODECS, INDEX_CODINGS
 from repro_torch.fl.runtime.scheduler import SAMPLING
 from repro_torch.fl.store import StreamingClientData
+from repro_torch.launch import mesh as mesh_lib
 
 STRATEGY_CHOICES = ("tpfl", "fedavg", "fedprox", "ifca", "flis_dc",
                     "flis_hc", "fedtm")
@@ -206,6 +217,20 @@ def main(argv: list[str] | None = None) -> dict:
                     help="transport worker peers; the population is "
                          "partitioned into M contiguous blocks (required "
                          ">= 1 for --transport loopback/socket)")
+    # execution backend
+    ap.add_argument("--backend", default=None,
+                    choices=BACKENDS,
+                    help="round executor; 'shardmap' without --mesh uses "
+                         "a clients mesh of all visible devices "
+                         "(equivalent to --mesh clients)")
+    ap.add_argument("--mesh", default=None, metavar="clients[:N]",
+                    help="run the round shard-mapped over a clients mesh "
+                         "of N ranks (default: one per visible GPU; with "
+                         "--device cpu, N gloo processes, default 1); "
+                         "composes with --mode async (device buffer)")
+    ap.add_argument("--collective", default="gather", choices=COLLECTIVES,
+                    help="mesh aggregation: gather is bit-exact with "
+                         "in-process, psum is C*m collective bytes")
     # aggregation mode
     ap.add_argument("--mode", default="sync", choices=("sync", "async"))
     ap.add_argument("--async-min-uploads", type=int, default=4)
@@ -214,7 +239,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--async-buffer", default="device",
                     choices=("device", "host"),
                     help="async upload buffer: device = tensor ops on the "
-                         "engine's device, host = the numpy reference loop")
+                         "engine's device (works with --mesh), host = the "
+                         "numpy reference loop")
     ap.add_argument("--tm-backend", default="ref",
                     choices=TM_BACKENDS,
                     help="the reference's TM route names (ref | pallas), "
@@ -270,6 +296,17 @@ def main(argv: list[str] | None = None) -> dict:
         if not 0 < args.active <= n_clients:
             raise SystemExit(f"--active must be in [1, {n_clients}]")
         participation = args.active / n_clients
+    n_ranks = None
+    if args.mesh is None and args.backend == "shardmap":
+        args.mesh = "clients"            # all visible devices
+    if args.mesh is not None:
+        if args.backend == "inprocess":
+            raise SystemExit("--backend inprocess contradicts --mesh")
+        name, _, count = args.mesh.partition(":")
+        if name != "clients":
+            raise SystemExit(f"--mesh must be clients[:N], got {args.mesh!r}")
+        n_ranks = mesh_lib.ranks_for(int(count) if count else None,
+                                     args.device)
     rt_cfg = RuntimeConfig(
         rounds=args.rounds,
         scheduler=SchedulerConfig(
@@ -282,7 +319,9 @@ def main(argv: list[str] | None = None) -> dict:
         aggregation=args.mode, async_min_uploads=args.async_min_uploads,
         buffer_capacity=args.buffer_capacity,
         staleness_discount=args.staleness_discount,
-        async_buffer=args.async_buffer, tm_backend=args.tm_backend,
+        async_buffer=args.async_buffer,
+        backend="shardmap" if n_ranks is not None else "inprocess",
+        mesh_collective=args.collective, tm_backend=args.tm_backend,
         checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every,
         client_store=args.client_store, store_dir=args.store_dir,
         store_eval=args.store_eval, transport=args.transport,
@@ -292,16 +331,44 @@ def main(argv: list[str] | None = None) -> dict:
     if args.transport != "inprocess" and args.resume:
         raise SystemExit("--resume is an in-process engine feature; "
                          "transport runs restart from round 0")
-    device = (devices.default_device() if args.device == "cuda"
-              else devices.resolve(args.device))
+    if n_ranks is not None:
+        # one engine a rank; rank 0 prints, records and checkpoints
+        return mesh_lib.spawn(_run, n_ranks, args, argv, rt_cfg,
+                              device=args.device)
+    return _run(None, args, argv, rt_cfg)
+
+
+def _run(mesh, args, argv, rt_cfg) -> dict:
+    """The run after the flags are checked, in this process or, on a
+    clients mesh, on each rank (``mesh``; only rank 0 prints, records
+    telemetry and writes checkpoints)."""
+    from repro_torch.kernels import ops
+
+    rank0 = mesh is None or mesh.rank == 0
+    out_lines = []
+
+    def say(line: str) -> None:
+        if rank0:
+            print(line, flush=True)
+
+    streaming = args.n_clients is not None
+    n_clients = args.n_clients if streaming else args.clients
+    launched = dict(ops.LAUNCHES)
+    if mesh is not None:
+        device = mesh.device
+    else:
+        device = (devices.default_device() if args.device == "cuda"
+                  else devices.resolve(args.device))
     if streaming:
         # the reference's streaming constants: the mirror's 6000 samples
         # at side 12 over 25 writers, the data key PRNGKey(seed + 1),
-        # 80 / 40 / 40 samples a client
-        pool = registry.load_stream(
-            args.dataset, args.data_dir, encoding=args.encoding,
-            n_samples=6000, side=12, seed=args.seed,
-            n_writers=args.writers or 25, device=device)
+        # 80 / 40 / 40 samples a client; on a mesh rank 0 fills an empty
+        # --data-dir's mirror before the other ranks read it
+        with mesh_lib.rank_zero_first(mesh):
+            pool = registry.load_stream(
+                args.dataset, args.data_dir, encoding=args.encoding,
+                n_samples=6000, side=12, seed=args.seed,
+                n_writers=args.writers or 25, device=device)
         data = StreamingClientData(
             pool, n_clients=n_clients, n_train=80, n_test=40, n_conf=40,
             key=rnd.PRNGKey(args.seed + 1, device), device=device)
@@ -316,16 +383,19 @@ def main(argv: list[str] | None = None) -> dict:
                                    max_slots=args.max_slots,
                                    probe_size=args.probe_size)
     else:
-        data, tm_cfg, fed_cfg, strategy = build_scenario(
-            dataset=args.dataset, data_dir=args.data_dir,
-            encoding=args.encoding, clients=args.clients,
-            clauses=args.clauses, seed=args.seed,
-            experiment=args.experiment, writers=args.writers,
-            rounds=args.rounds, local_epochs=args.local_epochs,
-            strategy=args.strategy, max_slots=args.max_slots,
-            probe_size=args.probe_size, device=device)
+        # on a mesh rank 0 fills an empty --data-dir's mirror before the
+        # other ranks read it
+        with mesh_lib.rank_zero_first(mesh):
+            data, tm_cfg, fed_cfg, strategy = build_scenario(
+                dataset=args.dataset, data_dir=args.data_dir,
+                encoding=args.encoding, clients=args.clients,
+                clauses=args.clauses, seed=args.seed,
+                experiment=args.experiment, writers=args.writers,
+                rounds=args.rounds, local_epochs=args.local_epochs,
+                strategy=args.strategy, max_slots=args.max_slots,
+                probe_size=args.probe_size, device=device)
     telemetry = None
-    if args.telemetry_dir or args.profile_dir:
+    if (args.telemetry_dir or args.profile_dir) and rank0:
         telemetry = obs.RunRecorder(run_dir=args.telemetry_dir,
                                     profile_dir=args.profile_dir)
     runner = None
@@ -348,15 +418,18 @@ def main(argv: list[str] | None = None) -> dict:
                                  telemetry=telemetry, spec=spec)
         engine = runner.eng
     else:
-        engine = Engine(strategy, data, rt_cfg, telemetry=telemetry)
+        engine = Engine(strategy, data, rt_cfg, telemetry=telemetry,
+                        mesh=mesh)
     if telemetry is not None:
         telemetry.start(obs.build_manifest(
-            config=rt_cfg, seed=args.seed, device=device,
+            config=rt_cfg, seed=args.seed, device=device, mesh=mesh,
             extra={"strategy": args.strategy, "dataset": args.dataset,
                    "encoding": args.encoding, "n_clients": n_clients,
                    "client_store": args.client_store,
                    "rounds": args.rounds,
-                   "argv": argv}))
+                   "argv": argv,
+                   "collective_payload_bytes":
+                       engine.collective_payload_bytes()}))
     state, remaining = None, None
     if args.resume and args.ckpt_dir:
         latest = checkpointing.latest(args.ckpt_dir)
@@ -365,11 +438,10 @@ def main(argv: list[str] | None = None) -> dict:
                 latest, engine.init(rnd.PRNGKey(args.seed, device)))
             # complete the originally requested total, don't extend it
             remaining = max(0, args.rounds - int(state.round_idx))
-            print(f"resumed from {latest} "
-                  f"({remaining} of {args.rounds} rounds remaining)",
-                  flush=True)
+            say(f"resumed from {latest} "
+                f"({remaining} of {args.rounds} rounds remaining)")
             if remaining == 0:
-                print("nothing to do: run already complete", flush=True)
+                say("nothing to do: run already complete")
                 return {"final_accuracy": None, "acc_per_round": [],
                         "upload_bytes": 0,
                         "download_bytes_broadcast": 0,
@@ -385,21 +457,22 @@ def main(argv: list[str] | None = None) -> dict:
     if runner is not None:
         kind = "peers" if args.transport == "loopback" else "processes"
         where = f"{args.transport} transport, {args.workers} worker {kind}"
-    else:
+    elif mesh is None:
         where = "in-process"
-    print(f"{args.strategy} on {args.dataset} "
+    else:
+        where = (f"shard_map over {engine.executor.n_shards}-device "
+                 f"clients mesh ({args.collective})")
+    say(f"{args.strategy} on {args.dataset} "
           f"[{args.encoding}, {tm_cfg.n_features}f, m={tm_cfg.n_clauses}] "
           f"{split}: {n_clients} clients, "
           f"K={engine.scheduler.k}/round, store={args.client_store}, "
           f"dropout={args.dropout}, "
           f"codec={args.codec}{'+sparse' if args.sparse else ''}, "
-          f"mode={args.mode}, backend={where}, device={device}",
-          flush=True)
+          f"mode={args.mode}, backend={where}, device={device}")
     if engine.scheduler.p is not None:
         p = engine.scheduler.p
-        print(f"weighted sampling from partition sizes: "
-              f"p in [{float(p.min()):.4f}, {float(p.max()):.4f}]",
-              flush=True)
+        say(f"weighted sampling from partition sizes: "
+            f"p in [{float(p.min()):.4f}, {float(p.max()):.4f}]")
     try:
         if runner is not None:
             state, reports = runner.run(rnd.PRNGKey(args.seed, device))
@@ -425,38 +498,51 @@ def main(argv: list[str] | None = None) -> dict:
         if runner is not None:
             extra += (f" wire_tx={rep.wire_tx_bytes}B"
                       f" wire_rx={rep.wire_rx_bytes}B")
-        print(f"round {rep.round_idx:3d}: "
-              f"acc={float(rep.mean_accuracy):.4f} "
-              f"w10%={worst_decile_mean(rep.per_client_accuracy):.4f} "
-              f"up={rep.upload_bytes}B "
-              f"down_bc={rep.download_bytes_broadcast}B "
-              f"down_pc={rep.download_bytes_per_client}B "
-              f"active={int(rep.participation.active.sum())}"
-              f"/{engine.scheduler.k}{extra}", flush=True)
-    print(f"totals: upload={up}B ({up/1e6:.4f}MB) "
-          f"download_broadcast={down_bc}B ({down_bc/1e6:.4f}MB) "
-          f"download_per_client={down_pc}B ({down_pc/1e6:.4f}MB)",
-          flush=True)
-    if args.client_store == "mmap":
-        print(f"client store: read={st_rd}B written={st_wr}B "
-              f"({engine.store.written_count()} of {engine.n} rows "
-              f"materialized, {engine.store.row_nbytes}B/row)",
-              flush=True)
+        out_lines.append(
+            f"round {rep.round_idx:3d}: "
+            f"acc={float(rep.mean_accuracy):.4f} "
+            f"w10%={worst_decile_mean(rep.per_client_accuracy):.4f} "
+            f"up={rep.upload_bytes}B "
+            f"down_bc={rep.download_bytes_broadcast}B "
+            f"down_pc={rep.download_bytes_per_client}B "
+            f"active={int(rep.participation.active.sum())}"
+            f"/{engine.scheduler.k}{extra}")
+        say(out_lines[-1])
+    say(f"totals: upload={up}B ({up/1e6:.4f}MB) "
+        f"download_broadcast={down_bc}B ({down_bc/1e6:.4f}MB) "
+        f"download_per_client={down_pc}B ({down_pc/1e6:.4f}MB)")
+    if args.client_store == "mmap" and rank0:
+        say(f"client store: read={st_rd}B written={st_wr}B "
+            f"({engine.store.written_count()} of {engine.n} rows "
+            f"materialized, {engine.store.row_nbytes}B/row)")
     deciles = accuracy_deciles(reports[-1].per_client_accuracy)
-    print("final per-client accuracy deciles: "
-          + " ".join(f"p{10 * i}={d:.3f}" for i, d in enumerate(deciles)),
-          flush=True)
+    say("final per-client accuracy deciles: "
+        + " ".join(f"p{10 * i}={d:.3f}" for i, d in enumerate(deciles)))
     if args.telemetry_dir:
-        print(f"telemetry: {args.telemetry_dir} — render with "
-              f"`python -m repro_torch.fl.obs summarize "
-              f"{args.telemetry_dir}`", flush=True)
+        say(f"telemetry: {args.telemetry_dir} — render with "
+            f"`python -m repro_torch.fl.obs summarize "
+            f"{args.telemetry_dir}`")
+    ran = None
+    if mesh is not None:
+        # each rank's kernel launches and collective bytes of the run
+        launches = {k: ops.LAUNCHES[k] - launched[k] for k in launched}
+        per_rank = mesh_lib.gather_object(
+            mesh, (launches, mesh.meter.snapshot(), str(mesh.device)))
+        ran = {"ranks": mesh.size, "collective": args.collective,
+               "backend": mesh.backend,
+               "devices": [p[2] for p in per_rank],
+               "launches": [p[0] for p in per_rank],
+               "meter": [p[1] for p in per_rank],
+               "collective_payload_bytes":
+                   engine.collective_payload_bytes()}
     return {"final_accuracy": float(reports[-1].mean_accuracy),
             "acc_per_round": [float(r.mean_accuracy) for r in reports],
             "final_accuracy_deciles": deciles,
             "upload_bytes": up, "download_bytes_broadcast": down_bc,
             "download_bytes_per_client": down_pc,
             "store_read_bytes": st_rd, "store_written_bytes": st_wr,
-            "reports": reports, "state": state}
+            "reports": reports, "state": state, "round_lines": out_lines,
+            "mesh": ran}
 
 
 if __name__ == "__main__":

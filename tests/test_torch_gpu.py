@@ -929,3 +929,78 @@ def test_gpu_socket_matches_in_process(cuda, capfd):
         assert w["device"].startswith("cuda")
         assert w["launches"]["train_epoch_fused"] == 2 * 2
         assert w["launches"]["fused_votes_batched"] > 0
+
+
+def _sharded_forms_on_the_card(mesh, kind):
+    """Rank worker: each sharded form of ``masked_collectives`` on this
+    rank's block, on its card; rank 0's results to the host."""
+    from repro_torch.fl import masked_collectives as mc
+    rng = np.random.default_rng(5)
+    vals = (rng.standard_normal((12, 20)) if kind == "frac"
+            else rng.integers(-8, 9, (12, 20))).astype(np.float32)
+    v = torch.as_tensor(vals, device=mesh.device)
+    s = torch.as_tensor(rng.integers(-1, 10, 12).astype(np.int32),
+                        device=mesh.device)
+    w = torch.as_tensor((0.5 ** rng.integers(0, 3, 12)).astype(np.float32),
+                        device=mesh.device)
+    blk = 12 // mesh.size
+    mine = slice(mesh.rank * blk, (mesh.rank + 1) * blk)
+    mean, counts = mc.clustered_mean_gathered(v[mine], s[mine], 10, mesh,
+                                              n_valid=12)
+    wmean, total = mc.clustered_weighted_mean_sharded(
+        v[mine], s[mine], w[mine], 10, mesh, exact_products=True)
+    bmean, _ = mc.buffered_weighted_mean_sharded(v, s, w, 10, mesh,
+                                                 exact_products=True)
+    one = mc.clustered_mean_sharded(v[mesh.rank], s[mesh.rank].clamp(min=0),
+                                    10, mesh)
+    out = {k: t.cpu().numpy() for k, t in dict(
+        mean=mean, counts=counts, wmean=wmean, total=total, bmean=bmean,
+        one=one).items()}
+    out.update(device=str(mesh.device), backend=mesh.backend,
+               meter=mesh.meter.snapshot(),
+               inputs=(vals, s.cpu().numpy(), w.cpu().numpy()))
+    return out
+
+
+def _check_sharded_forms(out, ranks):
+    from repro_torch.fl import masked_collectives as mc
+    v, s, w = (torch.as_tensor(a) for a in out["inputs"])
+    host = clustering.aggregate(v, s, 10)
+    np.testing.assert_array_equal(out["mean"], host.cluster_weights.numpy())
+    np.testing.assert_array_equal(out["counts"], host.counts.numpy())
+    want = mc.clustered_weighted_mean(v, s, w, 10, exact_products=True)
+    np.testing.assert_array_equal(out["wmean"], want.numpy())
+    np.testing.assert_array_equal(out["bmean"], want.numpy())
+    one = clustering.aggregate(v[:ranks], s[:ranks].clamp(min=0), 10)
+    np.testing.assert_array_equal(
+        out["one"], one.cluster_weights[max(int(s[0]), 0)].numpy())
+    assert out["meter"]["bytes"]["aggregate"] - out["meter"]["pad"][
+        "aggregate"] == (mc.collective_payload_bytes("gather", 12, 20, 10)
+                         + 3 * mc.collective_payload_bytes("psum", 12, 20,
+                                                           10))
+
+
+@pytest.mark.gpu
+def test_sharded_forms_on_one_nccl_rank_equal_the_host_forms(cuda):
+    """A one-rank NCCL mesh on ``cuda:0``: the gathered, weighted,
+    buffered and one-client-a-rank forms equal the host forms on the CPU
+    bit for bit (one rank's sums are the host's row loop), every
+    collective on the card."""
+    from repro_torch.launch import mesh as mesh_lib
+    out = mesh_lib.spawn(_sharded_forms_on_the_card, 1, "frac",
+                         device="cuda")
+    assert (out["backend"], out["device"]) == ("nccl", "cuda:0")
+    _check_sharded_forms(out, 1)
+
+
+@pytest.mark.gpu
+def test_sharded_forms_on_two_gloo_ranks_sharing_the_card(cuda):
+    """Two ``gloo`` ranks on ``cuda:0`` (the shared-card world of
+    ``chip_smoke.py`` path J2): integer values at power-of-two weights,
+    so the forms equal the host forms in any order.  The mesh builder
+    checked that ``gloo`` runs each collective on the card's tensors."""
+    from repro_torch.launch import mesh as mesh_lib
+    out = mesh_lib.spawn(_sharded_forms_on_the_card, 2, "int",
+                         device="cuda", shared_device=True)
+    assert (out["backend"], out["device"]) == ("gloo", "cuda:0")
+    _check_sharded_forms(out, 2)

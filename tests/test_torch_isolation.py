@@ -62,9 +62,14 @@ def test_default_device_refuses_a_gpu_less_host(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device.default_device()
-    from repro_torch.launch import fed_serve, fed_train
+    from repro_torch.launch import fed_dryrun, fed_serve, fed_train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fed_train.main(["--clients", "2", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fed_train.main(["--clients", "2", "--rounds", "1", "--mesh",
+                        "clients:2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fed_dryrun.main(["--clients", "100", "--active", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fed_serve.main(["--clients", "2", "--ckpt-dir", "unused"])
 
@@ -78,7 +83,8 @@ def _host_value_makers(tmp_path):
     from repro_torch.fl.runtime.scheduler import arrival_participation
     from repro_torch.fl.transport.worker import (runtime_config_to_dict,
                                                  worker_from_spec)
-    from repro_torch.launch import fed_train
+    from repro_torch.launch import fed_dryrun, fed_train
+    from repro_torch.launch import mesh
     x, y, _ = synthetic.make_dataset("synthmnist", 50, tr.PRNGKey(0, "cpu"),
                                      side=12)
     return {
@@ -120,6 +126,9 @@ def _host_value_makers(tmp_path):
                 transport="socket", workers=1)),
             "scenario": {"dataset": "synthmnist", "clients": 2,
                          "device": "cuda"}, "key": [0, 0]}, 0),
+        "fed_dryrun.client_scale": lambda: fed_dryrun.client_scale(
+            100, 2, root=str(tmp_path / "store")),
+        "mesh.spawn": lambda: mesh.spawn(mesh.run_federations, 2, []),
     }
 
 
@@ -130,7 +139,7 @@ def _host_value_makers(tmp_path):
     "key_from_numpy", "tm_params_from_numpy", "engine_state_from_numpy",
     "mlp_params_from_numpy", "flis_client_state_from_numpy",
     "server_state_from_numpy", "arrival_participation",
-    "worker_from_spec"])
+    "worker_from_spec", "fed_dryrun.client_scale", "mesh.spawn"])
 def test_tensors_from_host_values_default_to_the_gpu(monkeypatch, tmp_path,
                                                      name):
     """The partition draws on its key's device, so a GPU default for the

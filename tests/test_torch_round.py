@@ -179,17 +179,20 @@ def test_fed_train_cli_on_cpu(capsys):
     assert out["upload_bytes"] == 2 * 4 * (4 + 4 * 8)
 
 
-@pytest.mark.parametrize("kw", [dict(backend="shardmap")])
+@pytest.mark.parametrize("kw", [dict(mesh_devices=4)])
 def test_unsupported_runtime_configs_raise(kw):
-    """The reference's other runtime settings are not accepted at all:
-    a config written for them fails, it does not run in process (async
-    aggregation runs since its slice: tests/test_torch_async.py;
-    ``tm_backend`` names since the LEAF slice:
-    ``test_tm_backend_names_the_ports_one_route``; the mmap client store
-    since its slice: tests/test_torch_store.py; the transports since
-    theirs: tests/test_torch_transport*.py)."""
+    """A field neither package's ``RuntimeConfig`` has fails in both: a
+    config is refused, never run as something else (every runtime
+    setting of the reference runs in the port: async in
+    tests/test_torch_async.py, ``tm_backend`` in
+    ``test_tm_backend_names_the_ports_one_route``, the mmap store in
+    tests/test_torch_store.py, the transports in
+    tests/test_torch_transport*.py, ``backend="shardmap"`` in
+    tests/test_torch_shardmap.py)."""
     with pytest.raises(TypeError):
         RuntimeConfig(rounds=1, **kw)
+    with pytest.raises(TypeError):
+        JRuntimeConfig(rounds=1, **kw)
 
 
 @pytest.mark.parametrize("name", ["ref", "pallas"])
@@ -213,18 +216,19 @@ def test_tm_backend_names_the_ports_one_route(name):
 
 
 def test_async_codecs_and_other_strategies_are_a_later_slice(capsys):
-    """The CLI has no flag for what the port does not run yet, and an
-    object without the cohort hooks is refused by the engine, naming
-    them (every strategy of the reference runs since the baselines'
-    slice: tests/test_torch_baselines*.py; ``--mode async`` since the
-    async slice: tests/test_torch_async.py; ``--client-store`` since the
-    store's slice: tests/test_torch_leaf.py; ``--transport`` since the
-    transport's slice: tests/test_torch_transport_socket.py)."""
-    for flags in (["--mesh", "clients"],):
+    """A flag neither package's ``fed_train`` has (the dry run's
+    ``--multi-pod``) is refused by both CLIs, and an object without the
+    cohort hooks is refused by the engine, naming them (every strategy
+    of the reference runs: tests/test_torch_baselines*.py; so do
+    ``--mode async``: tests/test_torch_async.py; ``--client-store``:
+    tests/test_torch_leaf.py; ``--transport``:
+    tests/test_torch_transport_socket.py; ``--mesh``:
+    tests/test_torch_mesh.py)."""
+    for main in (fed_train.main, jfed_train.main):
         with pytest.raises(SystemExit) as exc:
-            fed_train.main(["--device", "cpu", *flags])
+            main(["--multi-pod"])
         assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+        assert "unrecognized arguments" in capsys.readouterr().err
     x, y, _ = synthetic.make_dataset("synthmnist", 200, tr.PRNGKey(0, "cpu"),
                                      side=12)
     data = partition.partition(x, y, 10, n_clients=4, experiment=1,

@@ -150,7 +150,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    clients, the staged path; FLIS-DC, the assign stage; async TPFL at
    path (F)'s settings, psum), each against the in-process engine on
    the card (the TM runs bit for bit, FLIS-DC within ``E_TOL``), with
-   each rank's device, launches and metered bytes;
+   each rank's device, launches and metered bytes; then path (K), the
+   model scaffold (``path_k``): (K3) every ``reduced()`` architecture
+   on the card against the port on the CPU within ``K3_TOL``
+   (parameters bit for bit) and ``train.py --save`` / ``--restore`` on
+   the card; (K1) yi-6b at its published config served through
+   ``launch.serve`` (batch 4, prompt 32, 32 decode steps), full and int8
+   KV cache, decode's logits against the parallel forward within
+   ``K1_TOL``; (K2) granite-moe-3b-a800m at its published config, 3
+   steps through ``launch.train``, finite losses, the parameters moved,
+   then a second run from the same seed equal bit for bit; init
+   seconds, step or decode times and peak device memory printed, and no
+   TM kernel launched;
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
@@ -1863,6 +1874,258 @@ def path_j(dev, main_result):
     return times
 
 
+# path (K): the model scaffold.  K1 serves yi-6b and K2 trains
+# granite-moe-3b-a800m (twice, bit for bit) at their full published
+# configs (random weights from seed 0); K3 holds every architecture's reduced() variant on the
+# card against the port on the CPU.  Bounds on max |card − CPU| (bf16
+# parameters: cuBLAS and the CPU round the bf16 activations in other
+# orders), each at most 4x the largest difference measured on the H100.
+K1_SERVE = ["--arch", "yi-6b", "--batch", "4", "--prompt-len", "32",
+            "--decode-steps", "32"]
+K2_TRAIN = ["--arch", "granite-moe-3b-a800m", "--batch", "2", "--seq",
+            "256", "--steps", "3"]
+# K1: decode's logits against the parallel forward over the same tokens
+# at full width (the reference's test_decode_matches_forward), full and
+# int8 KV cache; greedy tokens compared where the forward's top-2 margin
+# exceeds the bound
+K1_TOL = {"full": 0.44, "int8": 0.64}      # measured 0.110 / 0.160
+K3_TOL = {"logits": 0.078, "decode": 0.078, "loss": 0.0016,
+          "step_loss": 0.0016, "step_params": 0.0039}
+# measured: logits 0.0197, decode 0.0197, loss 4.04e-4, step loss 4.04e-4,
+# parameters after one AdamW step 9.77e-4 (one bf16 ulp at 0.125–0.25)
+K3_T = 12
+
+
+def _same_bits(a, b) -> bool:
+    """Two tensors (either device) with the same dtype, shape and bits."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.is_floating_point():
+        word = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = a.view(word[a.element_size()]), b.view(word[a.element_size()])
+    return bool((a == b).all())
+
+
+def _keyed(tree) -> dict:
+    """A tree's leaves by their checkpoint keys."""
+    from repro_torch.checkpoint import ckpt
+    out: dict = {}
+    ckpt._map(lambda k, v: out.__setitem__(k, v), tree)
+    return out
+
+
+def _maxdiff(a, b) -> float:
+    """max |a − b| over the finite columns (padded vocab: −1e30)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    keep = b > -1e29
+    if not bool((keep == (a > -1e29)).all()):
+        raise SystemExit("path (K): padded-vocab masks differ")
+    return float((a - b).abs()[keep].max()) if bool(keep.any()) else 0.0
+
+
+def _k_decode_check(name, logits, full, tol) -> tuple[float, float]:
+    """Decode's logits against the forward's: max |Δ| within ``tol`` and
+    the greedy tokens equal where the forward's top-2 margin exceeds it.
+    Returns (max |Δ|, share of positions compared)."""
+    d = _maxdiff(logits, full)
+    top = full.float().topk(2, dim=-1).values
+    sure = (top[..., 0] - top[..., 1]) > tol
+    agree = logits.argmax(-1) == full.argmax(-1)
+    print(f"path (K1) {name}: decode vs forward max |d| {d:.4f} "
+          f"(bound {tol}), greedy equal at {int(agree[sure].sum())} of "
+          f"{int(sure.sum())} positions with margin > {tol} "
+          f"({float(agree.float().mean()):.3f} of all)", flush=True)
+    if d > tol or not bool(agree[sure].all()):
+        raise SystemExit(f"path (K1) {name}: decode disagrees with forward")
+    return d, float(sure.float().mean())
+
+
+def k3_run(cfg, dev) -> dict:
+    """One reduced() architecture on ``dev``: its parameters from key 0,
+    forward and decode logits and the loss on two rows of ``K3_T``
+    tokens, one train step from fresh AdamW moments."""
+    import torch
+    from repro_torch import random as rnd
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    p = transformer.init(rnd.PRNGKey(0, dev), cfg)
+    toks = rnd.randint(rnd.PRNGKey(1, dev), (2, K3_T), 0, cfg.vocab)
+    labels = rnd.randint(rnd.PRNGKey(2, dev), (2, K3_T), 0, cfg.vocab)
+    with torch.no_grad():
+        logits, _ = transformer.forward(p, cfg, tokens=toks, remat=False)
+        loss, _ = transformer.lm_loss(p, cfg, toks, labels)
+        caches = transformer.init_cache(cfg, 2, K3_T, device=dev)
+        dec = []
+        for t in range(K3_T):
+            lg, caches = transformer.decode_step(p, cfg, toks[:, t:t + 1],
+                                                 caches)
+            dec.append(lg)
+    new_p, _, metrics = steps.make_train_step(cfg)(
+        tree.map(torch.clone, p), adamw.init(p),
+        {"tokens": toks, "labels": labels})
+    return dict(params=tree.leaves(p), logits=logits, loss=loss,
+                decode=torch.cat(dec, 1), new=tree.leaves(new_p),
+                step_loss=metrics["loss"])
+
+
+def k3_diffs(gpu: dict, cpu: dict) -> dict:
+    """Two :func:`k3_run` results' differences, the keys of ``K3_TOL``;
+    ``None`` where the parameters are not the same bits."""
+    pc, pg = cpu["params"], gpu["params"]
+    if len(pc) != len(pg) or not all(_same_bits(a, b)
+                                     for a, b in zip(pc, pg)):
+        return None
+    return {"logits": _maxdiff(gpu["logits"], cpu["logits"]),
+            "decode": _maxdiff(gpu["decode"], cpu["decode"]),
+            "loss": abs(float(gpu["loss"]) - float(cpu["loss"])),
+            "step_loss": abs(float(gpu["step_loss"])
+                             - float(cpu["step_loss"])),
+            "step_params": max(_maxdiff(a, b)
+                               for a, b in zip(gpu["new"], cpu["new"]))}
+
+
+def path_k3(dev) -> dict:
+    """Every architecture's reduced() variant on the card against the port
+    on the CPU (:func:`k3_run`): parameters bit for bit, forward and
+    decode logits, the loss, one train step; ``train.py --save`` then
+    ``--restore`` on the card."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models import config as mcfg
+    worst = dict.fromkeys(K3_TOL, 0.0)
+    t_all = time.perf_counter()
+    for arch in registry.ARCHS:
+        t0 = time.perf_counter()
+        cfg = mcfg.reduced(registry.get(arch))
+        got = k3_diffs(k3_run(cfg, dev), k3_run(cfg, "cpu"))
+        if got is None:
+            raise SystemExit(f"path (K3) {arch}: parameters differ from "
+                             f"the CPU's")
+        for k, v in got.items():
+            worst[k] = max(worst[k], v)
+            if not v <= K3_TOL[k]:
+                raise SystemExit(f"path (K3) {arch}: {k} {v} > {K3_TOL[k]}")
+        # the CLI's checkpoint on the card: --save, then --restore
+        path = RUN_DIR / "ckpt_k" / f"{arch}.msgpack"
+        argv = ["--arch", arch, "--reduced", "--steps", "1", "--seq", "16"]
+        saved = train.main(argv + ["--save", str(path)])
+        back = train.main(argv + ["--restore", str(path), "--steps", "0"])
+        ck_w = _keyed({"params": saved["params"], "opt": saved["opt"]})
+        ck_g = _keyed({"params": back["params"], "opt": back["opt"]})
+        if list(ck_w) != list(ck_g) or not all(
+                _same_bits(ck_w[k], ck_g[k]) for k in ck_w) \
+                or tree.leaves(back["params"])[0].device.type \
+                != torch.device(dev).type:
+            raise SystemExit(f"path (K3) {arch}: --restore on the card "
+                             f"differs from --save")
+        print(f"path (K3) {arch}: params bit for bit, " + ", ".join(
+            f"{k} {v:.3g}" for k, v in got.items())
+            + f", --save/--restore bit for bit; "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    shutil.rmtree(RUN_DIR / "ckpt_k", ignore_errors=True)
+    print(f"path (K3): all {len(registry.ARCHS)} reduced architectures "
+          f"within {K3_TOL}; worst {worst}; "
+          f"{time.perf_counter() - t_all:.1f}s", flush=True)
+    return worst
+
+
+def path_k(dev) -> dict:
+    """(K3), then (K1) serving yi-6b and (K2) training
+    granite-moe-3b-a800m (twice, bit for bit) at their full published
+    configs."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+    from repro_torch.models import layers
+    from repro_torch import random as rnd
+    launches = dict(ops.LAUNCHES)
+    out = {"k3": path_k3(dev)}
+
+    # K1: serve yi-6b, full cache then the int8 cache
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    os.environ.pop("REPRO_QUANT_KV", None)
+    res = serve.main(K1_SERVE)
+    cfg, params = res["cfg"], res["params"]
+    n = sum(x.numel() for x in tree.leaves(params))
+    with torch.no_grad():
+        full, _ = transformer.forward(params, cfg, tokens=res["tokens"],
+                                      remat=False)
+    _k_decode_check("full cache", res["logits"], full, K1_TOL["full"])
+    os.environ["REPRO_QUANT_KV"] = "1"
+    try:
+        q = serve.run(cfg, params, 4, 32, 32, device=dev)
+    finally:
+        os.environ.pop("REPRO_QUANT_KV", None)
+    with torch.no_grad():
+        full_q, _ = transformer.forward(params, cfg, tokens=q["tokens"],
+                                        remat=False)
+    _k_decode_check("int8 cache", q["logits"], full_q, K1_TOL["int8"])
+    peak1 = torch.cuda.max_memory_allocated(dev)
+    tok_s = {"full": 32 * 4 / res["decode_s"], "int8": 32 * 4 / q["decode_s"]}
+    print(f"path (K1) yi-6b serve: {n / 1e9:.3f}B parameters, init "
+          f"{res['init_s']:.2f}s, prefill (32 decode steps) "
+          f"{res['prefill_s']:.2f}s full / {q['prefill_s']:.2f}s int8, "
+          f"decode {tok_s['full']:.1f} / {tok_s['int8']:.1f} tok/s "
+          f"(batch 4), peak device memory {peak1 / 2**30:.2f} GiB",
+          flush=True)
+    out["k1"] = dict(init_s=res["init_s"], prefill_s=res["prefill_s"],
+                     tok_s=tok_s, peak=peak1, params=n)
+    del res, q, params, full, full_q
+    torch.cuda.empty_cache()
+
+    # K2: train granite-moe-3b-a800m, 3 steps, no checkpoint
+    torch.cuda.reset_peak_memory_stats()
+    res = train.main(K2_TRAIN)
+    losses = [m["loss"] for m in res["metrics"]]
+    if not all(np.isfinite(losses)) or int(res["opt"].step) != 3:
+        raise SystemExit(f"path (K2): losses {losses}, step "
+                         f"{int(res['opt'].step)}")
+    k_emb = rnd.split(rnd.PRNGKey(0, dev), 3)[0]
+    cfg = res["cfg"]
+    emb0 = layers.embed_init(k_emb, cfg.padded_vocab, cfg.d_model)
+    moved = float((res["params"]["embed"].float() - emb0.float()).abs().max())
+    m_abs = max(float(m.abs().max()) for m in tree.leaves(res["opt"].m))
+    if not moved > 0 or not m_abs > 0:
+        raise SystemExit("path (K2): the parameters did not move")
+    peak2 = torch.cuda.max_memory_allocated(dev)
+    print(f"path (K2) granite-moe-3b-a800m train: {res['n_params'] / 1e9:.3f}"
+          f"B parameters, init {res['init_s']:.2f}s, losses "
+          f"{[round(x, 4) for x in losses]}, s/step "
+          f"{[round(x, 3) for x in res['step_s']]}, embedding moved by up to "
+          f"{moved:.3g}, peak device memory "
+          f"{peak2 / 2**30:.2f} GiB", flush=True)
+    out["k2"] = dict(init_s=res["init_s"], step_s=res["step_s"],
+                     losses=losses, peak=peak2)
+    # the same run again from the same seed: the same losses and
+    # parameters, bit for bit (no backward adds with atomics)
+    first = tree.leaves(res["params"])
+    del res, emb0
+    torch.cuda.empty_cache()
+    again = train.main(K2_TRAIN)
+    if [m["loss"] for m in again["metrics"]] != losses or not all(
+            _same_bits(a, b) for a, b in zip(
+                first, tree.leaves(again["params"]), strict=True)):
+        raise SystemExit("path (K2): a second run from the same seed "
+                         "differs from the first")
+    print(f"path (K2) granite-moe-3b-a800m train: a second run repeats "
+          f"the losses and parameters bit for bit, s/step "
+          f"{[round(x, 3) for x in again['step_s']]}", flush=True)
+    del again, first
+    torch.cuda.empty_cache()
+    if dict(ops.LAUNCHES) != launches:
+        raise SystemExit("path (K) launched a TM kernel")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2354,6 +2617,10 @@ def main() -> int:
     # path (J): the multi-device backend, the CLI on one NCCL rank and 4
     # gloo ranks sharing this card
     path_j(dev, result)
+
+    # path (K): the model scaffold, yi-6b served and granite-moe-3b-a800m
+    # trained at full width, every reduced() architecture card == CPU
+    path_k(dev)
 
     # 9. small runs on the card against the same on the CPU: the
     # unit-weight federation, and a checkpoint and its serving

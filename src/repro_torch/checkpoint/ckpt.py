@@ -160,22 +160,47 @@ def _map(fn: Callable[[str, torch.Tensor], Any], tree: Any,
                     f"{type(tree).__name__}, not a tensor")
 
 
-def _np_dtype(dtype: torch.dtype) -> np.dtype:
-    return torch.empty((), dtype=dtype).numpy().dtype
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The dtype string a checkpoint records for a tensor dtype."""
+    if dtype == torch.bfloat16:
+        return "bfloat16"
+    return torch.empty((), dtype=dtype).numpy().dtype.name
+
+
+def _host(leaf: torch.Tensor) -> np.ndarray:
+    """A leaf's bytes on the host; bfloat16 as its raw 2-byte words."""
+    t = leaf.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
 
 
 def save(path: str | pathlib.Path, tree: Any) -> None:
+    """bfloat16 leaves are written as the reference writes them (through
+    ml_dtypes): dtype string ``"bfloat16"``, the raw 2-byte words."""
     flat = {}
 
     def put(key, leaf):
-        flat[key] = leaf.detach().cpu().contiguous().numpy()
+        flat[key] = (_dtype_name(leaf.dtype), _host(leaf))
 
     _map(put, tree)
-    payload = {k: {"dtype": str(v.dtype), "shape": list(v.shape),
-                   "data": v.tobytes()} for k, v in flat.items()}
+    payload = {k: {"dtype": name, "shape": list(v.shape),
+                   "data": v.tobytes()} for k, (name, v) in flat.items()}
     pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
     with open(path, "wb") as f:
         f.write(packb(payload))
+
+
+def _array(entry: dict) -> tuple[str, np.ndarray]:
+    """A payload entry as (dtype name, array); bfloat16 as int16 words,
+    so no ``ml_dtypes`` is needed."""
+    name = entry["dtype"]
+    if name == "bfloat16":
+        arr = np.frombuffer(entry["data"], dtype=np.int16)
+    else:
+        arr = np.frombuffer(entry["data"], dtype=name)
+        name = arr.dtype.name
+    return name, arr.reshape(entry["shape"])
 
 
 def restore(path: str | pathlib.Path, like: Any) -> Any:
@@ -183,22 +208,25 @@ def restore(path: str | pathlib.Path, like: Any) -> Any:
     leaf on its template's device with its template's dtype."""
     with open(path, "rb") as f:
         payload = unpackb(f.read())
-    flat = {k: np.frombuffer(v["data"], dtype=v["dtype"]).reshape(v["shape"])
-            for k, v in payload.items()}
+    flat = {k: _array(v) for k, v in payload.items()}
 
     def take(key, leaf):
-        arr = flat.get(key)
-        if arr is None:
+        entry = flat.get(key)
+        if entry is None:
             raise KeyError(
                 f"checkpoint {path} lacks leaf {key!r} — it was saved "
                 f"by an older state layout; restart without --resume "
                 f"(or delete the stale checkpoint directory)")
-        want = _np_dtype(leaf.dtype)
-        if tuple(arr.shape) != tuple(leaf.shape) or arr.dtype != want:
+        name, arr = entry
+        want = _dtype_name(leaf.dtype)
+        if tuple(arr.shape) != tuple(leaf.shape) or name != want:
             raise ValueError(
                 f"checkpoint {path}: layout mismatch for leaf {key!r} — "
-                f"saved {arr.dtype.name}{tuple(arr.shape)}, "
-                f"expected {want.name}{tuple(leaf.shape)}")
-        return torch.from_numpy(arr.copy()).to(leaf.device)
+                f"saved {name}{tuple(arr.shape)}, "
+                f"expected {want}{tuple(leaf.shape)}")
+        t = torch.from_numpy(arr.copy())
+        if name == "bfloat16":
+            t = t.view(torch.bfloat16)
+        return t.to(leaf.device)
 
     return _map(take, like)

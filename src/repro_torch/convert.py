@@ -18,6 +18,7 @@ from repro_torch.data.partition import ClientData
 from repro_torch.fl.runtime.engine import EngineState, RuntimeConfig
 from repro_torch.fl.runtime.strategy import (FLISAux, FLISClientState,
                                              ServerState)
+from repro_torch.optim.adamw import AdamWState
 
 
 def _t(a, dtype=None, device=None) -> torch.Tensor:
@@ -112,6 +113,36 @@ def engine_state_from_numpy(round_idx, ta_state, weights, server_slots,
         round_idx, tm_params_from_numpy(ta_state, weights, device),
         server_state_from_numpy(server_slots, device=device), device,
         **lanes)
+
+
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """One array as a tensor of its own dtype; a bfloat16 array (an
+    ``ml_dtypes`` dtype, which the port never imports) goes through its
+    2-byte words."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        words = np.ascontiguousarray(a).view(np.int16)
+        return _t(words, device=device).view(torch.bfloat16)
+    return _t(a, device=device)
+
+
+def lm_params_from_numpy(params: Any, device=None) -> Any:
+    """The model scaffold's parameter tree (nested dicts, the segments'
+    list of tuples) as the reference hands it over, as numpy arrays:
+    the same tree of tensors, dtypes kept (bfloat16 and float32)."""
+    if isinstance(params, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(lm_params_from_numpy(v, device) for v in params)
+    return tensor_from_numpy(params, device)
+
+
+def adamw_state_from_numpy(step, m, v, device=None) -> AdamWState:
+    """AdamW's state ``(step, m, v)``: the step as int32, the moments as
+    trees like :func:`lm_params_from_numpy`'s."""
+    return AdamWState(step=_t(step, np.int32, device),
+                      m=lm_params_from_numpy(m, device),
+                      v=lm_params_from_numpy(v, device))
 
 
 def to_numpy(tree):

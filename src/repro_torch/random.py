@@ -93,6 +93,10 @@ def _threefry(k0, k1, x0, x1):
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 on broadcastable int64 tensors holding uint32 words.
     Returns the two hashed words, as uint32 words in int64."""
+    if x1.is_meta:               # shapes only (``ModelConfig.param_count``)
+        shape = torch.broadcast_shapes(k0.shape, k1.shape, x0.shape,
+                                       x1.shape)
+        return (torch.empty(shape, dtype=torch.int64, device="meta"),) * 2
     h0, h1 = _threefry(_i32(k0), _i32(k1), _i32(x0), _i32(x1))
     return _u32(h0), _u32(h1)
 
@@ -298,6 +302,9 @@ _NORMAL_LO = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
 
 def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``f32(sqrt 2)·erf_inv(u)``."""
+    if key.is_meta:              # shapes only (``ModelConfig.param_count``)
+        return torch.empty(key.shape[:-1] + tuple(shape),
+                           dtype=torch.float32, device="meta")
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return xla_f32.ftz(xla_f32.erf_inv(u) * _SQRT2)
 

@@ -9,6 +9,9 @@ imports neither jax nor the JAX package, so it runs on the GPU machine:
 The input helpers and the ``one_torch_thread`` fixture are shared with
 the other test_torch_* files, which hold the port against the JAX
 package on the CPU."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1004,3 +1007,79 @@ def test_sharded_forms_on_two_gloo_ranks_sharing_the_card(cuda):
                          device="cuda", shared_device=True)
     assert (out["backend"], out["device"]) == ("gloo", "cuda:0")
     _check_sharded_forms(out, 2)
+
+
+# the model scaffold: path K3 of chip_smoke.py, whose run, differences
+# and bounds (K3_TOL) these tests use
+_ARCHS = ("jamba_1_5_large_398b", "qwen3_32b", "granite_20b",
+          "musicgen_large", "yi_6b", "xlstm_350m", "deepseek_v3_671b",
+          "phi3_medium_14b", "chameleon_34b", "granite_moe_3b_a800m")
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", _ARCHS)
+def test_gpu_model_matches_cpu(cuda, arch):
+    """A reduced() architecture on the card against the port on the CPU:
+    parameters bit for bit, forward and decode logits, the loss and one
+    train step within ``K3_TOL``."""
+    from repro_torch.configs import registry as archs
+    from repro_torch.models import config as mcfg
+    smoke = _chip_smoke()
+    cfg = mcfg.reduced(archs.get(arch))
+    got = smoke.k3_diffs(smoke.k3_run(cfg, cuda), smoke.k3_run(cfg, "cpu"))
+    assert got is not None, "parameters differ from the CPU's"
+    for k, v in got.items():
+        assert v <= smoke.K3_TOL[k], (k, v)
+
+
+@pytest.mark.gpu
+def test_gpu_moe_training_step_repeats_bit_for_bit(cuda):
+    """The MoE layer's forward and backward at granite-moe-3b-a800m's
+    full width, twice on the same inputs: the same bits (no backward
+    adds colliding values with atomics)."""
+    from repro_torch import tree
+    from repro_torch.configs import registry as archs
+    from repro_torch.models import moe
+    cfg = archs.get("granite_moe_3b_a800m")
+    p = moe.moe_init(tr.PRNGKey(0, cuda), cfg)
+    x = tr.normal(tr.PRNGKey(1, cuda), (2, 256, cfg.d_model)).bfloat16()
+    r = tr.normal(tr.PRNGKey(2, cuda), (2, 256, cfg.d_model))
+    runs = []
+    for _ in range(2):
+        pg = tree.map(lambda a: a.clone().requires_grad_(True), p)
+        xg = x.clone().requires_grad_(True)
+        y, aux = moe.moe_apply(pg, xg, cfg)
+        (torch.sum(y.float() * r) + aux).backward()
+        runs.append([y, xg.grad] + [a.grad for a in tree.leaves(pg)])
+    for a, b in zip(*runs, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gpu_train_cli_save_restore(cuda, tmp_path):
+    """``train.py --save`` then ``--restore`` on the card, bit for bit."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+    argv = ["--arch", "granite-moe-3b-a800m", "--reduced", "--steps", "1",
+            "--seq", "16"]
+    saved = train.main(argv + ["--save", str(tmp_path / "c.msgpack")])
+    back = train.main(argv + ["--restore", str(tmp_path / "c.msgpack"),
+                              "--steps", "0"])
+
+    def keyed(t):
+        out = {}
+        ckpt._map(lambda k, v: out.__setitem__(k, v), t)
+        return out
+    a = keyed({"params": saved["params"], "opt": saved["opt"]})
+    b = keyed({"params": back["params"], "opt": back["opt"]})
+    assert list(a) == list(b)
+    for k in a:
+        assert b[k].is_cuda and torch.equal(a[k], b[k]), k

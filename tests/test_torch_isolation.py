@@ -85,6 +85,12 @@ def _host_value_makers(tmp_path):
                                                  worker_from_spec)
     from repro_torch.launch import fed_dryrun, fed_train
     from repro_torch.launch import mesh
+    from repro_torch.configs import registry as archs
+    from repro_torch.data import loader
+    from repro_torch.launch import serve, train
+    from repro_torch.models import config as mcfg
+    from repro_torch.models import transformer
+    cfg = mcfg.reduced(archs.get("yi-6b"))
     x, y, _ = synthetic.make_dataset("synthmnist", 50, tr.PRNGKey(0, "cpu"),
                                      side=12)
     return {
@@ -129,6 +135,19 @@ def _host_value_makers(tmp_path):
         "fed_dryrun.client_scale": lambda: fed_dryrun.client_scale(
             100, 2, root=str(tmp_path / "store")),
         "mesh.spawn": lambda: mesh.spawn(mesh.run_federations, 2, []),
+        "transformer.init": lambda: transformer.init(tr.PRNGKey(0), cfg),
+        "transformer.init_cache": lambda: transformer.init_cache(cfg, 1, 4),
+        "TokenBatcher": lambda: loader.TokenBatcher(cfg, 1, 4)(0),
+        "FederatedSampler": lambda: loader.FederatedSampler(8, 2).batches(
+            0, 0, 0),
+        "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
+            {"w": [np.ones((2, 3), np.float32)]}),
+        "adamw_state_from_numpy": lambda: convert.adamw_state_from_numpy(
+            0, {"w": np.zeros(2)}, {"w": np.zeros(2)}),
+        "train.main": lambda: train.main(
+            ["--arch", "yi-6b", "--reduced", "--steps", "1",
+             "--save", str(tmp_path / "ck.msgpack")]),
+        "serve.main": lambda: serve.main(["--arch", "yi-6b", "--reduced"]),
     }
 
 
@@ -139,7 +158,10 @@ def _host_value_makers(tmp_path):
     "key_from_numpy", "tm_params_from_numpy", "engine_state_from_numpy",
     "mlp_params_from_numpy", "flis_client_state_from_numpy",
     "server_state_from_numpy", "arrival_participation",
-    "worker_from_spec", "fed_dryrun.client_scale", "mesh.spawn"])
+    "worker_from_spec", "fed_dryrun.client_scale", "mesh.spawn",
+    "transformer.init", "transformer.init_cache", "TokenBatcher",
+    "FederatedSampler", "lm_params_from_numpy", "adamw_state_from_numpy",
+    "train.main", "serve.main"])
 def test_tensors_from_host_values_default_to_the_gpu(monkeypatch, tmp_path,
                                                      name):
     """The partition draws on its key's device, so a GPU default for the

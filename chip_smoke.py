@@ -161,7 +161,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    steps through ``launch.train``, finite losses, the parameters moved,
    then a second run from the same seed equal bit for bit; init
    seconds, step or decode times and peak device memory printed, and no
-   TM kernel launched;
+   TM kernel launched; the dry run's bytes against the card's tensors
+   (``k_bytes``): K1's parameters and caches (full and int8) leaf for
+   leaf as ``steps.input_specs`` builds them on the host mesh (1, 1),
+   their storage bytes the dry run's ``argument_bytes`` less the
+   token's, ``memory_allocated`` growing by the cache part across an
+   ``init_cache`` (within 512 B a leaf); K2's parameters and AdamW state
+   after step 3 the train ``argument_bytes`` at batch 2 x 256 less the
+   batch's; and one line of the dry run of both configurations at
+   16 x 16 (``train_4k``, ``decode_32k``);
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
@@ -1988,6 +1996,123 @@ def k3_diffs(gpu: dict, cpu: dict) -> dict:
                                for a, b in zip(gpu["new"], cpu["new"]))}
 
 
+def _storage_bytes(t) -> int:
+    """Bytes of the distinct storages behind a tree's tensors."""
+    from repro_torch import tree
+    held = {}
+    for x in tree.leaves(t):
+        st = x.untyped_storage()
+        held[st.data_ptr()] = st.nbytes()
+    return sum(held.values())
+
+
+def _same_leaves(name: str, real, abstract) -> None:
+    """The card's tensors have the dry run's abstract leaves' paths,
+    shapes and dtypes."""
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.sharding import rules
+    got, want = {}, {}
+    tree.map_with_path(lambda p, x: got.__setitem__(
+        rules._path_str(p), (tuple(x.shape), x.dtype)), real)
+    tree.map_with_path(lambda p, a: want.__setitem__(
+        rules._path_str(p), (a.shape, a.dtype)), abstract,
+        is_leaf=steps.is_abstract)
+    if got != want:
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        raise SystemExit(f"path (K) {name}: the card's leaves are not the "
+                         f"dry run's input_specs: {bad[:5]}")
+
+
+def k_bytes_k1(dev, cfg, params, batch: int, max_len: int) -> dict:
+    """K1's parameters and decode caches (full, then int8) against the dry
+    run on the host mesh: leaves, storage bytes, and the allocator's
+    growth across ``init_cache``."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    shape = steps.ShapeSpec("k1", max_len, batch, "decode")
+    out = {}
+    for kv in ("full", "int8"):
+        if kv == "int8":
+            os.environ["REPRO_QUANT_KV"] = "1"
+        try:
+            ins = steps.input_specs(cfg, shape, make_host_mesh())
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated(dev)
+            caches = transformer.init_cache(cfg, batch, max_len, device=dev)
+            torch.cuda.synchronize(dev)
+            grown = torch.cuda.memory_allocated(dev) - before
+        finally:
+            os.environ.pop("REPRO_QUANT_KV", None)
+        _same_leaves(f"K1 params ({kv})", params, ins["params"])
+        _same_leaves(f"K1 caches ({kv})", caches, ins["caches"])
+        arg = dryrun.argument_bytes(ins, "decode")
+        token = dryrun.device_bytes(ins["token"])
+        cache = dryrun.device_bytes(ins["caches"])
+        held = _storage_bytes(params) + _storage_bytes(caches)
+        slack = 512 * len(tree.leaves(caches))
+        print(f"path (K1) dry run, {kv} cache at batch {batch} x {max_len} "
+              f"on the host mesh: argument_bytes {arg} less the token's "
+              f"{token} = {arg - token}, the card's parameters and caches "
+              f"hold {held}; init_cache grew memory_allocated by {grown} "
+              f"(the dry run's cache part {cache}, bound +-{slack})",
+              flush=True)
+        if held != arg - token or abs(grown - cache) > slack:
+            raise SystemExit(f"path (K1) dry run, {kv} cache: the card's "
+                             f"bytes are not the dry run's")
+        out[kv] = dict(argument_bytes=arg, held=held, grown=grown,
+                       cache=cache)
+        del caches
+    return out
+
+
+def k_bytes_k2(cfg, params, opt, batch: int, seq: int) -> dict:
+    """K2's parameters and AdamW state after its steps against the dry
+    run's train inputs on the host mesh."""
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    ins = steps.input_specs(cfg, steps.ShapeSpec("k2", seq, batch, "train"),
+                            make_host_mesh())
+    _same_leaves("K2 params", params, ins["params"])
+    _same_leaves("K2 AdamW state", opt, ins["opt_state"])
+    arg = dryrun.argument_bytes(ins, "train")
+    tokens = dryrun.device_bytes(ins["batch"])
+    held = _storage_bytes(params) + _storage_bytes(opt)
+    print(f"path (K2) dry run at batch {batch} x {seq} on the host mesh: "
+          f"argument_bytes {arg} less the batch's {tokens} = "
+          f"{arg - tokens}, the card's parameters and AdamW state after "
+          f"step {int(opt.step)} hold {held}", flush=True)
+    if held != arg - tokens:
+        raise SystemExit("path (K2) dry run: the card's bytes are not the "
+                         "dry run's")
+    return dict(argument_bytes=arg, held=held)
+
+
+def k_dryrun_line() -> dict:
+    """The dry run of K1's and K2's configurations at 16 x 16."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rows = {}
+    for arch in ("yi-6b", "granite-moe-3b-a800m"):
+        for shape in ("train_4k", "decode_32k"):
+            r = dryrun.dryrun(arch, shape)
+            rf = r["roofline"]
+            rows[f"{arch}/{shape}"] = {
+                "argument_bytes": r["memory"]["argument_bytes"],
+                "compute_s": rf["compute_s"], "memory_s": rf["memory_s"],
+                "collective_s": rf["collective_s"],
+                "bottleneck": rf["bottleneck"]}
+    print(f"path (K) dry run at 16x16 (analytic, H100 constants, "
+          f"{time.perf_counter() - t0:.1f}s): {json.dumps(rows)}",
+          flush=True)
+    return rows
+
+
 def path_k3(dev) -> dict:
     """Every architecture's reduced() variant on the card against the port
     on the CPU (:func:`k3_run`): parameters bit for bit, forward and
@@ -2038,7 +2163,8 @@ def path_k3(dev) -> dict:
 def path_k(dev) -> dict:
     """(K3), then (K1) serving yi-6b and (K2) training
     granite-moe-3b-a800m (twice, bit for bit) at their full published
-    configs."""
+    configs, each with the dry run's bytes held to the card's tensors;
+    then the dry run of both at 16 x 16."""
     import torch
     from repro_torch import tree
     from repro_torch.kernels import ops
@@ -2070,6 +2196,8 @@ def path_k(dev) -> dict:
                                         remat=False)
     _k_decode_check("int8 cache", q["logits"], full_q, K1_TOL["int8"])
     peak1 = torch.cuda.max_memory_allocated(dev)
+    del q["logits"], full_q
+    out["k1_bytes"] = k_bytes_k1(dev, cfg, params, 4, 32 + 32)
     tok_s = {"full": 32 * 4 / res["decode_s"], "int8": 32 * 4 / q["decode_s"]}
     print(f"path (K1) yi-6b serve: {n / 1e9:.3f}B parameters, init "
           f"{res['init_s']:.2f}s, prefill (32 decode steps) "
@@ -2079,7 +2207,7 @@ def path_k(dev) -> dict:
           flush=True)
     out["k1"] = dict(init_s=res["init_s"], prefill_s=res["prefill_s"],
                      tok_s=tok_s, peak=peak1, params=n)
-    del res, q, params, full, full_q
+    del res, q, params, full
     torch.cuda.empty_cache()
 
     # K2: train granite-moe-3b-a800m, 3 steps, no checkpoint
@@ -2105,6 +2233,7 @@ def path_k(dev) -> dict:
           f"{peak2 / 2**30:.2f} GiB", flush=True)
     out["k2"] = dict(init_s=res["init_s"], step_s=res["step_s"],
                      losses=losses, peak=peak2)
+    out["k2_bytes"] = k_bytes_k2(cfg, res["params"], res["opt"], 2, 256)
     # the same run again from the same seed: the same losses and
     # parameters, bit for bit (no backward adds with atomics)
     first = tree.leaves(res["params"])
@@ -2121,6 +2250,7 @@ def path_k(dev) -> dict:
           f"{[round(x, 3) for x in again['step_s']]}", flush=True)
     del again, first
     torch.cuda.empty_cache()
+    out["dryrun"] = k_dryrun_line()
     if dict(ops.LAUNCHES) != launches:
         raise SystemExit("path (K) launched a TM kernel")
     return out

@@ -21,7 +21,7 @@ metered as they run (``masked_collectives.CollectiveMeter``, predicted
 by ``collective_payload_bytes``), so those sections have no analogue
 here and none is imitated.  The round constructors they lower
 (``make_tpfl_round``, ``make_fedavg_tm_round``, the ``abstract_*``
-inputs) stay with the reference's generic scaffold (ROADMAP, queue A9).
+inputs) are ROADMAP queue A9.2 items 4–5, still to port.
 
   PYTHONPATH=src python -m repro_torch.launch.fed_dryrun \\
       [--clients 1000000] [--active 256] [--device cpu]

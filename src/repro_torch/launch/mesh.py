@@ -32,9 +32,15 @@ fails the run: ``torch.multiprocessing.spawn(..., join=True)`` raises
 its error in the caller.  :func:`run_federations` runs engine jobs on
 the mesh (the library path the tests and ``chip_smoke.py`` drive).
 
-The reference's ``make_production_mesh`` and ``make_host_mesh`` (the
-generic model scaffold's meshes) belong to queue A9 and are not here,
-nor are the TPU v5e constants beside them.
+The model scaffold's meshes, :func:`make_production_mesh` and
+:func:`make_host_mesh`, are shapes only (:class:`MeshShape`: axis names
+and sizes, no device and no process group): the sharding rules and the
+dry run (:mod:`repro_torch.launch.dryrun`) price a world of devices
+from them without holding one.  The hardware constants the dry run's
+roofline reads stand at the end: the H100's, and the reference's TPU
+v5e ones under their own names.  The reference's
+``repro/sharding/compat.py`` (shims over jax versions' mesh APIs) has no
+counterpart: nothing here calls jax.
 """
 from __future__ import annotations
 
@@ -279,3 +285,62 @@ def run_federations(mesh: ClientsMesh, jobs: list[dict]) -> list[dict] | None:
                 collective_payload_bytes=engine.collective_payload_bytes(),
                 population=population))
     return results if mesh.rank == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# The model scaffold's meshes: shapes only
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, with no devices: what the sharding
+    rules read (``axis_names``, ``shape``), as a ``ClientsMesh`` exposes
+    its ``shape``."""
+
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.sizes, dtype=np.int64))
+
+    @property
+    def name(self) -> str:
+        return "x".join(str(s) for s in self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """16×16 = 256 chips per pod; 2 pods = 512 chips multi-pod."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def make_host_mesh() -> MeshShape:
+    """Single-device mesh (same axis names)."""
+    return MeshShape(("data", "model"), (1, 1))
+
+
+# NVIDIA H100 SXM5 80GB constants (per card), from NVIDIA's H100 Tensor
+# Core GPU datasheet at the 700 W power limit: dense bf16 tensor-core
+# rate (1,979 TFLOP/s is the 2:4-sparse figure), HBM3 bandwidth.
+H100_PEAK_FLOPS_BF16 = 989e12     # FLOP/s
+H100_HBM_BW = 3.35e12             # B/s
+# Links for the collective term, per card and direction.  NVLink 4: 18
+# links, 900 GB/s both ways, among the 8 cards of one HGX/DGX H100 node.
+# A 256- or 512-card world crosses nodes over InfiniBand: one 400 Gb/s
+# NDR port (ConnectX-7) per GPU, as in NVIDIA's DGX H100 reference
+# architecture (DGX SuperPOD).
+H100_NVLINK_BW = 450e9            # B/s
+H100_NDR_BW = 400e9 / 8           # B/s
+H100_NODE_GPUS = 8                # cards an NVLink domain joins
+
+# The reference's TPU v5e constants (per chip), as
+# ``repro/launch/mesh.py`` states them; nothing in the port reads them.
+PEAK_FLOPS_BF16 = 197e12          # FLOP/s
+HBM_BW = 819e9                    # B/s
+ICI_BW = 50e9                     # B/s per link

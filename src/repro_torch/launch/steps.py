@@ -1,23 +1,32 @@
-"""Train / prefill / serve steps for the model scaffold.
+"""Train / prefill / serve steps for the model scaffold, and their
+abstract inputs.
 
-Counterpart of ``repro/launch/steps.py``'s steps: eager PyTorch, the
-gradient through autograd (the attention's backward is the blockwise
-one, :class:`repro_torch.models.attention._Flash`).  The reference's
-abstract inputs for the mesh dry-run (``abstract_params``,
-``abstract_opt_state``, ``abstract_cache``, ``input_specs``) price XLA's
-partitioned programs; they are not ported with the steps.
+Counterpart of ``repro/launch/steps.py``.  The steps are eager PyTorch,
+the gradient through autograd (the attention's backward is the blockwise
+one, :class:`repro_torch.models.attention._Flash`).  The abstract inputs
+(:func:`abstract_params`, :func:`abstract_opt_state`,
+:func:`abstract_cache`, :func:`input_specs`) are the reference's trees
+(dicts, ``AdamWState(step, m, v)``, lists of cache named tuples), built
+by the port's own ``init`` / ``adamw.init`` / ``init_cache`` on the
+``meta`` device, so nothing is allocated; each leaf is an
+:class:`AbstractArray`, a ``meta`` tensor with its spec on a mesh (the
+reference's ``ShapeDtypeStruct`` with a ``NamedSharding``).  The dry run
+(:mod:`repro_torch.launch.dryrun`) prices them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
 
+from repro_torch import random as rnd
 from repro_torch import tree
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.sharding import rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,3 +99,114 @@ def make_serve_step(cfg: ModelConfig, window: int = 0) -> Callable:
                                                  window=window)
         return transformer.greedy(logits), caches
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs
+# ---------------------------------------------------------------------------
+
+def _axis_size(entry, mesh) -> int:
+    """The number of shards a spec entry cuts its dimension into."""
+    if entry is None:
+        return 1
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return math.prod(mesh.shape[a] for a in names)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractArray:
+    """One abstract input: a ``meta`` tensor (shape and dtype, no
+    storage) and its spec on ``mesh``."""
+
+    value: torch.Tensor
+    spec: tuple
+    mesh: Any
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.value.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.value.dtype
+
+    @property
+    def shard_shape(self) -> tuple[int, ...]:
+        """One device's block; a dimension that its axes do not divide
+        rounds up, as XLA pads it."""
+        spec = self.spec + (None,) * (len(self.shape) - len(self.spec))
+        return tuple(-(-n // _axis_size(e, self.mesh))
+                     for n, e in zip(self.shape, spec))
+
+    @property
+    def device_bytes(self) -> int:
+        """Bytes of one device's block."""
+        return math.prod(self.shard_shape) * self.value.element_size()
+
+
+def is_abstract(x: Any) -> bool:
+    return isinstance(x, AbstractArray)
+
+
+def _abstract(shapes: Any, specs: Any, mesh: Any) -> Any:
+    return tree.map(lambda s, sp: AbstractArray(s, sp, mesh), shapes, specs)
+
+
+def _meta_params(cfg: ModelConfig) -> Any:
+    return transformer.init(rnd.PRNGKey(0, "meta"), cfg)
+
+
+def abstract_params(cfg: ModelConfig, mesh: Any) -> Any:
+    shapes = _meta_params(cfg)
+    moe_sh = cfg.moe.sharding if cfg.moe else "ep"
+    return _abstract(shapes, rules.param_specs(shapes, mesh, moe_sh), mesh)
+
+
+def abstract_opt_state(cfg: ModelConfig, mesh: Any, params_abs: Any,
+                       opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig()
+                       ) -> adamw.AdamWState:
+    shapes = adamw.init(tree.map(lambda a: a.value, params_abs,
+                                 is_leaf=is_abstract), opt_cfg)
+    moe_sh = cfg.moe.sharding if cfg.moe else "ep"
+
+    def like(t):
+        return _abstract(t, rules.param_specs(t, mesh, moe_sh), mesh)
+
+    return adamw.AdamWState(step=AbstractArray(shapes.step, (), mesh),
+                            m=like(shapes.m), v=like(shapes.v))
+
+
+def abstract_cache(cfg: ModelConfig, mesh: Any, batch: int, max_len: int,
+                   window: int = 0) -> Any:
+    shapes = transformer.init_cache(cfg, batch, max_len, window,
+                                    device="meta")
+    return _abstract(shapes, rules.cache_specs(shapes, mesh), mesh)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh: Any,
+                opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig()
+                ) -> dict[str, Any]:
+    """All abstract inputs for one (arch × shape × mesh) dry-run."""
+    bsp = rules.batch_spec(mesh, shape.global_batch)
+    params = abstract_params(cfg, mesh)
+
+    def tokens(t):
+        return AbstractArray(torch.empty((shape.global_batch, t),
+                                         dtype=torch.int32, device="meta"),
+                             bsp, mesh)
+
+    if shape.kind == "train":
+        tok = tokens(shape.seq_len)
+        return {
+            "params": params,
+            "opt_state": abstract_opt_state(cfg, mesh, params, opt_cfg),
+            "batch": {"tokens": tok, "labels": tok},
+        }
+    if shape.kind == "prefill":
+        return {"params": params, "batch": {"tokens": tokens(shape.seq_len)}}
+    # decode: one new token + a seq_len cache
+    window = needs_window(cfg, shape)
+    caches = abstract_cache(cfg, mesh, shape.global_batch, shape.seq_len,
+                            window)
+    return {"params": params, "token": tokens(1), "caches": caches,
+            "window": window}

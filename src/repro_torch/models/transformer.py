@@ -167,7 +167,9 @@ def _restack(items: list) -> Any:
 def init(key: torch.Tensor, cfg: ModelConfig) -> Params:
     """The reference's parameters, bit for bit, on the key's device:
     keys split and folded as the reference's ``init``; each segment's
-    layers drawn one at a time into their stacked tensors."""
+    layers drawn one at a time into their stacked tensors.  On ``meta``
+    (shapes only: ``param_count``, the dry run's abstract inputs) one
+    layer a pattern position is drawn; the rest hold no values."""
     k_emb, k_head, k_seg = rnd.split(key, 3)
     params: dict = {
         "embed": layers.embed_init(k_emb, cfg.padded_vocab, cfg.d_model),
@@ -185,7 +187,7 @@ def init(key: torch.Tensor, cfg: ModelConfig) -> Params:
             first = block_init(ks[0], cfg, spec)
             stacked = tree.map(lambda a: a.new_empty((repeat,) + a.shape),
                                first)
-            for r in range(repeat):
+            for r in range(1 if key.device.type == "meta" else repeat):
                 layer = first if r == 0 else block_init(ks[r], cfg, spec)
                 tree.map(lambda s, a, r=r: s[r].copy_(a), stacked, layer)
                 del layer

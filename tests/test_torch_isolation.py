@@ -3,7 +3,7 @@ chip_smoke.py imports jax, the JAX package ``repro`` or ``msgpack`` (the
 GPU machine has neither jax nor msgpack); every module imports with them
 blocked; entry points and every function that makes
 tensors from host values default to the GPU and refuse to fall back to
-the CPU; the port's float32 wire frames are byte-identical to the
+the CPU, but for the dry run, which runs on ``meta`` with no card; the port's float32 wire frames are byte-identical to the
 reference codec's."""
 import ast
 import subprocess
@@ -72,6 +72,32 @@ def test_default_device_refuses_a_gpu_less_host(monkeypatch):
         fed_dryrun.main(["--clients", "100", "--active", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fed_serve.main(["--clients", "2", "--ckpt-dir", "unused"])
+
+
+def test_dryrun_needs_no_card(monkeypatch, capsys):
+    """The one entry point that runs without a card, as the reference's
+    dry run runs without a TPU: it prices a world of devices from
+    ``meta`` trees, and every leaf it builds stays there."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import dryrun, steps
+
+    def no_cuda():
+        raise AssertionError("the dry run initialized CUDA")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "_lazy_init", no_cuda)
+    built = []
+    real = steps.input_specs
+    monkeypatch.setattr(steps, "input_specs",
+                        lambda *a, **k: built.append(real(*a, **k))
+                        or built[-1])
+    [r] = dryrun.main(["--arch", "yi-6b", "--shape", "decode_32k"])
+    assert r["memory"]["argument_bytes"] > 0
+    [ins] = built
+    leaves = tree.leaves({k: v for k, v in ins.items() if k != "window"},
+                         is_leaf=steps.is_abstract)
+    assert leaves and all(a.value.device.type == "meta" for a in leaves)
 
 
 def _host_value_makers(tmp_path):

@@ -169,7 +169,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``init_cache`` (within 512 B a leaf); K2's parameters and AdamW state
    after step 3 the train ``argument_bytes`` at batch 2 x 256 less the
    batch's; and one line of the dry run of both configurations at
-   16 x 16 (``train_4k``, ``decode_32k``);
+   16 x 16 (``train_4k``, ``decode_32k``); then path (L), the legacy
+   federation loop (``path_l``), counters zeroed just before L1: (L1) at
+   the training path's width, ``federation.init_state`` + ``run_round``
+   x 2 against ``federation.run`` (the engine) bit for bit (mean
+   accuracy within 1e-6), and one ``fed_train.make_tpfl_round`` call
+   against the loop's first round, each round timed (host clock, card
+   synced) beside the engine's; (L2) ``make_fedavg_tm_round`` once at
+   the same width, every client's TA state and weights
+   ``round(sum x f32(1/n))`` of the trained states computed apart, and
+   at C = 10, m = 16, 6 clients the card against the CPU bit for bit;
+   the counters read after L2 (kernel 1 twelve times, kernel 2 eleven,
+   no other); (L3) ``fed_dryrun``'s analytic sections at 16 x 16 and
+   2 x 16 x 16, the 16 x 16 figures held to ``L3_16X16``; (L4) the four
+   ``repro_torch.examples`` on the card at small arguments, each timed;
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
@@ -2256,6 +2269,207 @@ def path_k(dev) -> dict:
     return out
 
 
+# path (L): the legacy federation loop, the round constructors, the federated
+# dry run's sections and the examples
+L_TPFL_LAUNCHES = {"train_epoch_fused": 2 * 2 * 2 + 2 + 2,
+                   "fused_votes_batched": 2 * 2 * 2 + 2 + 1}
+L2_SMALL_TM = dict(n_classes=10, n_clauses=16, n_features=144, n_states=63,
+                   s=5.0, T=40)
+# the 16 x 16 figures at paper width (C = 10, m = 300, L = 1568, 256
+# clients, a 512-row buffer): the psum of the (C, m) accumulator and its
+# totals, the async update's all-gather of 256 x 1,213 upload bytes, and
+# FedAvg-TM's all-reduce of the f32 state and weights (+ 4 B: the
+# accuracy mean)
+L3_16X16 = {"tpfl": {"all-reduce": 4 * 10 * 301},
+            "tpfl_async": {"all-gather": 256 * (4 * 300 + 13),
+                           "all-reduce": 4 * 10 * 301},
+            "fedavg_tm": {"all-reduce": 10 * 300 * 1568 * 4 + 10 * 300 * 4
+                          + 4}}
+L4_EXAMPLES = (
+    ("quickstart", []),
+    ("federated_training", ["--rounds", "1", "--clients", "6", "--dataset",
+                            "synthmnist"]),
+    ("multiarch_train", ["--steps", "1"]),
+    ("serve_decode", ["--batch", "2", "--prompt-len", "8",
+                      "--decode-steps", "8"]))
+
+
+def path_l(dev) -> dict:
+    """(L1) the legacy loop at the training path's width, (L2) one
+    FedAvg-TM round, (L3) the federated dry run's sections, (L4) the four
+    examples.  Returns the launches of L1 and L2 (kernels 1 and 2)."""
+    import importlib
+
+    import torch
+    from repro_torch import random as rnd
+    from repro_torch.core import federation, tm
+    from repro_torch.data import partition, synthetic
+    from repro_torch.fl.runtime import Engine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fed_dryrun, fed_train
+
+    def clock() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def same(a, b) -> bool:
+        return all(_same_bits(x, y) for x, y in zip(a, b, strict=True))
+
+    data, tm_cfg, fed_cfg, _ = fed_train.build_scenario(
+        dataset=DATASET, data_dir=str(DATA_DIR), clients=CLIENTS,
+        clauses=CLAUSES, rounds=2, device=dev)
+    n = fed_cfg.n_clients
+    key = rnd.PRNGKey(0, dev)
+    k_init, k_rounds = rnd.split(key).unbind(0)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+
+    # L1: init_state + run_round x 2, then federation.run (the engine)
+    st0 = federation.init_state(tm_cfg, fed_cfg, k_init)
+    states, legacy, legacy_s = [st0], [], []
+    for r in range(fed_cfg.rounds):
+        t = clock()
+        st, m = federation.run_round(states[-1], data,
+                                     rnd.fold_in(k_rounds, r), tm_cfg,
+                                     fed_cfg)
+        legacy_s.append(clock() - t)
+        states.append(st)
+        legacy.append(m)
+    engine_s = []
+    run_round = Engine.run_round
+
+    def timed_round(self, *a, **kw):
+        t = clock()
+        out = run_round(self, *a, **kw)
+        engine_s.append(clock() - t)
+        return out
+
+    Engine.run_round = timed_round
+    try:
+        end, hist = federation.run(data, tm_cfg, fed_cfg, key)
+    finally:
+        Engine.run_round = run_round
+    t = clock()
+    p1, cw1, met1 = fed_train.make_tpfl_round(tm_cfg, fed_cfg)(
+        st0.client_params, st0.cluster_weights, data,
+        rnd.fold_in(k_rounds, 0))
+    tpfl_round_s = clock() - t
+
+    # L2: FedAvg over the full TM state, once
+    k_avg = rnd.fold_in(k_rounds, 7)
+    t = clock()
+    avg, avg_met = fed_train.make_fedavg_tm_round(tm_cfg, fed_cfg)(
+        st0.client_params, data, k_avg)
+    fedavg_s = clock() - t
+    launches = dict(ops.LAUNCHES)
+    print(f"path (L1) legacy loop at C = {tm_cfg.n_classes}, m = "
+          f"{tm_cfg.n_clauses}, L = {tm_cfg.n_literals}, {n} "
+          f"clients: run_round {[round(s, 4) for s in legacy_s]} s, the "
+          f"engine's rounds (federation.run) "
+          f"{[round(s, 4) for s in engine_s]} s, one make_tpfl_round "
+          f"{tpfl_round_s:.4f} s, mean accuracy "
+          f"{[round(float(m.mean_accuracy), 4) for m in legacy]}; (L2) "
+          f"make_fedavg_tm_round {fedavg_s:.4f} s, mean accuracy "
+          f"{float(avg_met['mean_accuracy']):.4f}; launches {launches}",
+          flush=True)
+
+    for r, (a, b) in enumerate(zip(legacy, hist, strict=True)):
+        if not same([a.per_client_accuracy, a.assignment, a.cluster_counts],
+                    [b.per_client_accuracy, b.assignment, b.cluster_counts]) \
+                or [a.upload_bytes, a.download_bytes_broadcast,
+                    a.download_bytes_per_client] != [
+                    b.upload_bytes, b.download_bytes_broadcast,
+                    b.download_bytes_per_client] \
+                or abs(float(a.mean_accuracy) - float(b.mean_accuracy)) \
+                > 1e-6:
+            raise SystemExit(f"path (L1) round {r}: run_round and "
+                             f"federation.run disagree")
+    last = states[-1]
+    if not same([*last.client_params, last.cluster_weights],
+                [*end.client_params, end.cluster_weights]):
+        raise SystemExit("path (L1): the legacy loop's state is not "
+                         "federation.run's")
+    one = states[1]
+    if not same([*one.client_params, one.cluster_weights,
+                 legacy[0].cluster_counts],
+                [*p1, cw1, met1["cluster_counts"]]) \
+            or abs(float(met1["mean_accuracy"])
+                   - float(legacy[0].mean_accuracy)) > 1e-6:
+        raise SystemExit("path (L1): make_tpfl_round is not run_round's "
+                         "round")
+    for name, want in L_TPFL_LAUNCHES.items():
+        if launches[name] != want:
+            raise SystemExit(f"path (L): {name} launched {launches[name]} "
+                             f"times, not {want}")
+    if any(v for k, v in launches.items() if k not in L_TPFL_LAUNCHES):
+        raise SystemExit(f"path (L): other kernels launched: {launches}")
+    print("check path (L1): init_state + run_round x 2 == federation.run "
+          "bit for bit (mean accuracy within 1e-6), make_tpfl_round == "
+          "run_round's first round", flush=True)
+
+    # L2: every client holds round(sum x f32(1/n)) of the trained states
+    trained = tm.train_batched(st0.client_params, data.x_train,
+                               data.y_train, rnd.split(k_avg, n), tm_cfg,
+                               epochs=fed_cfg.local_epochs)
+    inv_n = float(np.float32(1) / np.float32(n))
+    want = [torch.round(a.to(torch.float32).sum(0) * inv_n).to(torch.int32)
+            for a in trained]
+    if not all(bool((a == w).all()) for a, w in zip(avg, want, strict=True)):
+        raise SystemExit("path (L2): the FedAvg-TM state is not the "
+                         "rounded mean of the trained states")
+    del trained, want, states, end, p1, avg
+    small = []
+    for d in ("cpu", dev):
+        x, y, _ = synthetic.make_dataset("synthmnist", 600,
+                                         rnd.PRNGKey(0, d), side=12)
+        part = partition.partition(x, y, 10, n_clients=6, experiment=5,
+                                   key=rnd.PRNGKey(1, d), n_train=24,
+                                   n_test=12, n_conf=12)
+        cfg = tm.TMConfig(**L2_SMALL_TM)
+        fed = federation.FedConfig(n_clients=6, local_epochs=2)
+        p0 = federation.init_state(cfg, fed, rnd.PRNGKey(2, d)).client_params
+        small.append(fed_train.make_fedavg_tm_round(cfg, fed)(
+            p0, part, rnd.PRNGKey(3, d)))
+    (cpu_p, cpu_m), (gpu_p, gpu_m) = small
+    if not same(cpu_p, gpu_p) or abs(float(cpu_m["mean_accuracy"])
+                                     - float(gpu_m["mean_accuracy"])) > 1e-6:
+        raise SystemExit("path (L2): the reduced FedAvg-TM round differs "
+                         "between the card and the CPU")
+    print("check path (L2): every client holds round(sum x f32(1/n)) of "
+          "the trained states; C = 10, m = 16, 6 clients: GPU == CPU bit "
+          "for bit", flush=True)
+
+    # L3: the federated dry run's sections (analytic, no card needed)
+    t = clock()
+    secs = {mp: fed_dryrun.run(multi_pod=mp) for mp in (False, True)}
+    print(f"path (L3) fed_dryrun sections ({time.perf_counter() - t:.2f}s): "
+          + json.dumps({s["mesh"]: {k: {c: b for c, b in s[k][
+              "breakdown"].items() if b} for k in fed_dryrun.SECTIONS}
+                        | {"fedavg_over_tpfl": s["fedavg_over_tpfl"]}
+                        for s in secs.values()}), flush=True)
+    for name, want in L3_16X16.items():
+        got = {k: v for k, v in secs[False][name]["breakdown"].items() if v}
+        if got != want:
+            raise SystemExit(f"path (L3) {name} at 16x16: {got}, not {want}")
+    if secs[False]["fedavg_tm"]["payload_bytes"] != 18_828_000:
+        raise SystemExit("path (L3): FedAvg-TM's payload at 16x16 is not "
+                         "18,828,000 B")
+
+    # L4: the examples on the card
+    example_s = {}
+    for name, argv in L4_EXAMPLES:
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        t = clock()
+        module.main(argv + ["--device", "cuda"])
+        example_s[name] = clock() - t
+    print("path (L4) examples on the card (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in example_s.items()), flush=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "legacy_s": legacy_s,
+            "engine_s": engine_s, "tpfl_round_s": tpfl_round_s,
+            "fedavg_s": fedavg_s, "examples_s": example_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2751,6 +2965,10 @@ def main() -> int:
     # path (K): the model scaffold, yi-6b served and granite-moe-3b-a800m
     # trained at full width, every reduced() architecture card == CPU
     path_k(dev)
+
+    # path (L): the legacy federation loop and the round constructors at the
+    # training path's width, the federated dry run's sections, the examples
+    launches_l = path_l(dev)["launches"]
 
     # 9. small runs on the card against the same on the CPU: the
     # unit-weight federation, and a checkpoint and its serving
@@ -3277,11 +3495,13 @@ def main() -> int:
     kernels = [
         kernel_entry("fused_votes_batched", "clause_eval.cu",
                      "src/repro/kernels/clause_eval.py:185",
-                     launches["fused_votes_batched"], err, k2_ms, k2_plain,
+                     launches["fused_votes_batched"]
+                     + launches_l["fused_votes_batched"], err, k2_ms, k2_plain,
                      k2_lib, k2_bytes, k2_ops, INT8_OPS_PER_S),
         kernel_entry("train_epoch_fused", "train_epoch.cu",
                      "src/repro/kernels/train_epoch.py:115",
-                     launches["train_epoch_fused"], err, k1_ms, k1_plain,
+                     launches["train_epoch_fused"]
+                     + launches_l["train_epoch_fused"], err, k1_ms, k1_plain,
                      None, k1_bytes, k1_ops, INT32_OPS_PER_S),
         kernel_entry("clause_outputs", "clause_eval.cu",
                      "src/repro/kernels/clause_eval.py:77",

@@ -89,6 +89,23 @@ class Quantile:
         return bits.reshape(*x.shape[:-1], x.shape[-1] * self.levels)
 
 
+@dataclasses.dataclass(frozen=True)
+class Pipeline:
+    """Left-to-right composition of encoders."""
+
+    steps: tuple
+
+    def out_features(self, n_in: int) -> int:
+        for step in self.steps:
+            n_in = step.out_features(n_in)
+        return n_in
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        for step in self.steps:
+            x = step(x)
+        return x
+
+
 def build(spec: str, pool: torch.Tensor | None = None):
     """Parse an encoding spec: ``bool`` / ``bool:<threshold>``,
     ``thermometer:<levels>`` (default 4), ``quantile:<levels>`` (default

@@ -47,6 +47,7 @@ from repro_torch import random as rnd
 from repro_torch.data.ingest import encode, idx, leaf, mirror
 
 SYNTH_DATASETS = ("synthmnist", "synthfashion", "synthfemnist")
+REAL_DATASETS = ("mnist", "fashionmnist", "femnist")
 
 T10K_IMAGES = "t10k-images-idx3-ubyte.gz"
 T10K_LABELS = "t10k-labels-idx1-ubyte.gz"

@@ -94,3 +94,16 @@ def make_dataset(name: str, n_samples: int, key: torch.Tensor,
     protos = class_prototypes(cfg, kp)
     y = rnd.randint(ky, (n_samples,), 0, cfg.n_classes)
     return sample(cfg, protos, y, kx), y, cfg
+
+
+def booleanize(x: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+    """Grayscale → boolean bits (identity for already-binary data): a
+    float image is ``x >= threshold`` in float32, a 0–255 uint8 image
+    ``x >= int(255·threshold)``, and anything else cast to uint8.  The
+    public adapter through which real MNIST-family arrays drop in."""
+    if x.is_floating_point():
+        return (x.to(torch.float32) >= torch.tensor(
+            threshold, dtype=torch.float32)).to(torch.uint8)
+    if x.dtype == torch.uint8 and int(x.max()) > 1:
+        return (x >= int(255 * threshold)).to(torch.uint8)
+    return x.to(torch.uint8)

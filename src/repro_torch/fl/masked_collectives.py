@@ -1,8 +1,9 @@
 """Cluster-masked reductions: the in-process form and the sharded forms
 over a clients process group.
 
-Counterpart of ``repro/fl/masked_collectives.py``.  The async engine
-folds its matured buffer entries into the server with
+Counterpart of ``repro/fl/masked_collectives.py``.  The in-process NN
+federation averages with :func:`clustered_mean`, the async engine folds
+its matured buffer entries into the server with
 :func:`clustered_weighted_mean`; the shard-mapped executor
 (``backend="shardmap"``) aggregates through the sharded forms below,
 each one masked collective over the ``clients`` group of a
@@ -116,6 +117,18 @@ def _weighted_sums(vals: torch.Tensor, assignment: torch.Tensor,
 
 def _mean(sums: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     return xla_f32.ftz(sums / torch.clamp(total, min=1e-9)[:, None])
+
+
+def clustered_mean(vals: torch.Tensor, assignment: torch.Tensor,
+                   n_clusters: int) -> torch.Tensor:
+    """vals (n, ...) → (n_clusters, ...) per-cluster means (0 where
+    empty): the one-hot segment mean, summed in the order above; unit
+    weights make every product exact."""
+    ones = torch.ones(vals.shape[0], dtype=torch.float32, device=vals.device)
+    sums, counts = _weighted_sums(vals, assignment, ones, n_clusters,
+                                  exact_products=True)
+    mean = xla_f32.ftz(sums / torch.clamp(counts, min=1.0)[:, None])
+    return mean.reshape((n_clusters,) + tuple(vals.shape[1:]))
 
 
 def clustered_weighted_mean(vals: torch.Tensor, assignment: torch.Tensor,

@@ -26,6 +26,7 @@ import torch
 from repro_torch import random as rnd
 from repro_torch.core import confidence, mlp
 from repro_torch.data.partition import ClientData
+from repro_torch.fl.masked_collectives import clustered_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,18 +43,6 @@ class NNHistory(NamedTuple):
     accuracy: list
     assignments: torch.Tensor          # (rounds, n_clients)
     upload_bytes_per_client_round: int
-
-
-def clustered_mean(vals: torch.Tensor, assignment: torch.Tensor,
-                   n_clusters: int) -> torch.Tensor:
-    """vals (n, ...) → (n_clusters, ...) per-cluster means (0 if empty),
-    through the one-hot product."""
-    onehot = torch.nn.functional.one_hot(assignment.long(), n_clusters
-                                         ).to(torch.float32)
-    sums = torch.einsum("n...,nk->k...", vals.to(torch.float32), onehot)
-    counts = onehot.sum(0)
-    return sums / torch.clamp(
-        counts.reshape((-1,) + (1,) * (vals.ndim - 1)), min=1.0)
 
 
 def run(data: ClientData, cfg: NNFedConfig, key: torch.Tensor, *,

@@ -105,6 +105,9 @@ class PhaseTracer:
         return spans
 
 
+NULL = NullTracer()
+
+
 @contextlib.contextmanager
 def profile_trace(profile_dir: str | pathlib.Path | None):
     """A ``torch.profiler`` capture (host, and the GPU when there is one)

@@ -26,6 +26,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.fl.obs.manifest import write_manifest
 
 _PAT = re.compile(r"round_(\d+)\.msgpack$")
+MANIFEST_NAME = "manifest.json"
 STORE_MANIFEST_NAME = "store_manifest.json"
 
 

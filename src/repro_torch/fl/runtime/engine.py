@@ -155,6 +155,7 @@ from repro_torch.fl.runtime.executors import (COLLECTIVES,
 from repro_torch.fl.runtime.scheduler import (Participation, Scheduler,
                                               SchedulerConfig)
 from repro_torch.fl.runtime.strategy import (DOWNLOADS, ServerState,
+                                             ensure_server_state,
                                              resolve_server_update)
 from repro_torch.fl.store import client_store
 from repro_torch.fl.store.client_store import ClientStore
@@ -407,6 +408,7 @@ class Engine:
         else:
             # FLIS draws its probe set from the clients' confidence split
             cs, server = self.strategy.init(key, self.n, self.data)
+            server = ensure_server_state(server)
         shape = (self.n, self.strategy.n_slots, self.strategy.vec_dim)
         f32 = dict(dtype=torch.float32, device=self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -444,12 +446,13 @@ class Engine:
         cohort = getattr(strat, "init_cohort", None)
         init_server = getattr(strat, "init_server", None)
         if cohort is not None and init_server is not None:
-            server = init_server(key, self.n)
+            server = ensure_server_state(init_server(key, self.n))
 
             def cs_init(ids):
                 return cohort(key, ids, self.n)
         else:
             cs, server = strat.init(key, self.n, self.data)
+            server = ensure_server_state(server)
             rows = client_store.tree_map(client_store.to_host, cs)
 
             def cs_init(ids):

@@ -27,7 +27,7 @@ strategies one batched product for the cohort.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, Literal, NamedTuple, Protocol, runtime_checkable
 
 import torch
 
@@ -52,6 +52,13 @@ class ServerState(NamedTuple):
     aux: Any = ()         # strategy-private tree (empty for most)
 
 
+def ensure_server_state(server) -> ServerState:
+    """A bare slot matrix (a v1 ``init`` return) as a :class:`ServerState`."""
+    if isinstance(server, ServerState):
+        return server
+    return ServerState(slots=torch.as_tensor(server, dtype=torch.float32))
+
+
 def default_server_update(server: ServerState, agg: torch.Tensor,
                           counts: torch.Tensor) -> ServerState:
     """The Alg. 2 retention rule: slots that received contributors take
@@ -63,6 +70,30 @@ def default_server_update(server: ServerState, agg: torch.Tensor,
 def resolve_server_update(strategy):
     """The strategy's ``server_update`` hook, or the Alg. 2 default."""
     return getattr(strategy, "server_update", None) or default_server_update
+
+
+@runtime_checkable
+class Strategy(Protocol):
+    """What the engine needs of a strategy: every hook takes the whole
+    stacked cohort (leading client axis N)."""
+
+    n_slots: int          # rows in the server slot matrix
+    vec_dim: int          # d — length of one uploaded vector
+    j_slots: int          # uploads per client per round
+    downloads: Literal["assigned", "all_slots"]   # checked by the engine
+
+    def init(self, key: torch.Tensor, n_clients: int,
+             data: ClientData | None = None): ...
+    def fused_client_step(self, cs, slots: torch.Tensor, d: ClientData,
+                          keys: torch.Tensor): ...
+    def apply_broadcast(self, cs, slots: torch.Tensor,
+                        slot_matrix: torch.Tensor): ...
+    def fused_evaluate(self, cs, x: torch.Tensor, y: torch.Tensor): ...
+    # optional hooks (absent = the client-proposed slots / Alg. 2):
+    #   assign(server: ServerState, vecs (K,j,d), slots (K,j),
+    #          arrive (K,)) -> (K,j) int32
+    #   server_update(server: ServerState, agg (C,d), counts (C,))
+    #          -> ServerState
 
 
 def _tm_init_cohort(cfg: tm.TMConfig, key: torch.Tensor, ids,

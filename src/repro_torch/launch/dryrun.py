@@ -133,6 +133,15 @@ def fsdp_collectives(params: Any, mesh: Any, kind: str) -> dict[str, int]:
     return out
 
 
+def link_for(chips: int) -> tuple[str, float]:
+    """The link a collective of ``chips`` cards crosses, and its rate a
+    card and direction: NVLink 4 within one node's 8 cards, one NDR
+    port past them."""
+    if chips <= H100_NODE_GPUS:
+        return "NVLink 4", H100_NVLINK_BW
+    return "NDR 400 Gb/s", H100_NDR_BW
+
+
 def analyse(cfg: ModelConfig, shape: steps.ShapeSpec, mesh: Any,
             opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig()) -> dict:
     """The memory and roofline of one (config × shape × mesh)."""
@@ -143,8 +152,7 @@ def analyse(cfg: ModelConfig, shape: steps.ShapeSpec, mesh: Any,
                                    else 1)
     model_flops = (6.0 if shape.kind == "train" else 2.0) * n_active * tokens
     arg = argument_bytes(ins, shape.kind)
-    link, link_bw = (("NVLink 4", H100_NVLINK_BW) if chips <= H100_NODE_GPUS
-                     else ("NDR 400 Gb/s", H100_NDR_BW))
+    link, link_bw = link_for(chips)
     rf = hlo_analysis.roofline(
         {}, fsdp_collectives(ins["params"], mesh, shape.kind),
         peak_flops=H100_PEAK_FLOPS_BF16, hbm_bw=H100_HBM_BW,

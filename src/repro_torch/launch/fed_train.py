@@ -65,15 +65,28 @@ continues from the newest checkpoint in D and completes the requested
 event a round (render with ``python -m repro_torch.fl.obs summarize
 RUN_DIR``); ``--profile-dir`` adds a ``torch.profiler`` trace.
 Telemetry never changes what the run computes.
+
+Beside the CLI, the reference's legacy round constructors and its abstract
+round inputs: :func:`make_tpfl_round` (one TPFL round over the legacy
+loop's phases) and :func:`make_fedavg_tm_round` (FedAvg over the full
+TM state, the communication baseline), and :func:`abstract_fed_inputs`,
+:func:`abstract_round_inputs` and :func:`abstract_async_inputs`, the
+inputs of a round on a production mesh as ``meta`` tensors with their
+specs (:class:`repro_torch.launch.steps.AbstractArray`), which the
+federated dry run (:mod:`repro_torch.launch.fed_dryrun`) prices.
 """
 from __future__ import annotations
 
 import argparse
+from typing import Callable
+
+import torch
 
 from repro_torch import device as devices
 from repro_torch import random as rnd
-from repro_torch.core import federation, tm
+from repro_torch.core import clustering, federation, tm
 from repro_torch.data.ingest import natural, registry
+from repro_torch.data.partition import ClientData
 from repro_torch.fl import obs
 from repro_torch.fl.obs.events import accuracy_deciles, worst_decile_mean
 from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
@@ -83,8 +96,162 @@ from repro_torch.fl.runtime.engine import BACKENDS, TM_BACKENDS, TRANSPORTS
 from repro_torch.fl.runtime.executors import COLLECTIVES
 from repro_torch.fl.runtime.codec import CODECS, INDEX_CODINGS
 from repro_torch.fl.runtime.scheduler import SAMPLING
+from repro_torch.fl.runtime.strategy import ServerState
 from repro_torch.fl.store import StreamingClientData
+from repro_torch.kernels.ref import reciprocal_f32
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.steps import AbstractArray
+from repro_torch.sharding import rules
+
+
+def make_tpfl_round(tm_cfg: tm.TMConfig,
+                    fed_cfg: federation.FedConfig) -> Callable:
+    """(client_params, cluster_weights, data, key) → (params, cw, metrics):
+    one round over the legacy loop's phases, ``metrics`` holding
+    ``mean_accuracy``, ``assignment`` (the flattened (n·j,) c_top) and
+    ``cluster_counts``."""
+
+    def round_fn(client_params: tm.TMParams, cluster_weights: torch.Tensor,
+                 data: ClientData, key: torch.Tensor):
+        state = federation.TPFLState(client_params, cluster_weights)
+        params, c_top, uploads = federation._phase_a(
+            state, data, key, tm_cfg, fed_cfg)
+        res = clustering.aggregate(
+            uploads.reshape(-1, tm_cfg.n_clauses), c_top.reshape(-1),
+            tm_cfg.n_classes, prev=cluster_weights)
+        params = federation._phase_d(params, c_top, res.cluster_weights)
+        acc = tm.accuracy_batched(params, data.x_test, data.y_test, tm_cfg)
+        return params, res.cluster_weights, {
+            "mean_accuracy": acc.mean(),
+            "assignment": res.assignment,
+            "cluster_counts": res.counts,
+        }
+
+    return round_fn
+
+
+def _client_mean(a: torch.Tensor) -> torch.Tensor:
+    """The clients' mean of an int32 tensor, rounded half to even, as
+    the reference's compiled ``round(a.astype(f32).mean(0))`` computes
+    it: the float32 sum of the integers (exact in any order while it
+    stays below 2**24: TA states are at most 2N) times ``f32(1/n)``
+    (XLA's divide by a constant), not ``sum / n``, which rounds apart
+    where the mean lands next to .5."""
+    total = a.to(torch.float32).sum(0)
+    return torch.round(total * reciprocal_f32(a.shape[0])).to(torch.int32)
+
+
+def make_fedavg_tm_round(tm_cfg: tm.TMConfig,
+                         fed_cfg: federation.FedConfig) -> Callable:
+    """FedAvg over the *full* TM state (TA states + all class weights):
+    the no-personalization baseline whose all-reduce moves C·m·(2o+1)
+    numbers per client instead of TPFL's m.  ``(client_params, data,
+    key) → (params, {"mean_accuracy"})``: every client trains under
+    ``split(key, n_clients)`` (kernel 1 on the card), the population's
+    state is averaged and rounded, and every client takes the mean."""
+
+    def round_fn(client_params: tm.TMParams, data: ClientData,
+                 key: torch.Tensor):
+        keys = rnd.split(key, fed_cfg.n_clients)
+        params = tm.train_batched(client_params, data.x_train, data.y_train,
+                                  keys, tm_cfg, epochs=fed_cfg.local_epochs)
+        # full-model averaging: the global all-reduce TPFL avoids
+        ta_mean, w_mean = (_client_mean(params.ta_state),
+                           _client_mean(params.weights))
+        params = tm.TMParams(
+            ta_state=ta_mean.expand(params.ta_state.shape).contiguous(),
+            weights=w_mean.expand(params.weights.shape).contiguous())
+        acc = tm.accuracy_batched(params, data.x_test, data.y_test, tm_cfg)
+        return params, {"mean_accuracy": acc.mean()}
+
+    return round_fn
+
+
+def _abstract(mesh, shape, dtype, spec) -> AbstractArray:
+    return AbstractArray(torch.empty(shape, dtype=dtype, device="meta"),
+                         spec, mesh)
+
+
+def abstract_fed_inputs(tm_cfg: tm.TMConfig, fed_cfg: federation.FedConfig,
+                        mesh, n_train: int = 64, n_test: int = 32,
+                        n_conf: int = 32):
+    """The inputs of a mesh-wide federated round, abstract: ``(params,
+    cluster_weights, data, key)``, the clients' leading axis over the
+    mesh's FSDP axes where the client count divides them (replicated
+    otherwise), the server and the key replicated.  A key is two uint32
+    words, as it rides the device."""
+    n = fed_cfg.n_clients
+    o = tm_cfg.n_features
+    b = rules._fsdp_or_none(mesh, n)
+    C, m, L = tm_cfg.n_classes, tm_cfg.n_clauses, tm_cfg.n_literals
+    params = tm.TMParams(
+        ta_state=_abstract(mesh, (n, C, m, L), torch.int32,
+                           (b, None, None, None)),
+        weights=_abstract(mesh, (n, C, m), torch.int32, (b, None, None)))
+    cw = _abstract(mesh, (C, m), torch.float32, (None, None))
+
+    def x(k):
+        return _abstract(mesh, (n, k, o), torch.uint8, (b, None, None))
+
+    def y(k):
+        return _abstract(mesh, (n, k), torch.int32, (b, None))
+
+    data = ClientData(
+        x_train=x(n_train), y_train=y(n_train), x_test=x(n_test),
+        y_test=y(n_test), x_conf=x(n_conf), y_conf=y(n_conf),
+        mixtures=_abstract(mesh, (n, C), torch.float32, (b, None)))
+    key = _abstract(mesh, (2,), torch.uint32, (None,))
+    return params, cw, data, key
+
+
+def abstract_round_inputs(tm_cfg: tm.TMConfig,
+                          fed_cfg: federation.FedConfig, mesh, **data_kw):
+    """The inputs of the engine's shard-mapped sync round: the
+    :func:`abstract_fed_inputs` set (the single round key for the legacy
+    round constructors), the server wrapped in :class:`ServerState`, per-client
+    keys and the arrival mask, and the client axes the round's
+    collectives run over (``None`` where the client count does not
+    divide the FSDP axes)."""
+    params, cw, data, key = abstract_fed_inputs(tm_cfg, fed_cfg, mesh,
+                                                **data_kw)
+    n = fed_cfg.n_clients
+    b = rules._fsdp_or_none(mesh, n)
+    keys = _abstract(mesh, (n, 2), torch.uint32, (b, None))
+    arrive = _abstract(mesh, (n,), torch.bool, (b,))
+    return params, ServerState(cw), data, key, keys, arrive, b
+
+
+def abstract_async_inputs(tm_cfg: tm.TMConfig,
+                          fed_cfg: federation.FedConfig, mesh,
+                          capacity: int = 512, j_slots: int = 1):
+    """The inputs of the engine's shard-mapped async buffered update:
+    ``(buffer lanes, upload lanes, round index, server, client axes)``.
+    One round's five upload lanes hold ``n_clients · j_slots`` rows
+    (pass the strategy's ``j_slots``) over the FSDP axes; the six
+    fixed-capacity buffer lanes and the server are replicated."""
+    n = fed_cfg.n_clients * j_slots
+    b = rules._fsdp_or_none(mesh, n)
+    C, m = tm_cfg.n_classes, tm_cfg.n_clauses
+    f32, i32 = torch.float32, torch.int32
+    up = (_abstract(mesh, (n, m), f32, (b, None)),        # payload vectors
+          _abstract(mesh, (n,), i32, (b,)),               # slot ids
+          _abstract(mesh, (n,), i32, (b,)),               # maturity rounds
+          _abstract(mesh, (n,), f32, (b,)),               # staleness weights
+          _abstract(mesh, (n,), torch.bool, (b,)))        # validity
+    buf = (_abstract(mesh, (capacity, m), f32, (None, None)),
+           _abstract(mesh, (capacity,), i32, (None,)),
+           _abstract(mesh, (capacity,), i32, (None,)),
+           _abstract(mesh, (capacity,), f32, (None,)),
+           _abstract(mesh, (capacity,), torch.bool, (None,)),
+           _abstract(mesh, (capacity,), i32, (None,)))
+    round_idx = _abstract(mesh, (), i32, ())
+    prev = _abstract(mesh, (C, m), f32, (None, None))
+    return buf, up, round_idx, prev, b
+
+
+# ---------------------------------------------------------------------------
+# CLI: scenario runner on the federated runtime
+# ---------------------------------------------------------------------------
 
 STRATEGY_CHOICES = ("tpfl", "fedavg", "fedprox", "ifca", "flis_dc",
                     "flis_hc", "fedtm")
@@ -97,7 +264,7 @@ def _build_strategy(name: str, tm_cfg: tm.TMConfig,
     strategies (TPFL, FedTM) take the TM config; the MLP baselines size
     themselves from the pool."""
     if name == "tpfl":
-        return federation.tpfl_strategy(tm_cfg, fed_cfg)
+        return federation._strategy(tm_cfg, fed_cfg)
     if name == "fedtm":
         return FedTMStrategy(tm_cfg, local_epochs=fed_cfg.local_epochs)
     return build_baseline_strategy(

@@ -114,6 +114,8 @@ def _host_value_makers(tmp_path):
     from repro_torch.configs import registry as archs
     from repro_torch.data import loader
     from repro_torch.launch import serve, train
+    from repro_torch.examples import (federated_training, multiarch_train,
+                                      quickstart, serve_decode)
     from repro_torch.models import config as mcfg
     from repro_torch.models import transformer
     cfg = mcfg.reduced(archs.get("yi-6b"))
@@ -174,6 +176,12 @@ def _host_value_makers(tmp_path):
             ["--arch", "yi-6b", "--reduced", "--steps", "1",
              "--save", str(tmp_path / "ck.msgpack")]),
         "serve.main": lambda: serve.main(["--arch", "yi-6b", "--reduced"]),
+        "examples.quickstart": lambda: quickstart.main([]),
+        "examples.federated_training": lambda: federated_training.main(
+            ["--rounds", "1", "--clients", "2"]),
+        "examples.multiarch_train": lambda: multiarch_train.main(
+            ["--steps", "1"]),
+        "examples.serve_decode": lambda: serve_decode.main([]),
     }
 
 
@@ -187,7 +195,9 @@ def _host_value_makers(tmp_path):
     "worker_from_spec", "fed_dryrun.client_scale", "mesh.spawn",
     "transformer.init", "transformer.init_cache", "TokenBatcher",
     "FederatedSampler", "lm_params_from_numpy", "adamw_state_from_numpy",
-    "train.main", "serve.main"])
+    "train.main", "serve.main", "examples.quickstart",
+    "examples.federated_training", "examples.multiarch_train",
+    "examples.serve_decode"])
 def test_tensors_from_host_values_default_to_the_gpu(monkeypatch, tmp_path,
                                                      name):
     """The partition draws on its key's device, so a GPU default for the

@@ -24,7 +24,10 @@ JAX runs go on beside it):
   JAX shard-mapped engine's;
 * the mmap store on the mesh equal to the resident engine, its files
   the in-process store's byte for byte;
-* the reference's refusals, message for message.
+* the reference's refusals, message for message;
+* the legacy ``federation.init_state`` + ``run_round`` loop ==
+  ``federation.run`` in process == the engine ``run`` builds on the
+  mesh, the reference's three-way contract.
 
 The JAX shard-mapped runs need 4 devices, so they run in a subprocess
 with ``--xla_force_host_platform_device_count=4``.
@@ -57,6 +60,7 @@ from repro.fl.runtime.strategy import \
 from repro_torch import convert
 from repro_torch import random as tr
 from repro_torch import tree
+from repro_torch.core import federation
 from repro_torch.core import tm as ttm
 from repro_torch.data import partition, synthetic
 from repro_torch.fl.masked_collectives import collective_payload_bytes
@@ -442,6 +446,46 @@ def test_span_names_are_the_references(world, jax_mesh, name):
         want = _jax_in_process(name)[2]
     got = [list(e["phases"]) for e in world()[name]["events"]]
     assert got == want
+
+
+def test_three_way_parity_with_the_legacy_loop(world):
+    """The legacy loop (``init_state`` from k_init, round r keyed
+    ``fold_in(k_rounds, r)``) == ``federation.run`` in process == the
+    engine ``federation.run`` builds, on the 4-rank mesh (the
+    ``tpfl-float32-full`` cell: ``run``'s strategy and configuration),
+    bit for bit."""
+    tm_cfg = ttm.TMConfig(**TM)
+    fed = federation.FedConfig(n_clients=SPLIT["n_clients"], rounds=2,
+                               local_epochs=1)
+    cell = CELLS["tpfl-float32-full"]
+    assert federation._strategy(tm_cfg, fed) == _strategy("tpfl")
+    assert _config(cell, mesh=True).rounds == fed.rounds
+    key = tr.PRNGKey(0, "cpu")
+    k_init, k_rounds = tr.split(key).unbind(0)
+    st = federation.init_state(tm_cfg, fed, k_init)
+    legacy = []
+    for r in range(fed.rounds):
+        st, m = federation.run_round(st, _data(), tr.fold_in(k_rounds, r),
+                                     tm_cfg, fed)
+        legacy.append(m)
+    end, hist = federation.run(_data(), tm_cfg, fed, key)
+    res = world()["tpfl-float32-full"]
+    assert len(legacy) == len(hist) == len(res["reports"])
+    for a, b, c in zip(legacy, hist, res["reports"]):
+        for got in (b, c):
+            _same(a.mean_accuracy, got.mean_accuracy, "mean_accuracy")
+            _same(a.cluster_counts, got.cluster_counts, "counts")
+            for f in ("upload_bytes", "download_bytes_broadcast",
+                      "download_bytes_per_client"):
+                assert getattr(a, f) == getattr(got, f), f
+        _same(a.assignment, b.assignment, "assignment")
+        _same(a.assignment, c.assignment[:, 0], "assignment")
+    for got_cs, got_cw in ((end.client_params, end.cluster_weights),
+                           (res["state"].client_state,
+                            res["state"].server.slots)):
+        _same(st.client_params.ta_state, got_cs.ta_state, "ta_state")
+        _same(st.client_params.weights, got_cs.weights, "weights")
+        _same(st.cluster_weights, got_cw, "cluster_weights")
 
 
 @pytest.mark.parametrize("name", ["mmap-tpfl-int8_sparse-partial",

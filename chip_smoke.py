@@ -183,6 +183,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    no other); (L3) ``fed_dryrun``'s analytic sections at 16 x 16 and
    2 x 16 x 16, the 16 x 16 figures held to ``L3_16X16``; (L4) the four
    ``repro_torch.examples`` on the card at small arguments, each timed;
+   and path (M), run right after the build while this process holds
+   nothing on the card, the model scaffold on a torch mesh (``path_m``): 4
+   ``gloo`` ranks sharing the card on a (data 2, model 2) grid through
+   ``model_mesh.run_steps``, the whole parameters drawn once here and
+   handed over in host shared memory, each rank holding its blocks of
+   the rules' specs; (M1) granite-moe-3b-a800m at its published width
+   (``M_LAYERS`` of its 32 layers) trained 2 steps at 4 x 256 with
+   ``REPRO_SHARDED_CE`` / ``REPRO_SHARD_MOE`` off, then on: the first
+   step's cross entropy within ``K3_TOL["loss"]`` of one rank's on the
+   same data blocks, each step's loss within ``M1_TOL`` of one rank's
+   on the whole batch, and one step at all 32 layers (knobs on) whose
+   loss is within ``K3_TOL["loss"]`` of one rank's and whose peak memory
+   a rank is at most ``M1F_PEAK_GIB``; (M2) yi-6b at its published width (``M_LAYERS``
+   layers) decoding a 2-token prompt and 4 greedy steps at batch 4, the
+   logits within ``K3_TOL["decode"]`` of one rank's and the tokens
+   equal; every rank's bytes equal to the dry run's ``argument_bytes``
+   at (2, 2) (its caches to the dry run's blocks with the sequence
+   whole), its peak memory, step or decode seconds, and collective bytes
+   and seconds by label beside the dry run's analytic ones; (M3)
+   deepseek-v3 and jamba reduced, expert-parallel: the model on the
+   dispatcher its layers call, and ``moe_apply(impl="capacity_global")``
+   called on the grid, the card's grid against the CPU's within
+   ``K3_TOL``; no TM kernel launched;
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
@@ -2470,6 +2493,438 @@ def path_l(dev) -> dict:
             "fedavg_s": fedavg_s, "examples_s": example_s}
 
 
+# path (M): the model scaffold on a torch mesh of 4 gloo ranks on this card
+M_GRID = (("data", "model"), (2, 2))
+M_KNOBS = {0: {"REPRO_SHARDED_CE": None, "REPRO_SHARD_MOE": None},
+           1: {"REPRO_SHARDED_CE": "1", "REPRO_SHARD_MOE": "1"}}
+# M1: granite-moe-3b-a800m at its published width, 2 steps at 4 x 256,
+# knobs off then on; M2: yi-6b at its published width, a 2-token prompt
+# fed a token a step then 4 greedy steps.  Depth cut to M_LAYERS of 32
+# (every step gathers every layer through gloo's host staging);
+# ``path_m(dev, layers=32)`` runs them whole.
+M_LAYERS = 4
+M1_BATCH, M1_SEQ, M2_BATCH, M2_PROMPT, M2_DECODE = 4, 256, 4, 2, 4
+# M1 against one rank on the whole batch, bounds on each step's loss: the
+# grid computes each data block's bf16 products at half the rows (other
+# cuBLAS tilings) and rounds each block's bf16 weight gradients before
+# summing them, so the two runs drift apart; the first step's cross
+# entropy is held within K3_TOL["loss"] to one rank's on the same data
+# blocks, the products the grid computes
+# 4x the differences measured on an H100 at 4 layers (0.00227, 0.00362)
+M1_TOL = (0.0091, 0.0145)
+# M1F: one step at all 32 layers, knobs on, in M1's world: its loss
+# within K3_TOL["loss"] of one rank's on the whole batch (measured on an
+# H100: 2.4e-5), its peak device memory a rank at most M1F_PEAK_GIB
+# (measured 16.20 GiB: a stacked leaf's gradients are restacked at the
+# end of the backward)
+M1F_PEAK_GIB = 18.0
+M3_T = 8
+
+
+def _m_cut(arch: str, layers: int):
+    """``arch``'s published config, its (one-segment) stack cut to
+    ``layers`` layers."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = registry.get(arch)
+    (repeat, pattern), = cfg.segments
+    if layers >= repeat * len(pattern):
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers,
+                               segments=((layers // len(pattern), pattern),))
+
+
+def _m3_cfgs() -> dict:
+    """M3's reduced expert-parallel configs: deepseek-v3 with one dense
+    and one MoE layer (its first three are dense), jamba."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import config as mcfg
+    ds = mcfg.reduced(registry.get("deepseek-v3-671b"))
+    ds = dataclasses.replace(ds, segments=((1, (
+        mcfg.LayerSpec("attn", "dense"), mcfg.LayerSpec("attn", "moe"))),))
+    return {"deepseek-v3": ds,
+            "jamba": mcfg.reduced(registry.get("jamba-1.5-large-398b"))}
+
+
+def _m3_jobs(dev) -> list:
+    """M3's jobs, their inputs drawn on ``dev`` (the parameters on the CPU
+    and moved, so the card and the CPU worlds start from the same
+    bits)."""
+    import torch
+    from repro_torch import random as rnd
+    from repro_torch import tree
+    from repro_torch.models import transformer
+    jobs = []
+    for name, cfg in _m3_cfgs().items():
+        params = tree.map(lambda a: a.to(dev), transformer.init(
+            rnd.PRNGKey(0, "cpu"), cfg))
+        toks = rnd.randint(rnd.PRNGKey(1, "cpu"), (4, M3_T), 0,
+                           cfg.vocab).to(torch.int32).to(dev)
+        labels = torch.roll(toks, -1, 1)
+        jobs.append(dict(
+            name=name, mesh=M_GRID, cfg=cfg, params=params, env=M_KNOBS[1],
+            prefill=toks, decode={"prompt": toks[:, :2], "steps": 2},
+            train={"tokens": toks, "labels": labels, "steps": 1},
+            gather_params=True))
+    return jobs
+
+
+def _m3_global(mesh) -> dict:
+    """M3's other dispatcher, which no layer calls:
+    ``moe_apply(impl="capacity_global")`` of each config's MoE layer
+    (float32, seed 5) called on the grid with ``REPRO_SHARD_MOE=1``,
+    each rank its batch block and its experts' banks; the output, the
+    aux loss and the gradients of ``sum(y * r) + aux``, whole."""
+    import torch
+    from repro_torch import random as rnd
+    from repro_torch import tree
+    from repro_torch.launch import model_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import mesh_ops, rules
+    out, spec = {}, rules.batch_spec(mesh, 4)
+    for name, cfg in _m3_cfgs().items():
+        p = tree.map(lambda a: a.float().to(mesh.device),
+                     moe.moe_init(rnd.PRNGKey(5, "cpu"), cfg))
+        g = torch.Generator().manual_seed(7)
+        x, r = (torch.randn(4, M3_T, cfg.d_model, generator=g)
+                .to(mesh.device) for _ in range(2))
+        with model_mesh._environ(M_KNOBS[1]), \
+                mesh_ops.use_mesh(mesh, spec[0]):
+            axes = mesh_ops.batch_axes()
+            ep = moe._constrain_ep(cfg)
+            per = cfg.moe.n_experts // ep[0]
+            mine = tree.map(lambda a: a.clone().requires_grad_(), p)
+            for k in ("gate", "up", "down"):
+                mine[k] = p[k][ep[1] * per:(ep[1] + 1) * per].clone() \
+                    .requires_grad_()
+            xl = mesh_ops.cut_tree(x, spec, mesh).requires_grad_()
+            y, aux = moe.moe_apply(mine, xl, cfg, impl="capacity_global")
+            loss = mesh_ops.reduce_sum(
+                (y * mesh_ops.cut_tree(r, spec, mesh)).sum(), axes,
+                "t") + aux
+            loss.backward()
+            grads = tree.map(
+                lambda a: mesh_ops.reduce_plain(a.grad, axes, "t"), mine)
+            for k in ("gate", "up", "down"):
+                grads[k] = mesh_ops.gather_plain(grads[k], 0, ("model",),
+                                                 "t")
+            out[name] = dict(
+                y=mesh_ops.gather_plain(y.detach(), 0, axes, "t").cpu(),
+                aux=float(aux.detach()),
+                grads=tree.map(lambda a: a.cpu(), grads),
+                dx=mesh_ops.gather_plain(xl.grad, 0, axes, "t").cpu())
+    return out
+
+
+def _m_rank(world, jobs):
+    """A rank of M1's and M3's worlds: the jobs, then
+    :func:`_m3_global` on the grid."""
+    from repro_torch.launch import model_mesh
+    results = model_mesh.run_steps(world, jobs)
+    glob = _m3_global(model_mesh.make_model_mesh(*M_GRID, world.device))
+    return (results, glob) if world.rank == 0 else None
+
+
+def _m_ranks(name: str, res: dict, dryrun_check: bool = True) -> None:
+    """Print each rank's peak memory, seconds and metered collective bytes
+    a step, beside the dry run's analytic ones; hold its bytes to the dry
+    run's ``argument_bytes``."""
+    for i, r in enumerate(res["ranks"]):
+        line = {"device": r["device"], "peak_GiB": r.get("peak", 0) / 2**30}
+        if "bytes" in r:
+            b = r["bytes"]
+            held = b["params"] + b["opt"] + b["batch"]
+            line.update(held=held, dryrun_argument_bytes=b["dryrun"],
+                        step_s=r["step_s"],
+                        analytic_collectives={k: v for k, v in r[
+                            "analytic_collectives"].items() if v})
+            if dryrun_check and held != b["dryrun"]:
+                raise SystemExit(f"path ({name}) rank {i}: holds {held} B, "
+                                 f"the dry run {b['dryrun']} B")
+        if "cache_bytes" in r:
+            c = r["cache_bytes"]
+            line.update(cache=c, decode_s=r["decode_s"])
+            if c["held"] != c["dryrun_no_model"]:
+                raise SystemExit(f"path ({name}) rank {i}: caches are not "
+                                 f"the dry run's blocks with the sequence "
+                                 f"whole")
+        line["collective_bytes"] = {
+            ph: m["bytes"] for ph, m in r["meter"].items() if m["bytes"]}
+        line["collective_s"] = {
+            ph: {k: round(v, 4) for k, v in m["seconds"].items()}
+            for ph, m in r["meter"].items() if m["bytes"]}
+        print(f"path ({name}) rank {i}: {json.dumps(line)}", flush=True)
+
+
+def _m1_init(dev, layers: int, clock):
+    """granite-moe-3b-a800m cut to ``layers`` layers, drawn here and
+    moved to the host: the ranks cut their blocks from the host copy
+    (shared memory through spawn's arguments), so the card is theirs
+    while they run."""
+    import torch
+    from repro_torch import random as rnd
+    from repro_torch import tree
+    from repro_torch.models import transformer
+    torch.cuda.empty_cache()
+    t = clock()
+    cfg = _m_cut("granite-moe-3b-a800m", layers)
+    p = transformer.init(rnd.PRNGKey(0, dev), cfg)
+    print(f"path (M1) init: granite-moe-3b-a800m {layers} layers "
+          f"{sum(x.numel() for x in tree.leaves(p)) / 1e9:.3f}B "
+          f"parameters, {clock() - t:.2f}s", flush=True)
+    host = tree.map(lambda a: a.cpu(), p)
+    del p
+    torch.cuda.empty_cache()
+    return cfg, host
+
+
+def _m1_ref(dev, cfg, host, toks, labels, n_steps: int, clock):
+    """One rank's reference here: the first step's cross entropy on each
+    of the grid's data blocks (their mean), then ``n_steps`` train steps
+    on the whole batch; (that mean, the losses)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    p = tree.map(lambda a: a.to(dev), host)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        half = M1_BATCH // M_GRID[1][0]
+        ce_blocks = sum(float(transformer.lm_loss(
+            p, cfg, toks[i:i + half], labels[i:i + half])[1]["ce"])
+            for i in range(0, M1_BATCH, half)) / M_GRID[1][0]
+    opt = adamw.init(p)
+    step = steps.make_train_step(cfg)
+    ref, ref_s = [], []
+    for _ in range(n_steps):
+        t = clock()
+        p, opt, m = step(p, opt, {"tokens": toks, "labels": labels})
+        ref_s.append(clock() - t)
+        ref.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"path (M1) one rank, {cfg.n_layers} layers: losses {ref}, "
+          f"s/step {[round(x, 3) for x in ref_s]}, peak "
+          f"{peak / 2**30:.2f} GiB; first-step cross entropy on the grid's "
+          f"data blocks {ce_blocks}", flush=True)
+    del p, opt
+    torch.cuda.empty_cache()
+    return ce_blocks, ref
+
+
+def _m1_check(name: str, r: dict, ce_blocks: float, ref: list,
+              bounds: tuple, knobs: int) -> None:
+    """A grid run's losses against one rank's: the first step's cross
+    entropy on the same data blocks within ``K3_TOL["loss"]``, each
+    step's loss on the whole batch within its bound."""
+    got = [m["loss"] for m in r["metrics"]]
+    d = [abs(a - b) for a, b in zip(got, ref, strict=True)]
+    d_ce = abs(r["metrics"][0]["ce"] - ce_blocks)
+    print(f"path ({name}) granite-moe-3b-a800m on the grid, "
+          f"REPRO_SHARDED_CE / REPRO_SHARD_MOE {'on' if knobs else 'off'}: "
+          f"losses {got}, first-step cross entropy against one rank's "
+          f"on the data blocks |d| {d_ce:.3g} (bound {K3_TOL['loss']}); "
+          f"against one rank on the whole batch |d| "
+          f"{', '.join(f'{x:.3g}' for x in d)} (bounds {bounds})",
+          flush=True)
+    _m_ranks(name, r)
+    if not (d_ce <= K3_TOL["loss"]
+            and all(x <= b for x, b in zip(d, bounds))) \
+            or not all(np.isfinite(got)):
+        raise SystemExit(f"path ({name}): the grid's losses differ from "
+                         f"one rank's")
+
+
+def _m1(dev, layers: int, clock) -> tuple[tuple, float]:
+    """(M1) and (M3) on the card: granite-moe-3b-a800m drawn here at
+    ``layers`` and at all 32 layers, trained on the grid (``layers``:
+    knobs off, then on, 2 steps; 32: knobs on, 1 step) beside M3's jobs,
+    then one rank's references here.  Returns M3's results on the card
+    and the world's seconds."""
+    import torch
+    from repro_torch import random as rnd
+    from repro_torch.launch import mesh as mesh_lib
+    cfg, host = _m1_init(dev, layers, clock)
+    cfg_f, host_f = _m1_init(dev, 32, clock)
+    toks = rnd.randint(rnd.PRNGKey(1, dev), (M1_BATCH, M1_SEQ), 0,
+                       cfg.vocab).to(torch.int32)
+    labels = torch.roll(toks, -1, 1)
+    jobs = [dict(name="M1F", mesh=M_GRID, cfg=cfg_f, params=host_f,
+                 env=M_KNOBS[1], train={"tokens": toks, "labels": labels,
+                                        "steps": 1})]
+    jobs += [dict(name=f"M1 knobs {k}", mesh=M_GRID, cfg=cfg, params=host,
+                  env=M_KNOBS[k], train={"tokens": toks, "labels": labels,
+                                         "steps": 2})
+             for k in (0, 1)] + _m3_jobs(dev)
+    t = time.perf_counter()
+    world, glob = mesh_lib.spawn(_m_rank, 4, jobs, device="cuda",
+                                 shared_device=True)
+    world_s = time.perf_counter() - t
+    res = {j["name"]: r for j, r in zip(jobs, world, strict=True)}
+    print(f"path (M1, M3) world of 4 gloo ranks on {dev}: {world_s:.1f}s "
+          f"for {len(jobs)} jobs", flush=True)
+
+    ce_blocks, ref = _m1_ref(dev, cfg_f, host_f, toks, labels, 1, clock)
+    del host_f
+    _m1_check("M1F", res["M1F"], ce_blocks, ref, (K3_TOL["loss"],), 1)
+    peak = max(r["peak"] for r in res["M1F"]["ranks"]) / 2**30
+    print(f"path (M1F) all 32 layers: peak {peak:.2f} GiB a rank (bound "
+          f"{M1F_PEAK_GIB})", flush=True)
+    if not peak <= M1F_PEAK_GIB:
+        raise SystemExit(f"path (M1F): peak {peak:.2f} GiB a rank > "
+                         f"{M1F_PEAK_GIB}")
+    ce_blocks, ref = _m1_ref(dev, cfg, host, toks, labels, 2, clock)
+    del host
+    for k in (0, 1):
+        _m1_check(f"M1 knobs {k}", res[f"M1 knobs {k}"], ce_blocks, ref,
+                  M1_TOL, k)
+    return ({n: r for n, r in res.items() if not n.startswith("M1")},
+            glob), world_s
+
+
+def _m2(dev, layers: int, clock) -> float:
+    """(M2): yi-6b drawn here once, decoding on the grid, then one
+    rank's reference here.  Returns the world's seconds."""
+    import torch
+    from repro_torch import random as rnd
+    from repro_torch import tree
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import model_mesh, steps
+    from repro_torch.models import transformer
+    torch.cuda.empty_cache()
+    t = clock()
+    cfg = _m_cut("yi-6b", layers)
+    p = transformer.init(rnd.PRNGKey(0, dev), cfg)
+    prompt = rnd.randint(rnd.PRNGKey(1, dev), (M2_BATCH, M2_PROMPT), 0,
+                         cfg.vocab).to(torch.int32)
+    init_s = clock() - t
+    print(f"path (M2) init: yi-6b {layers} layers "
+          f"{sum(x.numel() for x in tree.leaves(p)) / 1e9:.3f}B "
+          f"parameters, {init_s:.2f}s", flush=True)
+    host = tree.map(lambda a: a.cpu(), p)
+    del p
+    torch.cuda.empty_cache()
+    job = dict(name="M2", mesh=M_GRID, cfg=cfg, params=host,
+               decode={"prompt": prompt, "steps": M2_DECODE})
+    t = time.perf_counter()
+    got, = mesh_lib.spawn(model_mesh.run_steps, 4, [job], device="cuda",
+                          shared_device=True)
+    world_s = time.perf_counter() - t
+    p = tree.map(lambda a: a.to(dev), host)
+    del host
+
+    # one rank's reference: the same prompt and greedy steps here
+    t = clock()
+    caches = transformer.init_cache(cfg, M2_BATCH, M2_PROMPT + M2_DECODE,
+                                    device=dev)
+    fed, logits, tokens = prompt[:, :1], [], []
+    for i in range(M2_PROMPT + M2_DECODE):
+        with torch.no_grad():
+            lg, nxt, caches = steps.serve_logits(cfg, p, fed, caches)
+        logits.append(lg[:, 0])
+        if i + 1 < M2_PROMPT:
+            fed = prompt[:, i + 1:i + 2]
+        else:
+            fed = nxt.to(prompt.dtype)
+            tokens.append(nxt)
+    ref_s = clock() - t
+    d = _maxdiff(got["decode_logits"], torch.stack(logits, 1))
+    same = torch.equal(got["tokens"].cpu(), torch.cat(tokens, 1).cpu())
+    print(f"path (M2) yi-6b decode on the grid ({world_s:.1f}s with the "
+          f"world's start): logits against one rank max |d| {d:.4g} "
+          f"(bound {K3_TOL['decode']}), tokens equal: {same} "
+          f"({got['tokens'].tolist()}); one rank "
+          f"{ref_s / (M2_PROMPT + M2_DECODE):.3f}s a step", flush=True)
+    _m_ranks("M2", got)
+    if not d <= K3_TOL["decode"] or not same:
+        raise SystemExit("path (M2): the grid's decode differs from one "
+                         "rank's")
+    del p, caches, logits
+    torch.cuda.empty_cache()
+    return world_s
+
+
+def path_m(dev, layers: int = M_LAYERS) -> dict:
+    """(M1) granite-moe-3b-a800m trained and (M2) yi-6b decoding, both at
+    their published widths (``layers`` of their 32 layers) on a (data 2,
+    model 2) grid of 4 gloo ranks on this card, against the one-rank port
+    in this process, each model in a world of its own (one model's
+    parameters held here at a time); (M3) deepseek-v3 and jamba reduced,
+    expert-parallel, on the card's grid (M1's world) against the same
+    grid on the CPU: the model, and ``moe_apply(impl="capacity_global")``
+    called on the grid."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    launches = dict(ops.LAUNCHES)
+    t_all = time.perf_counter()
+
+    def clock() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    (m3, m3_glob), world1_s = _m1(dev, layers, clock)
+    world2_s = _m2(dev, layers, clock)
+
+    # M3: the card's grid against the CPU's, expert-parallel
+    t = time.perf_counter()
+    cpu, cpu_glob = mesh_lib.spawn(_m_rank, 4, _m3_jobs("cpu"),
+                                   device="cpu")
+    cpu_s = time.perf_counter() - t
+    worst = dict.fromkeys(("step_loss", "logits", "decode", "step_params"),
+                          0.0)
+    for job, want in zip(_m3_jobs("cpu"), cpu):
+        got = m3[job["name"]]
+        diff = {"step_loss": abs(got["metrics"][0]["loss"]
+                                 - want["metrics"][0]["loss"]),
+                "logits": _maxdiff(got["prefill"], want["prefill"]),
+                "decode": _maxdiff(got["decode_logits"],
+                                   want["decode_logits"]),
+                "step_params": max(_maxdiff(a, b) for a, b in zip(
+                    tree.leaves(got["params"][0]),
+                    tree.leaves(want["params"][0])))}
+        r0 = got["ranks"][0]
+        calls = sum(sum(m["calls"].values()) for m in r0["meter"].values())
+        print(f"path (M3) {job['name']}: card grid against CPU grid "
+              + ", ".join(f"{k} {v:.3g}" for k, v in diff.items())
+              + f"; rank 0 on the card: prefill {r0['prefill_s']:.2f}s, "
+                f"decode {sum(r0['decode_s']):.2f}s, step "
+                f"{r0['step_s'][0]:.2f}s, {calls} collectives", flush=True)
+        for k, v in diff.items():
+            worst[k] = max(worst[k], v)
+            if not v <= K3_TOL[k]:
+                raise SystemExit(f"path (M3) {job['name']}: {k} {v} > "
+                                 f"{K3_TOL[k]}")
+    # the dispatcher no layer calls, float32: output and gradients held
+    # as logits, the aux loss as a loss
+    bound = {"y": K3_TOL["logits"], "dx": K3_TOL["logits"],
+             "grads": K3_TOL["logits"], "aux": K3_TOL["loss"]}
+    for name, want in cpu_glob.items():
+        got = m3_glob[name]
+        diff = {"y": _maxdiff(got["y"], want["y"]),
+                "dx": _maxdiff(got["dx"], want["dx"]),
+                "grads": max(_maxdiff(a, b) for a, b in zip(
+                    tree.leaves(got["grads"]), tree.leaves(want["grads"]),
+                    strict=True)),
+                "aux": abs(got["aux"] - want["aux"])}
+        print(f"path (M3) {name} moe_apply(impl='capacity_global') on the "
+              f"grid: card against CPU "
+              + ", ".join(f"{k} {v:.3g}" for k, v in diff.items()),
+              flush=True)
+        for k, v in diff.items():
+            if not v <= bound[k]:
+                raise SystemExit(f"path (M3) {name} capacity_global: {k} "
+                                 f"{v} > {bound[k]}")
+    print(f"path (M3): within {K3_TOL}; CPU grid {cpu_s:.1f}s", flush=True)
+    if dict(ops.LAUNCHES) != launches:
+        raise SystemExit("path (M) launched a TM kernel")
+    total = time.perf_counter() - t_all
+    print(f"path (M): {total:.1f}s", flush=True)
+    return {"world_s": (world1_s, world2_s), "total_s": total, "m3": worst}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2516,6 +2971,13 @@ def main() -> int:
                   (1, 10, 300, 1568, 1), (1, 10, 300, 1568, 40)):
         print(f"  votes plan (N, C, m, L, B)={shape} on {sms} SMs: "
               f"{clause_eval.plan(*shape, sms=sms)}", flush=True)
+
+    # path (M): the model scaffold on a torch mesh, 4 gloo ranks on this
+    # card: granite-moe-3b-a800m trained and yi-6b decoding at their
+    # published widths, deepseek-v3 and jamba expert-parallel.  First,
+    # while this process holds nothing on the card: at all 32 layers the
+    # four ranks take about 70 of its 80 GB
+    path_m(dev)
 
     # 3. kernels against their plain versions, exactly
     gen = torch.Generator(device=dev)

@@ -59,7 +59,11 @@ from repro_torch import device as devices
 from repro_torch.fl.masked_collectives import CollectiveMeter
 
 AXIS = "clients"
-_OPS = ("all_gather", "all_reduce", "broadcast")
+# the collectives a mesh runs, each probed on CUDA tensors under gloo:
+# the clients mesh's three, and the model mesh's MAX reduction and
+# bfloat16 parameter gathers and gradient sums
+_OPS = ("all_gather", "all_reduce", "broadcast", "all_reduce_max",
+        "all_gather_bf16", "all_reduce_bf16")
 
 
 @dataclasses.dataclass
@@ -111,18 +115,22 @@ def ranks_for(n_devices: int | None, device, shared_device: bool = False
 
 def _check_collectives(group, rank: int, size: int, src: int,
                        device: torch.device) -> None:
-    """Run each collective the executor uses on a small tensor on
+    """Run each collective a mesh uses on a small tensor on
     ``device`` and check its result; raise, naming the collective, where
     the group refuses the tensor or gets it wrong."""
     for op in _OPS:
-        t = torch.full((2,), float(rank + 1), device=device)
+        dtype = torch.bfloat16 if op.endswith("_bf16") else torch.float32
+        t = torch.full((2,), float(rank + 1), device=device, dtype=dtype)
         try:
-            if op == "all_gather":
+            if op.startswith("all_gather"):
                 parts = [torch.empty_like(t) for _ in range(size)]
                 dist.all_gather(parts, t, group=group)
                 ok = all(bool((p == i + 1).all())
                          for i, p in enumerate(parts))
-            elif op == "all_reduce":
+            elif op == "all_reduce_max":
+                dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+                ok = bool((t == size).all())
+            elif op.startswith("all_reduce"):
                 dist.all_reduce(t, group=group)
                 ok = bool((t == size * (size + 1) / 2).all())
             else:

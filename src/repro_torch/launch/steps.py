@@ -12,6 +12,19 @@ by the port's own ``init`` / ``adamw.init`` / ``init_cache`` on the
 :class:`AbstractArray`, a ``meta`` tensor with its spec on a mesh (the
 reference's ``ShapeDtypeStruct`` with a ``NamedSharding``).  The dry run
 (:mod:`repro_torch.launch.dryrun`) prices them.
+
+Given a :class:`~repro_torch.launch.model_mesh.ModelMesh` (``mesh=``),
+the steps run on it (:mod:`repro_torch.sharding.mesh_ops`): the
+parameters and moments are this rank's blocks
+(:func:`~repro_torch.launch.model_mesh.shard_params`), the batch is the
+whole batch, which the step cuts by ``rules.batch_spec``, the loss and
+the clipping norm are the whole batch's and the whole tree's, and AdamW
+updates each block in place.  The prefill step returns this rank's
+block of the last position's logits (batch over the FSDP axes, vocab
+over ``model``); the serve step takes this rank's block of the decode
+caches (batch over the FSDP axes; ``rules.cache_specs`` also cuts the
+sequence over ``model``, which no branch of the model code reads: not
+here) and returns the whole batch's next tokens, a distributed argmax.
 """
 from __future__ import annotations
 
@@ -26,7 +39,7 @@ from repro_torch import tree
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
-from repro_torch.sharding import rules
+from repro_torch.sharding import mesh_ops, rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,35 +82,102 @@ def value_and_grad(loss_fn: Callable[[Any], tuple[torch.Tensor, dict]],
             tree.map(lambda _: next(it), params))
 
 
+def cut_batch(mesh: Any, t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a whole batch tensor under
+    ``rules.batch_spec`` (the whole tensor without a mesh)."""
+    if mesh is None:
+        return t
+    return mesh_ops.cut_tree(t, rules.batch_spec(mesh, t.shape[0]), mesh)
+
+
+def on_mesh(mesh: Any, batch: int):
+    """The model code on ``mesh`` with a batch of ``batch`` rows cut by
+    ``rules.batch_spec``."""
+    if mesh is None:
+        return mesh_ops.use_mesh(None)
+    return mesh_ops.use_mesh(mesh, rules.batch_spec(mesh, batch)[0])
+
+
+def _grad_norm(grads: Any, specs: Any, mesh: Any) -> torch.Tensor:
+    """The global norm of a sharded gradient tree: each leaf's sum of
+    squares summed over the axes that cut it (one ``all_reduce`` a set
+    of axes), then added up in leaf order, as ``adamw._global_norm``
+    adds whole leaves."""
+    pairs: list = []
+    tree.map(lambda g, spec: pairs.append((g, spec)), grads, specs)
+    sq, cut_by = [], []
+    for g, spec in pairs:
+        sq.append(sum(torch.sum(torch.square(g[sl].float()))
+                      for sl in adamw._slices(g)))
+        cut_by.append(tuple(a for a in mesh.axis_names
+                            if any(a in mesh.axes(e) for e in spec)))
+    for axes in sorted(set(cut_by)):
+        if not axes:
+            continue
+        at = [i for i, c in enumerate(cut_by) if c == axes]
+        summed = mesh_ops.all_reduce(mesh, torch.stack([sq[i] for i in at]),
+                                     axes, "norm")
+        for j, i in enumerate(at):
+            sq[i] = summed[j]
+    total = 0
+    for s in sq:
+        total = total + s
+    return torch.sqrt(total)
+
+
 def make_train_step(cfg: ModelConfig,
-                    opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig()
-                    ) -> Callable:
+                    opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+                    mesh: Any = None) -> Callable:
     """The step updates the parameters and moments in their tensors
-    (:func:`repro_torch.optim.adamw.update`)."""
+    (:func:`repro_torch.optim.adamw.update`); on ``mesh`` each rank's
+    blocks."""
     def train_step(params, opt_state, batch):
-        loss, parts, grads = value_and_grad(
-            lambda p: transformer.lm_loss(p, cfg, batch["tokens"],
-                                          batch["labels"]), params)
-        params, opt_state = adamw.update(params, grads, opt_state, opt_cfg)
+        tokens, labels = (cut_batch(mesh, batch[k])
+                          for k in ("tokens", "labels"))
+        with on_mesh(mesh, batch["tokens"].shape[0]):
+            loss, parts, grads = value_and_grad(
+                lambda p: transformer.lm_loss(p, cfg, tokens, labels),
+                params)
+            norm = None
+            if mesh is not None and opt_cfg.grad_clip:
+                norm = _grad_norm(grads, transformer.param_specs(cfg, mesh),
+                                  mesh)
+        params, opt_state = adamw.update(params, grads, opt_state, opt_cfg,
+                                         grad_norm=norm)
         return params, opt_state, {"loss": loss, **parts}
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
+def make_prefill_step(cfg: ModelConfig, mesh: Any = None) -> Callable:
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = transformer.forward(params, cfg,
-                                        tokens=batch["tokens"], remat=False)
+        with on_mesh(mesh, batch["tokens"].shape[0]):
+            logits, _ = transformer.forward(
+                params, cfg, tokens=cut_batch(mesh, batch["tokens"]),
+                remat=False)
         return logits[:, -1]      # next-token logits
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, window: int = 0) -> Callable:
+def serve_logits(cfg: ModelConfig, params, token, caches, window: int = 0,
+                 mesh: Any = None):
+    """One decode step of the whole batch ``token`` (B, 1): (this rank's
+    logits block, the whole batch's next tokens, this rank's caches)."""
+    with on_mesh(mesh, token.shape[0]):
+        logits, caches = transformer.decode_step(
+            params, cfg, cut_batch(mesh, token), caches, window=window)
+        nxt = transformer.greedy(logits, cfg)
+        nxt = mesh_ops.gather_plain(nxt, 0, mesh_ops.batch_axes(), "batch")
+    return logits, nxt, caches
+
+
+def make_serve_step(cfg: ModelConfig, window: int = 0,
+                    mesh: Any = None) -> Callable:
     @torch.no_grad()
     def serve_step(params, token, caches):
-        logits, caches = transformer.decode_step(params, cfg, token, caches,
-                                                 window=window)
-        return transformer.greedy(logits), caches
+        _, nxt, caches = serve_logits(cfg, params, token, caches, window,
+                                      mesh)
+        return nxt, caches
     return serve_step
 
 

@@ -21,10 +21,21 @@ step repeats bit for bit on the card.
 
 ``jax.lax.top_k`` breaks ties toward the lower expert id; ``torch.topk``
 promises no order, so the router takes the head of a stable descending
-sort.  The mesh-only expert-parallel constraint of the reference
-(``_constrain_ep``) is the identity without a mesh and is not ported.
+sort.
+
+On a mesh (:mod:`repro_torch.sharding.mesh_ops`) each rank holds its
+batch block, replicated over ``model``.  The router's load-balance
+statistics are means over the whole batch (summed over the batch axes),
+and ``impl="capacity_global"`` places each slot where the whole batch's
+stable sort puts it (each expert's count on the batch blocks before
+this rank's is added to its rank in the group), against the whole
+batch's capacity: the reference's semantics, which XLA keeps when it
+partitions.  :func:`_constrain_ep` is the reference's expert-parallel
+branch (``REPRO_SHARD_MOE=1``).
 """
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +43,35 @@ import torch.nn.functional as F
 from repro_torch import random as rnd
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import mesh_ops
+
+
+def _constrain_ep(cfg: ModelConfig) -> tuple[int, int] | None:
+    """The reference's ``REPRO_SHARD_MOE=1`` knob pins the dispatch buffer
+    to expert-parallel sharding, the expert axis over ``model``, where
+    ``cfg.moe.sharding == "ep"``, the mesh has ``model`` and ``model``
+    divides the experts.  Here it returns (ranks along ``model``, this
+    rank's index) where that holds (``model`` of size > 1; the capacity
+    dispatchers read it, ``"ragged"`` does not), else ``None``, and the
+    model code then keeps the expert banks as this rank's ``E/M``
+    experts.
+
+    Each rank builds the whole buffer from its batch block (its tokens
+    are replicated over ``model``) and runs only its experts.  The
+    outputs rejoin by gathering ``out_buf`` over ``model``
+    (:func:`repro_torch.sharding.mesh_ops.gather_out`): the combine then
+    runs on every rank on the whole buffer, as in one process, so it
+    adds each token's ``k`` slots in the one-process order, and its
+    backward is a cut.  A per-expert partial combine and an
+    ``all_reduce`` would move ``T·d`` floats instead of ``E·cap·d``, but
+    add the slots in another order."""
+    if os.environ.get("REPRO_SHARD_MOE") != "1" or cfg.moe is None \
+            or cfg.moe.sharding != "ep":
+        return None
+    m, i = mesh_ops.model_split()
+    if m == 1 or cfg.moe.n_experts % m:
+        return None
+    return m, i
 
 
 def moe_init(key: torch.Tensor, cfg: ModelConfig) -> dict:
@@ -74,11 +114,41 @@ def _route(params: dict, xf: torch.Tensor, cfg: ModelConfig):
     w, ids = top_k(probs, m.top_k)
     w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)    # renormalize
     # Switch-style load balance: E · Σ_e f_e · P_e
-    me = probs.mean(0)                                         # (E,)
-    ce = torch.bincount(ids.reshape(-1), minlength=m.n_experts).float() \
-        * (1.0 / ids.numel())
+    counts = torch.bincount(ids.reshape(-1), minlength=m.n_experts)
+    axes = mesh_ops.batch_axes()
+    if axes:        # means over the whole batch
+        n = mesh_ops.current_mesh().block(axes)[0]
+        me = mesh_ops.reduce_sum(probs.sum(0), axes, "batch") \
+            / (probs.shape[0] * n)
+        ce = mesh_ops.reduce_plain(counts, axes, "batch").float() \
+            * (1.0 / (ids.numel() * n))
+    else:
+        me = probs.mean(0)                                     # (E,)
+        ce = counts.float() * (1.0 / ids.numel())
     aux = m.n_experts * torch.sum(me * ce) * m.router_aux_coef
     return w, ids, aux
+
+
+def _run_experts(params: dict, buf: torch.Tensor, cfg: ModelConfig,
+                 dim: int) -> torch.Tensor:
+    """The expert FFNs over a buffer whose axis ``dim`` is the experts';
+    under :func:`_constrain_ep` only this rank's experts run, on this
+    rank's banks, and their outputs are gathered over ``model``."""
+    ep = _constrain_ep(cfg)
+    if ep is None:
+        return _expert_ffn(params, buf)
+    per = cfg.moe.n_experts // ep[0]
+    out = _expert_ffn(params, buf.narrow(dim, ep[1] * per, per))
+    return mesh_ops.gather_out(out, dim, ("model",), "experts")
+
+
+def _dispatch_input(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The tokens entering the dispatch: under :func:`_constrain_ep` each
+    rank's gradient reaches them through its own experts only, so it is
+    summed over ``model`` (the router's, computed whole, is not)."""
+    if _constrain_ep(cfg) is None:
+        return x
+    return mesh_ops.copy_in(x, ("model",), "experts")
 
 
 def _expert_ffn(params: dict, buf: torch.Tensor) -> torch.Tensor:
@@ -144,9 +214,9 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     k = m.top_k
     order, sorted_ids, inv = _sorted_slots(ids.reshape(-1))
     w_sorted = w.reshape(-1)[order]
-    xs = _repeat_tokens(xf, k)[order]                          # (S·k, d)
 
     if impl == "ragged":
+        xs = _repeat_tokens(xf, k)[order]                      # (S·k, d)
         counts = torch.bincount(sorted_ids, minlength=m.n_experts).tolist()
         parts, lo = [], 0
         for e, n in enumerate(counts):
@@ -157,14 +227,21 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         ys = torch.cat(parts, dim=0)                           # (S·k, d)
         y = _combine(ys, w_sorted, inv, k)
     else:
-        cap = max(int(S * k * capacity_factor / m.n_experts), 1)
+        axes = mesh_ops.batch_axes()
+        n_blocks = mesh_ops.current_mesh().block(axes)[0] if axes else 1
+        cap = max(int(S * n_blocks * k * capacity_factor / m.n_experts), 1)
         cap = -(-cap // 8) * 8                                  # align
         pos_in_e = _rank_in_group(sorted_ids, m.n_experts)
+        if axes:        # the slots of the batch blocks before this one
+            pos_in_e = pos_in_e + _earlier_counts(sorted_ids, m.n_experts,
+                                                  axes)[sorted_ids]
         keep = pos_in_e < cap
         sink = m.n_experts * cap
         dest = torch.where(keep, sorted_ids * cap + pos_in_e, sink)
+        xs = _dispatch_input(_repeat_tokens(xf, k), cfg)[order]  # (S·k, d)
         buf = x.new_zeros((sink + 1, d)).index_put((dest,), xs)
-        out_buf = _expert_ffn(params, buf[:sink].reshape(m.n_experts, cap, d))
+        out_buf = _run_experts(
+            params, buf[:sink].reshape(m.n_experts, cap, d), cfg, 0)
         ys = torch.cat([out_buf.reshape(sink, d),
                         out_buf.new_zeros((1, d))])[dest]       # (S·k, d)
         y = _combine(ys, w_sorted * keep, inv, k)
@@ -172,6 +249,17 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if m.n_shared:
         y = y + layers.mlp_apply(params["shared"], xf)
     return y.reshape(B, T, d).to(x.dtype), aux
+
+
+def _earlier_counts(sorted_ids: torch.Tensor, n_experts: int,
+                    axes: tuple[str, ...]) -> torch.Tensor:
+    """Each expert's slots on the batch blocks before this rank's (the
+    ranks of its line over ``axes`` with a lower index), from every
+    block's counts gathered over ``axes``."""
+    counts = torch.bincount(sorted_ids, minlength=n_experts)
+    every = mesh_ops.gather_plain(counts[None], 0, axes, "batch")
+    _, me = mesh_ops.current_mesh().block(axes)
+    return every[:me].sum(0)
 
 
 def _dispatch_per_row(params: dict, x: torch.Tensor, w: torch.Tensor,
@@ -190,11 +278,12 @@ def _dispatch_per_row(params: dict, x: torch.Tensor, w: torch.Tensor,
     sink = m.n_experts * cap
     dest = torch.where(keep, sorted_ids * cap + pos_in_e, sink)
 
-    xs = torch.gather(_repeat_tokens(x, k), 1,
+    xs = torch.gather(_repeat_tokens(_dispatch_input(x, cfg), k), 1,
                       order[..., None].expand(B, T * k, d))    # (B, T·k, d)
     bidx = torch.arange(B, device=x.device)[:, None].expand(B, T * k)
     buf = x.new_zeros((B, sink + 1, d)).index_put((bidx, dest), xs)
-    out = _expert_ffn(params, buf[:, :sink].reshape(B, m.n_experts, cap, d))
+    out = _run_experts(params, buf[:, :sink].reshape(B, m.n_experts, cap, d),
+                       cfg, 1)
     out = torch.cat([out.reshape(B, sink, d), out.new_zeros((B, 1, d))], 1)
 
     ys = torch.gather(out, 1, dest[..., None].expand(B, T * k, d))

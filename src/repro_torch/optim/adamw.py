@@ -89,16 +89,19 @@ def _moments(cfg: AdamWConfig, p, g, m, v, scale, b1c, b2c, lr_eff):
 @torch.no_grad()
 def update(params: Any, grads: Any, state: AdamWState,
            cfg: AdamWConfig = AdamWConfig(),
-           lr: Any | None = None) -> tuple[Any, AdamWState]:
+           lr: Any | None = None,
+           grad_norm: torch.Tensor | None = None) -> tuple[Any, AdamWState]:
     """One step, in place; returns ``params`` and the new state (its
     moments the given tensors).  ``lr`` (a float or a 0-d tensor)
     overrides cfg.lr: the schedule hook.  The clipped gradient is
     ``g · scale`` in float32, as the reference's bf16 gradient times its
-    float32 scale promotes."""
+    float32 scale promotes.  ``grad_norm`` is the gradients' global norm
+    where ``grads`` holds only a block of each (a mesh rank's shards);
+    ``None`` computes it from ``grads``."""
     step = state.step + 1
     scale = None
     if cfg.grad_clip:
-        gn = _global_norm(grads)
+        gn = _global_norm(grads) if grad_norm is None else grad_norm
         scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gn, 1e-9),
                                 1.0)
     stepf = step.to(torch.float32)

@@ -1083,3 +1083,65 @@ def test_gpu_train_cli_save_restore(cuda, tmp_path):
     assert list(a) == list(b)
     for k in a:
         assert b[k].is_cuda and torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_v3_671b",
+                                  "jamba_1_5_large_398b"])
+def test_model_mesh_on_the_card(cuda, arch):
+    """The model mesh on 4 ``gloo`` ranks sharing the card (data 2, model
+    2), ``REPRO_SHARDED_CE`` / ``REPRO_SHARD_MOE`` on: one train step,
+    the prefill logits and 4 greedy tokens against the one-process port
+    on the CPU, float32 parameters, within 1e-4 relative (the card's and
+    the CPU's products sum in other orders); the tokens equal."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import registry as archs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import model_mesh, steps
+    from repro_torch.models import config as mcfg
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    cfg = mcfg.reduced(archs.get(arch))
+    if arch == "deepseek_v3_671b":
+        cfg = dataclasses.replace(cfg, segments=((1, (
+            mcfg.LayerSpec("attn", "dense"), mcfg.LayerSpec("attn", "moe"))),))
+    params = tree.map(lambda a: a.float(), transformer.init(
+        tr.PRNGKey(0, "cpu"), cfg))
+    toks = tr.randint(tr.PRNGKey(1, "cpu"), (4, 8), 0, cfg.vocab).int()
+    labels = torch.roll(toks, -1, 1)
+    env = {"REPRO_SHARDED_CE": "1", "REPRO_SHARD_MOE": "1"}
+    job = dict(mesh=(("data", "model"), (2, 2)), cfg=cfg, env=env,
+               params=tree.map(lambda a: a.to(cuda), params),
+               dtype=torch.float32, prefill=toks.to(cuda),
+               decode={"prompt": toks[:, :2].to(cuda), "steps": 4},
+               train={"tokens": toks.to(cuda), "labels": labels.to(cuda),
+                      "steps": 1}, gather_params=True)
+    got, = mesh_lib.spawn(model_mesh.run_steps, 4, [job], device="cuda",
+                          shared_device=True)
+    assert {r["device"] for r in got["ranks"]} == {"cuda:0"}
+    with model_mesh._environ(env):
+        pre = steps.make_prefill_step(cfg)(params, {"tokens": toks})
+        caches = tree.map(lambda a: a.float() if a.is_floating_point()
+                          else a, transformer.init_cache(cfg, 4, 6,
+                                                         device="cpu"))
+        fed, tokens = toks[:, :1], []
+        for t in range(6):
+            with torch.no_grad():
+                _, nxt, caches = steps.serve_logits(cfg, params, fed, caches)
+            fed = toks[:, t + 1:t + 2] if t + 1 < 2 else nxt
+            if t + 1 >= 2:
+                tokens.append(nxt)
+        _, _, m = steps.make_train_step(cfg)(
+            tree.map(torch.clone, params), adamw.init(params),
+            {"tokens": toks, "labels": labels})
+
+    def rel(a, b):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        keep = b > -1e29
+        return float((a - b).abs()[keep].max() / b.abs()[keep].max())
+
+    assert rel(got["prefill"], pre) <= 1e-4
+    assert torch.equal(got["tokens"].cpu().long(), torch.cat(tokens, 1).long())
+    assert abs(got["metrics"][0]["loss"] - float(m["loss"])) \
+        <= 1e-4 * float(m["loss"])

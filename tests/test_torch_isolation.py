@@ -110,7 +110,7 @@ def _host_value_makers(tmp_path):
     from repro_torch.fl.transport.worker import (runtime_config_to_dict,
                                                  worker_from_spec)
     from repro_torch.launch import fed_dryrun, fed_train
-    from repro_torch.launch import mesh
+    from repro_torch.launch import mesh, model_mesh
     from repro_torch.configs import registry as archs
     from repro_torch.data import loader
     from repro_torch.launch import serve, train
@@ -163,6 +163,8 @@ def _host_value_makers(tmp_path):
         "fed_dryrun.client_scale": lambda: fed_dryrun.client_scale(
             100, 2, root=str(tmp_path / "store")),
         "mesh.spawn": lambda: mesh.spawn(mesh.run_federations, 2, []),
+        "model_mesh.run_steps": lambda: mesh.spawn(
+            model_mesh.run_steps, 4, [], shared_device=True),
         "transformer.init": lambda: transformer.init(tr.PRNGKey(0), cfg),
         "transformer.init_cache": lambda: transformer.init_cache(cfg, 1, 4),
         "TokenBatcher": lambda: loader.TokenBatcher(cfg, 1, 4)(0),
@@ -193,8 +195,9 @@ def _host_value_makers(tmp_path):
     "mlp_params_from_numpy", "flis_client_state_from_numpy",
     "server_state_from_numpy", "arrival_participation",
     "worker_from_spec", "fed_dryrun.client_scale", "mesh.spawn",
-    "transformer.init", "transformer.init_cache", "TokenBatcher",
-    "FederatedSampler", "lm_params_from_numpy", "adamw_state_from_numpy",
+    "model_mesh.run_steps", "transformer.init", "transformer.init_cache",
+    "TokenBatcher", "FederatedSampler", "lm_params_from_numpy",
+    "adamw_state_from_numpy",
     "train.main", "serve.main", "examples.quickstart",
     "examples.federated_training", "examples.multiarch_train",
     "examples.serve_decode"])

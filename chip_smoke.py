@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (built for H100, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --path-m LAYERS
+
+The second form runs only the card's line and path (M) below, at
+``LAYERS`` of the models' 32 layers (``path_m``), with no kernel built.
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
@@ -196,16 +200,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    on the whole batch, and one step at all 32 layers (knobs on) whose
    loss is within ``K3_TOL["loss"]`` of one rank's and whose peak memory
    a rank is at most ``M1F_PEAK_GIB``; (M2) yi-6b at its published width (``M_LAYERS``
-   layers) decoding a 2-token prompt and 4 greedy steps at batch 4, the
-   logits within ``K3_TOL["decode"]`` of one rank's and the tokens
-   equal; every rank's bytes equal to the dry run's ``argument_bytes``
-   at (2, 2) (its caches to the dry run's blocks with the sequence
-   whole), its peak memory, step or decode seconds, and collective bytes
-   and seconds by label beside the dry run's analytic ones; (M3)
-   deepseek-v3 and jamba reduced, expert-parallel: the model on the
-   dispatcher its layers call, and ``moe_apply(impl="capacity_global")``
-   called on the grid, the card's grid against the CPU's within
-   ``K3_TOL``; no TM kernel launched;
+   layers) decoding a 2-token prompt and 4 greedy steps at batch 4 on
+   caches held as their ``rules.cache_specs`` blocks (the sequence cut
+   over ``model``: context-parallel decode), of 6 slots, and (M2L) of
+   ``decode_32k``'s 32,768 slots, whose higher block holds no valid
+   slot the whole run, the logits within ``M2_TOL`` of one rank's on
+   whole caches and the tokens equal, and (M2F) M2 in float32, its
+   logits within ``M2F_REL`` relative of one rank's in float32 and the
+   tokens equal; every rank's bytes
+   equal to the dry run's ``argument_bytes`` at (2, 2) and its caches'
+   to the dry run's blocks (``M2_CACHE_BYTES``), its ``"context"``
+   bytes to those reckoned from the shapes, each decode step's peak
+   memory at most ``M2_PEAK_GIB``, its memory and seconds a step, and
+   collective bytes and seconds by label beside the dry run's analytic
+   ones; (M3) deepseek-v3 and jamba reduced, expert-parallel, and
+   xlstm-350m reduced (mLSTM and sLSTM): the model on the grid (train,
+   prefill, decode on cut caches) and, for the first two,
+   ``moe_apply(impl="capacity_global")`` called on the grid, the card's
+   grid against the CPU's within ``K3_TOL``; no TM kernel launched;
 9. small federations (Alg. 1, the §7 variant, the unit-weight TM; TPFL
    at participation 0.5 with dropout and stragglers, with round-robin
    and with weighted sampling; FedTM; the lossy wire: TPFL int8 +
@@ -2498,8 +2510,8 @@ M_GRID = (("data", "model"), (2, 2))
 M_KNOBS = {0: {"REPRO_SHARDED_CE": None, "REPRO_SHARD_MOE": None},
            1: {"REPRO_SHARDED_CE": "1", "REPRO_SHARD_MOE": "1"}}
 # M1: granite-moe-3b-a800m at its published width, 2 steps at 4 x 256,
-# knobs off then on; M2: yi-6b at its published width, a 2-token prompt
-# fed a token a step then 4 greedy steps.  Depth cut to M_LAYERS of 32
+# knobs off then on; M2, M2L: yi-6b at its published width, a 2-token
+# prompt fed a token a step then 4 greedy steps.  Depth cut to M_LAYERS of 32
 # (every step gathers every layer through gloo's host staging);
 # ``path_m(dev, layers=32)`` runs them whole.
 M_LAYERS = 4
@@ -2518,6 +2530,31 @@ M1_TOL = (0.0091, 0.0145)
 # (measured 16.20 GiB: a stacked leaf's gradients are restacked at the
 # end of the backward)
 M1F_PEAK_GIB = 18.0
+# M2 decodes on caches held as rules.cache_specs' blocks: a rank's bytes
+# are the dry run's, reckoned from the shapes at M_LAYERS layers (batch
+# 2 of 4, sequence 3 of 6, bf16 K and V, int32 pos); M2L the same model
+# on caches of decode_32k's length, 16,384 slots of 32,768 a rank, whose
+# higher block along ``model`` holds no valid slot the whole run
+M2L_SLOTS = 32768
+M2_CACHE_BYTES = {"M2": 49_184, "M2L": 268_435_488}
+# M2 and M2L in bf16 against one rank on whole caches at M_LAYERS
+# layers: 2x the larger difference measured on an H100 (0.0333, M2; M2L
+# 0.0325): a block's float32 attention output, its sums in another
+# order, is cast to bf16 and a value at a rounding boundary moves one
+# ulp, which the next layers carry (at 32 layers 0.0749 and 0.0887, so
+# only the tokens are held in bf16 at another depth)
+M2_TOL = 0.067
+# M2F: M2 with float32 parameters and caches, its logits against one
+# rank's in float32 within M2F_REL relative (max |d| over max |one
+# rank's|; measured on an H100: 1.13e-6 at M_LAYERS), as
+# tests/test_torch_gpu.py holds the reduced models on the card: in
+# float32 the context-parallel combine is all that differs, at any depth
+M2F_REL = 1e-4
+# a rank's peak device memory in any decode step of M2 and M2L at
+# M_LAYERS layers (measured on an H100: 2.31 and 2.57 GiB, flat over the
+# steps; 2.58 -> 8.29 GiB over 6 steps before the gathers' reassembly
+# stopped holding each gathered buffer in a reference cycle)
+M2_PEAK_GIB = 3.0
 M3_T = 8
 
 
@@ -2535,16 +2572,21 @@ def _m_cut(arch: str, layers: int):
 
 
 def _m3_cfgs() -> dict:
-    """M3's reduced expert-parallel configs: deepseek-v3 with one dense
-    and one MoE layer (its first three are dense), jamba."""
+    """M3's reduced configs: deepseek-v3 with one dense and one MoE layer
+    (its first three are dense) and jamba, expert-parallel; xlstm-350m
+    with an mLSTM and its sLSTM layer (its first two are mLSTM)."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.models import config as mcfg
     ds = mcfg.reduced(registry.get("deepseek-v3-671b"))
     ds = dataclasses.replace(ds, segments=((1, (
         mcfg.LayerSpec("attn", "dense"), mcfg.LayerSpec("attn", "moe"))),))
+    xl = mcfg.reduced(registry.get("xlstm-350m"))
+    xl = dataclasses.replace(xl, segments=((1, (
+        mcfg.LayerSpec("mlstm", "none"), mcfg.LayerSpec("slstm", "none"))),))
     return {"deepseek-v3": ds,
-            "jamba": mcfg.reduced(registry.get("jamba-1.5-large-398b"))}
+            "jamba": mcfg.reduced(registry.get("jamba-1.5-large-398b")),
+            "xlstm-350m": xl}
 
 
 def _m3_jobs(dev) -> list:
@@ -2584,6 +2626,8 @@ def _m3_global(mesh) -> dict:
     from repro_torch.sharding import mesh_ops, rules
     out, spec = {}, rules.batch_spec(mesh, 4)
     for name, cfg in _m3_cfgs().items():
+        if cfg.moe is None:
+            continue
         p = tree.map(lambda a: a.float().to(mesh.device),
                      moe.moe_init(rnd.PRNGKey(5, "cpu"), cfg))
         g = torch.Generator().manual_seed(7)
@@ -2644,11 +2688,16 @@ def _m_ranks(name: str, res: dict, dryrun_check: bool = True) -> None:
                                  f"the dry run {b['dryrun']} B")
         if "cache_bytes" in r:
             c = r["cache_bytes"]
-            line.update(cache=c, decode_s=r["decode_s"])
-            if c["held"] != c["dryrun_no_model"]:
-                raise SystemExit(f"path ({name}) rank {i}: caches are not "
-                                 f"the dry run's blocks with the sequence "
-                                 f"whole")
+            line.update(cache=c, cache_shapes=r["cache_shapes"],
+                        decode_s=r["decode_s"])
+            if "decode_memory" in r:
+                line["decode_allocated_GiB"], line["decode_peak_GiB"] = (
+                    [round(m[k] / 2**30, 4) for m in r["decode_memory"]]
+                    for k in (0, 1))
+            if c["held"] != c["dryrun"]:
+                raise SystemExit(f"path ({name}) rank {i}: holds "
+                                 f"{c['held']} B of caches, the dry run's "
+                                 f"blocks {c['dryrun']} B")
         line["collective_bytes"] = {
             ph: m["bytes"] for ph, m in r["meter"].items() if m["bytes"]}
         line["collective_s"] = {
@@ -2783,14 +2832,58 @@ def _m1(dev, layers: int, clock) -> tuple[tuple, float]:
             glob), world_s
 
 
-def _m2(dev, layers: int, clock) -> float:
-    """(M2): yi-6b drawn here once, decoding on the grid, then one
-    rank's reference here.  Returns the world's seconds."""
+def _context_bytes(cfg, b_loc: int) -> int:
+    """The ``"context"`` bytes a rank meters a decode step of a GQA model
+    whose caches' sequence is cut over ``model``, from the shapes: a layer
+    reduces its float32 maxima (b_loc, H) with MAX, then its sums
+    (b_loc, H) and unnormalized outputs (b_loc, H, d_head) in one SUM."""
+    return cfg.n_layers * b_loc * cfg.n_heads * (2 + cfg.d_head) * 4
+
+
+def _m2_ref(dev, cfg, p, prompt, max_len: int, clock, dtype=None):
+    """One rank's decode here on whole caches of ``max_len`` slots, their
+    floating leaves cast to ``dtype`` where it is given: (its logits,
+    tokens, seconds a step)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    t = clock()
+    caches = transformer.init_cache(cfg, M2_BATCH, max_len, device=dev)
+    if dtype is not None:
+        caches = tree.map(lambda a: a.to(dtype) if a.is_floating_point()
+                          else a, caches)
+    fed, logits, tokens = prompt[:, :1], [], []
+    for i in range(M2_PROMPT + M2_DECODE):
+        with torch.no_grad():
+            lg, nxt, caches = steps.serve_logits(cfg, p, fed, caches)
+        logits.append(lg[:, 0])
+        if i + 1 < M2_PROMPT:
+            fed = prompt[:, i + 1:i + 2]
+        else:
+            fed = nxt.to(prompt.dtype)
+            tokens.append(nxt)
+    step_s = (clock() - t) / (M2_PROMPT + M2_DECODE)
+    del caches
+    return torch.stack(logits, 1), torch.cat(tokens, 1), step_s
+
+
+def _m2(dev, layers: int, clock, long: bool = True) -> float:
+    """(M2), (M2F) and (M2L): yi-6b drawn here once, decoding on the
+    grid on caches held as ``rules.cache_specs``' blocks of 6 slots (M2,
+    and M2F in float32) and, with ``long``, of ``M2L_SLOTS`` (M2L), in
+    one world; then one rank's references here on whole caches, the
+    tokens equal and the logits within ``M2F_REL`` relative (float32)
+    and, at ``M_LAYERS`` layers, within ``M2_TOL`` (bfloat16).  Each
+    rank's cache bytes the dry run's (``M2_CACHE_BYTES`` at ``M_LAYERS``
+    for M2 and M2L), its ``"context"`` bytes those reckoned from the
+    shapes, its peak a bf16 decode step at most ``M2_PEAK_GIB``.
+    Returns the world's seconds."""
     import torch
     from repro_torch import random as rnd
     from repro_torch import tree
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch import model_mesh, steps
+    from repro_torch.launch import model_mesh
     from repro_torch.models import transformer
     torch.cuda.empty_cache()
     t = clock()
@@ -2805,55 +2898,77 @@ def _m2(dev, layers: int, clock) -> float:
     host = tree.map(lambda a: a.cpu(), p)
     del p
     torch.cuda.empty_cache()
-    job = dict(name="M2", mesh=M_GRID, cfg=cfg, params=host,
-               decode={"prompt": prompt, "steps": M2_DECODE})
+    six = M2_PROMPT + M2_DECODE
+    lens = {"M2": (six, None), "M2F": (six, torch.float32)}
+    if long:
+        lens["M2L"] = (M2L_SLOTS, None)
+    jobs = [dict(name=name, mesh=M_GRID, cfg=cfg, params=host, dtype=dt,
+                 decode={"prompt": prompt, "steps": M2_DECODE,
+                         "max_len": n}) for name, (n, dt) in lens.items()]
     t = time.perf_counter()
-    got, = mesh_lib.spawn(model_mesh.run_steps, 4, [job], device="cuda",
-                          shared_device=True)
+    got = mesh_lib.spawn(model_mesh.run_steps, 4, jobs, device="cuda",
+                         shared_device=True)
     world_s = time.perf_counter() - t
     p = tree.map(lambda a: a.to(dev), host)
-    del host
-
-    # one rank's reference: the same prompt and greedy steps here
-    t = clock()
-    caches = transformer.init_cache(cfg, M2_BATCH, M2_PROMPT + M2_DECODE,
-                                    device=dev)
-    fed, logits, tokens = prompt[:, :1], [], []
-    for i in range(M2_PROMPT + M2_DECODE):
-        with torch.no_grad():
-            lg, nxt, caches = steps.serve_logits(cfg, p, fed, caches)
-        logits.append(lg[:, 0])
-        if i + 1 < M2_PROMPT:
-            fed = prompt[:, i + 1:i + 2]
+    del host, jobs
+    b_loc = M2_BATCH // M_GRID[1][0]
+    context = _context_bytes(cfg, b_loc) * six
+    for (name, (n, dt)), res in zip(lens.items(), got, strict=True):
+        ref_p = p if dt is None else tree.map(lambda a: a.to(dt), p)
+        logits, tokens, ref_s = _m2_ref(dev, cfg, ref_p, prompt, n, clock,
+                                        dt)
+        del ref_p
+        d = _maxdiff(res["decode_logits"], logits)
+        if dt is None:
+            what, bound = "max |d|", M2_TOL if layers == M_LAYERS \
+                else float("inf")
         else:
-            fed = nxt.to(prompt.dtype)
-            tokens.append(nxt)
-    ref_s = clock() - t
-    d = _maxdiff(got["decode_logits"], torch.stack(logits, 1))
-    same = torch.equal(got["tokens"].cpu(), torch.cat(tokens, 1).cpu())
-    print(f"path (M2) yi-6b decode on the grid ({world_s:.1f}s with the "
-          f"world's start): logits against one rank max |d| {d:.4g} "
-          f"(bound {K3_TOL['decode']}), tokens equal: {same} "
-          f"({got['tokens'].tolist()}); one rank "
-          f"{ref_s / (M2_PROMPT + M2_DECODE):.3f}s a step", flush=True)
-    _m_ranks("M2", got)
-    if not d <= K3_TOL["decode"] or not same:
-        raise SystemExit("path (M2): the grid's decode differs from one "
-                         "rank's")
-    del p, caches, logits
+            d /= float(logits.float().abs().max())
+            what, bound = "max |d| / max |one rank's|", M2F_REL
+        same = torch.equal(res["tokens"].cpu(), tokens.cpu())
+        print(f"path ({name}) yi-6b decode on the grid, caches of {n} "
+              f"slots held as their rules.cache_specs blocks, "
+              f"{dt or 'bfloat16'} ({world_s:.1f}s world with its start): "
+              f"logits against one rank on whole caches {what} {d:.4g} "
+              f"(bound {bound}), tokens equal: {same} "
+              f"({res['tokens'].tolist()}); one rank {ref_s:.3f}s a step; "
+              f"\"context\" bytes a rank reckoned from the shapes "
+              f"{context}", flush=True)
+        _m_ranks(name, res)
+        if not d <= bound or not same:
+            raise SystemExit(f"path ({name}): the grid's decode differs "
+                             f"from one rank's")
+        for i, r in enumerate(res["ranks"]):
+            metered = r["meter"]["decode"]["bytes"].get("context", 0)
+            if metered != context:
+                raise SystemExit(f"path ({name}) rank {i}: {metered} "
+                                 f"\"context\" bytes metered, {context} "
+                                 f"reckoned")
+            if layers != M_LAYERS or name not in M2_CACHE_BYTES:
+                continue
+            held = r["cache_bytes"]["held"]
+            if held != M2_CACHE_BYTES[name]:
+                raise SystemExit(f"path ({name}) rank {i}: {held} B of "
+                                 f"caches, not {M2_CACHE_BYTES[name]}")
+            peak = max(m[1] for m in r["decode_memory"]) / 2**30
+            if not peak <= M2_PEAK_GIB:
+                raise SystemExit(f"path ({name}) rank {i}: a decode step "
+                                 f"peaks at {peak:.2f} GiB > {M2_PEAK_GIB}")
+    del p, logits
     torch.cuda.empty_cache()
     return world_s
 
 
 def path_m(dev, layers: int = M_LAYERS) -> dict:
-    """(M1) granite-moe-3b-a800m trained and (M2) yi-6b decoding, both at
-    their published widths (``layers`` of their 32 layers) on a (data 2,
-    model 2) grid of 4 gloo ranks on this card, against the one-rank port
-    in this process, each model in a world of its own (one model's
-    parameters held here at a time); (M3) deepseek-v3 and jamba reduced,
-    expert-parallel, on the card's grid (M1's world) against the same
-    grid on the CPU: the model, and ``moe_apply(impl="capacity_global")``
-    called on the grid."""
+    """(M1) granite-moe-3b-a800m trained and (M2, M2L) yi-6b decoding on
+    caches cut over ``model``, both at their published widths
+    (``layers`` of their 32 layers) on a (data 2, model 2) grid of 4
+    gloo ranks on this card, against the one-rank port in this process,
+    each model in a world of its own (one model's parameters held here
+    at a time); (M3) deepseek-v3 and jamba reduced, expert-parallel, and
+    xlstm-350m reduced, on the card's grid (M1's world) against the
+    same grid on the CPU: the model, and, for the first two,
+    ``moe_apply(impl="capacity_global")`` called on the grid."""
     import torch
     from repro_torch import tree
     from repro_torch.kernels import ops
@@ -2925,7 +3040,12 @@ def path_m(dev, layers: int = M_LAYERS) -> dict:
     return {"world_s": (world1_s, world2_s), "total_s": total, "m3": worst}
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv and (len(argv) != 2 or argv[0] != "--path-m"
+                 or not argv[1].isdigit()):
+        print("usage: python3 chip_smoke.py [--path-m LAYERS]",
+              file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2957,6 +3077,10 @@ def main() -> int:
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    if argv:
+        path_m(dev, layers=int(argv[1]))
+        print(smi, flush=True)
+        return 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -3986,4 +4110,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

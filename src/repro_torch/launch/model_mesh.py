@@ -38,9 +38,18 @@ partitioning by hand:
   columns, the tied embedding's vocab rows and, under
   ``REPRO_SHARD_MOE=1`` with ``"ep"``, the expert banks
   (``transformer._kept_on_model``).
+* **Decode caches held as their blocks.** The decode job allocates this
+  rank's blocks of ``rules.cache_specs`` and nothing more
+  (:func:`repro_torch.launch.steps.cache_blocks`: one rank's bytes are
+  the dry run's): the batch over the FSDP axes, the KV, int8-KV and MLA
+  caches' sequence and the Mamba and xLSTM state's features over
+  ``model`` where it divides them.  The model code decodes on those
+  blocks (context parallelism: the attention's softmax split over the
+  sequence's blocks, the recurrent contractions over a cut axis summed).
 * **What the model code reads** (the current mesh, the collectives, a
-  layer's blocks gathered on use, the vocab-parallel cross entropy) is
-  :mod:`repro_torch.sharding.mesh_ops`, below the model code.
+  layer's blocks gathered on use, the vocab-parallel cross entropy, the
+  context-parallel softmax) is :mod:`repro_torch.sharding.mesh_ops`,
+  below the model code.
 
 :func:`run_steps` runs jobs on a world (the library path the tests and
 ``chip_smoke.py`` drive, as ``mesh.run_federations`` is); there is no
@@ -49,7 +58,9 @@ no mesh flag.  Each collective is metered into the mesh's
 ``CollectiveMeter`` under a label: ``param_gather``, ``grad_reduce``,
 ``vocab`` (the CE's and the argmax's reductions over ``model``),
 ``batch`` (loss and router statistics over the batch axes), ``experts``
-(the expert-parallel outputs), ``norm`` (the clipping norm).
+(the expert-parallel outputs), ``norm`` (the clipping norm),
+``context`` (decode over caches cut over ``model``: the softmax's max
+and sums, the recurrent state's partial products, gathered blocks).
 """
 from __future__ import annotations
 
@@ -254,9 +265,11 @@ def _job(mesh: ModelMesh, job: dict) -> tuple[dict, dict]:
                         if a.is_floating_point() else a, t)
 
     t0 = _sync(dev)
-    params = shard_params(cast(job["params"]), mesh,
-                          cfg.moe.sharding if cfg.moe else "ep")
+    # cut, then cast: each rank casts only its blocks
+    params = cast(shard_params(job["params"], mesh,
+                               cfg.moe.sharding if cfg.moe else "ep"))
     phase("shard", t0)
+    mine["shard_shapes"] = [tuple(x.shape) for x in tree.leaves(params)]
 
     if "grads" in job:
         tok, lab = job["grads"]["tokens"], job["grads"]["labels"]
@@ -277,45 +290,53 @@ def _job(mesh: ModelMesh, job: dict) -> tuple[dict, dict]:
         out["prefill"] = _whole_logits(mesh, cfg, blk, tok.shape[0])
 
     if "decode" in job:
-        prompt, n = job["decode"]["prompt"].to(dev), job["decode"]["steps"]
+        dec = job["decode"]
+        prompt, n = dec["prompt"].to(dev), dec["steps"]
+        window = dec.get("window", 0)
         B, P = prompt.shape
-        entry = rules.batch_spec(mesh, B)[0]
-        b_loc = B // mesh.block(mesh.axes(entry))[0]
-        caches = cast(transformer.init_cache(cfg, b_loc, P + n, device=dev))
-        cache_abs = tree.leaves(steps.abstract_cache(cfg, shape, B, P + n),
+        slots = dec.get("max_len", P + n)
+        caches, specs = steps.cache_blocks(cfg, mesh, B, slots, window)
+        caches = cast(caches)
+        cache_abs = tree.leaves(steps.abstract_cache(cfg, shape, B, slots,
+                                                     window),
                                 is_leaf=steps.is_abstract)
-        # the dry run's blocks, and the same with the sequence (and the
-        # recurrent features) not cut over ``model``, at the held dtypes
-        mine["cache_bytes"] = {
-            "held": _nbytes(caches),
-            "dryrun": sum(a.device_bytes for a in cache_abs),
-            "dryrun_no_model": sum(
-                math.prod(steps.AbstractArray(a.value, tuple(
-                    None if e == "model" else e for e in a.spec), shape
-                ).shard_shape) * h.element_size()
-                for a, h in zip(cache_abs, tree.leaves(caches),
-                                strict=True))}
         logits, toks, mine["decode_s"] = [], [], []
         fed = prompt[:, :1]
         for t in range(P + n):
+            if dev.type == "cuda":      # a step's own peak, and the job's
+                mine["peak"] = max(mine.get("peak", 0),
+                                   torch.cuda.max_memory_allocated(dev))
+                torch.cuda.reset_peak_memory_stats(dev)
             t0 = _sync(dev)
             with torch.no_grad():
-                lg, nxt, caches = steps.serve_logits(cfg, params, fed,
-                                                     caches, mesh=mesh)
+                lg, nxt, caches = steps.serve_logits(
+                    cfg, params, fed, caches, window, mesh, specs)
             mine["decode_s"].append(_sync(dev) - t0)
             if dev.type == "cuda":
-                mine.setdefault("peak_by_phase", {})[f"decode{t}"] = \
-                    torch.cuda.max_memory_allocated(dev)
+                mine.setdefault("decode_memory", []).append(
+                    (torch.cuda.memory_allocated(dev),
+                     torch.cuda.max_memory_allocated(dev)))
             logits.append(_whole_logits(mesh, cfg, lg[:, 0], B))
             if t + 1 < P:
                 fed = prompt[:, t + 1:t + 2]
             else:
                 fed = nxt.to(prompt.dtype)
                 toks.append(nxt)
+        # what the last step left, against the dry run's blocks at the
+        # held dtypes (the dry run's own bytes where those are the init's)
+        mine["cache_bytes"] = {
+            "held": _nbytes(caches),
+            "dryrun": sum(math.prod(a.shard_shape) * h.element_size()
+                          for a, h in zip(cache_abs, tree.leaves(caches),
+                                          strict=True))}
+        mine["cache_shapes"] = [tuple(h.shape) for h in tree.leaves(caches)]
         out["decode_logits"] = torch.stack(logits, 1)
         out["tokens"] = torch.cat(toks, 1)
         mine["meter"]["decode"] = mesh.meter.snapshot()
         mesh.meter.reset()
+        if dec.get("gather_caches"):
+            out["caches"] = mesh_ops.gather_tree(caches, specs, mesh,
+                                                 "result")
         del caches
     if "train" in job:
         tr = job["train"]
@@ -329,7 +350,6 @@ def _job(mesh: ModelMesh, job: dict) -> tuple[dict, dict]:
         mine["bytes"] = {"params": _nbytes(params), "opt": _nbytes(opt),
                          "batch": _nbytes(local),
                          "dryrun": dryrun.argument_bytes(ins, "train")}
-        mine["shard_shapes"] = [tuple(x.shape) for x in tree.leaves(params)]
         mine["analytic_collectives"] = dryrun.fsdp_collectives(
             ins["params"], shape, "train")
         step = steps.make_train_step(cfg, opt_cfg, mesh=mesh)
@@ -347,7 +367,8 @@ def _job(mesh: ModelMesh, job: dict) -> tuple[dict, dict]:
         del opt
 
     if dev.type == "cuda":
-        mine["peak"] = torch.cuda.max_memory_allocated(dev)
+        mine["peak"] = max(mine.get("peak", 0),
+                           torch.cuda.max_memory_allocated(dev))
     return out, mine
 
 
@@ -379,13 +400,18 @@ def run_steps(world, jobs: list[dict]) -> list[dict] | None:
     moments), ``gather_params`` (the parameters after
     each, whole), ``prefill`` (whole tokens: the last position's
     logits) and ``decode`` (``prompt`` (B, P) fed a token a step, then
-    ``steps`` greedy steps: every step's logits and the tokens).  A
-    result holds those whole (``grad_loss``, ``grads``, ``metrics``,
-    ``params``, ``prefill``, ``decode_logits``, ``tokens``) and
-    ``ranks``: each rank's device, bytes held beside the dry run's
-    ``argument_bytes`` and cache bytes, the dry run's analytic
-    collective bytes, peak device memory, seconds of each phase and step,
-    and collective bytes by label a phase and step."""
+    ``steps`` greedy steps, on caches of ``max_len`` slots (default
+    P + steps) held as this rank's blocks of ``rules.cache_specs``,
+    optionally with a ``window`` and ``gather_caches``: every step's
+    logits, the tokens, and the last caches whole).  A result holds those whole
+    (``grad_loss``, ``grads``, ``metrics``, ``params``, ``prefill``,
+    ``decode_logits``, ``tokens``, ``caches``) and ``ranks``: each
+    rank's device, shard shapes, bytes held beside the dry run's
+    ``argument_bytes``, the cache blocks' shapes and bytes after the last
+    decode step beside the dry run's, the dry run's analytic collective
+    bytes, peak device memory (on the card also ``memory_allocated`` and
+    the peak of each decode step), seconds of each phase and step, and
+    collective bytes by label a phase and step."""
     meshes: dict = {}
     results = []
     for job in jobs:

@@ -22,9 +22,11 @@ the clipping norm are the whole batch's and the whole tree's, and AdamW
 updates each block in place.  The prefill step returns this rank's
 block of the last position's logits (batch over the FSDP axes, vocab
 over ``model``); the serve step takes this rank's block of the decode
-caches (batch over the FSDP axes; ``rules.cache_specs`` also cuts the
-sequence over ``model``, which no branch of the model code reads: not
-here) and returns the whole batch's next tokens, a distributed argmax.
+caches under ``rules.cache_specs`` (:func:`cache_blocks`: the batch over
+the FSDP axes, the KV and latent caches' sequence and the recurrent
+state's features over ``model``, each where its axes divide it; the
+model code splits the attention's softmax over the sequence's blocks)
+and returns the whole batch's next tokens, a distributed argmax.
 """
 from __future__ import annotations
 
@@ -160,23 +162,29 @@ def make_prefill_step(cfg: ModelConfig, mesh: Any = None) -> Callable:
 
 
 def serve_logits(cfg: ModelConfig, params, token, caches, window: int = 0,
-                 mesh: Any = None):
+                 mesh: Any = None, cache_specs: Any = None):
     """One decode step of the whole batch ``token`` (B, 1): (this rank's
-    logits block, the whole batch's next tokens, this rank's caches)."""
+    logits block, the whole batch's next tokens, this rank's caches).
+    On ``mesh`` the caches are this rank's blocks of ``cache_specs``
+    (:func:`cache_blocks`), which a mesh requires."""
+    if mesh is not None and cache_specs is None:
+        raise ValueError("decode on a mesh takes the caches' specs "
+                         "(steps.cache_blocks)")
     with on_mesh(mesh, token.shape[0]):
         logits, caches = transformer.decode_step(
-            params, cfg, cut_batch(mesh, token), caches, window=window)
+            params, cfg, cut_batch(mesh, token), caches, window=window,
+            cache_specs=cache_specs)
         nxt = transformer.greedy(logits, cfg)
         nxt = mesh_ops.gather_plain(nxt, 0, mesh_ops.batch_axes(), "batch")
     return logits, nxt, caches
 
 
-def make_serve_step(cfg: ModelConfig, window: int = 0,
-                    mesh: Any = None) -> Callable:
+def make_serve_step(cfg: ModelConfig, window: int = 0, mesh: Any = None,
+                    cache_specs: Any = None) -> Callable:
     @torch.no_grad()
     def serve_step(params, token, caches):
         _, nxt, caches = serve_logits(cfg, params, token, caches, window,
-                                      mesh)
+                                      mesh, cache_specs)
         return nxt, caches
     return serve_step
 
@@ -261,6 +269,24 @@ def abstract_cache(cfg: ModelConfig, mesh: Any, batch: int, max_len: int,
     shapes = transformer.init_cache(cfg, batch, max_len, window,
                                     device="meta")
     return _abstract(shapes, rules.cache_specs(shapes, mesh), mesh)
+
+
+def cache_blocks(cfg: ModelConfig, mesh: Any, batch: int, max_len: int,
+                 window: int = 0) -> tuple[Any, Any]:
+    """This rank's blocks of the decode caches under ``rules.cache_specs``
+    on ``mesh`` (a :class:`~repro_torch.launch.model_mesh.ModelMesh`):
+    zeros, every leaf, as ``transformer.init_cache`` makes the whole (it
+    stacks each layer's cache as zeros, as the reference's does, so the
+    xLSTM stabilizers start at 0 and not at the -1e30 of
+    ``mlstm_init_cache`` / ``slstm_init_cache``), each allocated at its
+    block's shape (:attr:`AbstractArray.shard_shape`) on the mesh's
+    device, the whole never; and the specs, for
+    :func:`serve_logits`."""
+    abstract = abstract_cache(cfg, mesh, batch, max_len, window)
+    blocks = tree.map(lambda a: torch.zeros(a.shard_shape, dtype=a.dtype,
+                                            device=mesh.device),
+                      abstract, is_leaf=is_abstract)
+    return blocks, tree.map(lambda a: a.spec, abstract, is_leaf=is_abstract)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh: Any,

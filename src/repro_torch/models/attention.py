@@ -23,6 +23,13 @@ Decode attends a single query over a KV cache:
   * MLA            — compressed latent cache (c_kv ‖ k_rope), the
     *absorbed* formulation (W_UK folded into the query, W_UV into the
     output) so decode FLOPs/bytes scale with kv_lora, not H·Dh.
+
+On a model mesh whose decode caches are held as ``rules.cache_specs``'
+blocks, the sequence cut over ``model`` (context parallelism, what the
+reference gets from XLA's partitioner), a rank holds its block of slots:
+only the block holding a step's slot writes it, and the softmax is split
+over the blocks (each block's max, sum and unnormalized output, combined
+by :func:`repro_torch.sharding.mesh_ops.context_softmax`).
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.sharding import mesh_ops
 
 NEG_INF = -1e30
 
@@ -198,18 +206,35 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _softmax_v(s: torch.Tensor, v: torch.Tensor, eq: str,
+               seq: tuple[str, ...]) -> torch.Tensor:
+    """``einsum(eq, softmax(s), v)``, the softmax over the last axis of
+    the float32 scores ``s``.  Where the sequence is cut over ``seq``
+    (context parallelism) each rank holds its slots: it computes its
+    block's max, ``Σ exp(s − max)`` and unnormalized ``exp(s − max)·v``,
+    and :func:`repro_torch.sharding.mesh_ops.context_softmax` combines
+    them over the axes."""
+    if not seq:
+        return torch.einsum(eq, torch.softmax(s, dim=-1), v)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    return mesh_ops.context_softmax(m, e.sum(dim=-1),
+                                    torch.einsum(eq, e, v), seq)
+
+
 def _decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 valid: torch.Tensor) -> torch.Tensor:
+                 valid: torch.Tensor, seq: tuple[str, ...] = ()
+                 ) -> torch.Tensor:
     """Single-step attention.  q: (B,H,Dq); k,v: (B,S,Hkv,D*);
-    valid: (B,S) bool → (B,H,Dv)."""
+    valid: (B,S) bool → (B,H,Dv); ``seq``: the axes the cache's slots
+    are cut over (:func:`_softmax_v`)."""
     B, H, Dq = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Hkv, G, Dq).float() * Dq ** -0.5
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k.float())
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    out = _softmax_v(s, v.float(), "bhgk,bkhd->bhgd", seq)
     return out.reshape(B, H, -1).to(v.dtype)
 
 
@@ -308,10 +333,17 @@ def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                    pos=pos)
 
 
-def _put(cache: torch.Tensor, at, value: torch.Tensor) -> torch.Tensor:
+def _put(cache: torch.Tensor, at, value: torch.Tensor,
+         mine: torch.Tensor | None = None) -> torch.Tensor:
     """``cache.at[at].set(value)``: a new tensor, the value cast to the
-    cache's dtype."""
-    return cache.index_put(at, value.to(cache.dtype))
+    cache's dtype.  ``mine`` (B,): the rows whose slot this rank's block
+    holds; the other rows keep what their slot ``at`` holds (a rank that
+    does not own a row's slot changes nothing)."""
+    value = value.to(cache.dtype)
+    if mine is not None:
+        keep = mine.reshape((-1,) + (1,) * (value.ndim - 1))
+        value = torch.where(keep, value, cache[at])
+    return cache.index_put(at, value)
 
 
 def decode_slot(pos: torch.Tensor, S: int, window: int) -> torch.Tensor:
@@ -321,40 +353,64 @@ def decode_slot(pos: torch.Tensor, S: int, window: int) -> torch.Tensor:
     return pos % S if w > 0 else torch.clamp_max(pos, S - 1)
 
 
+def _slot_block(slot: torch.Tensor, S_loc: int, start: int, cut: bool):
+    """A global slot (B,) in this rank's block of ``S_loc`` slots from
+    ``start``: (the block's index for each row, clamped into it; the
+    rows whose slot the block holds, ``None`` where the sequence is not
+    cut)."""
+    if not cut:
+        return slot, None
+    local = slot - start
+    return local.clamp(0, S_loc - 1), (local >= 0) & (local < S_loc)
+
+
 def gqa_decode(params: dict, x: torch.Tensor,
                cache: KVCache | QuantKVCache, cfg: ModelConfig,
-               window: int = 0
+               window: int = 0, spec: tuple | None = None
                ) -> tuple[torch.Tensor, KVCache | QuantKVCache]:
-    """One decode step.  x: (B, 1, d) → (B, 1, d), updated cache."""
+    """One decode step.  x: (B, 1, d) → (B, 1, d), updated cache.
+
+    ``spec``: the cache's specs under ``rules.cache_specs`` (one layer's,
+    the stacked axis dropped) on the current mesh.  Where they cut the
+    sequence over ``model``, ``cache`` is this rank's block of slots
+    (codes and scales cut together): the step's slot is the global
+    ``decode_slot``, which only the block holding it writes; ``valid``
+    is built from global slot indices, and the softmax is split over the
+    blocks (:func:`_softmax_v`)."""
     B = x.shape[0]
     pos = cache.pos                                    # (B,)
     q, k, v = _qkv(params, x, pos[:, None], cfg)
     quant = isinstance(cache, QuantKVCache)
-    S = (cache.k_q if quant else cache.k).shape[1]
+    S_loc = (cache.k_q if quant else cache.k).shape[1]
+    # the sequence entry of the first leaf's spec (k or k_q)
+    seq, n, i = mesh_ops.cache_cut(spec[0][1] if spec else None)
+    S, start = S_loc * n, S_loc * i
     w = min(window, S) if window else 0
-    slot = decode_slot(pos, S, window).long()
+    slot, mine = _slot_block(decode_slot(pos, S, window).long(), S_loc,
+                             start, bool(seq))
 
     at = (torch.arange(B, device=x.device), slot)
     if quant:
         kq, ks = _quantize(k[:, 0])
         vq, vs = _quantize(v[:, 0])
         cache = cache._replace(
-            k_q=_put(cache.k_q, at, kq), v_q=_put(cache.v_q, at, vq),
-            k_scale=_put(cache.k_scale, at, ks),
-            v_scale=_put(cache.v_scale, at, vs))
+            k_q=_put(cache.k_q, at, kq, mine),
+            v_q=_put(cache.v_q, at, vq, mine),
+            k_scale=_put(cache.k_scale, at, ks, mine),
+            v_scale=_put(cache.v_scale, at, vs, mine))
         kc = _dequantize(cache.k_q, cache.k_scale).to(k.dtype)
         vc = _dequantize(cache.v_q, cache.v_scale).to(v.dtype)
     else:
-        kc = _put(cache.k, at, k[:, 0])
-        vc = _put(cache.v, at, v[:, 0])
+        kc = _put(cache.k, at, k[:, 0], mine)
+        vc = _put(cache.v, at, v[:, 0], mine)
         cache = KVCache(kc, vc, pos)
 
-    slots = torch.arange(S, device=x.device)[None, :]
+    slots = start + torch.arange(S_loc, device=x.device)[None, :]
     if w:
         valid = slots < torch.clamp_max(pos + 1, S)[:, None]
     else:
         valid = slots <= pos[:, None]
-    out = _decode_attn(q[:, 0], kc, vc, valid)
+    out = _decode_attn(q[:, 0], kc, vc, valid, seq)
     y = out.reshape(B, 1, -1) @ params["wo"]
     return y, cache._replace(pos=pos + 1)
 
@@ -436,9 +492,12 @@ def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def mla_decode(params: dict, x: torch.Tensor, cache: MLACache,
-               cfg: ModelConfig, window: int = 0
+               cfg: ModelConfig, window: int = 0, spec: tuple | None = None
                ) -> tuple[torch.Tensor, MLACache]:
-    """Absorbed decode: attend in the compressed latent space."""
+    """Absorbed decode: attend in the compressed latent space.  Where
+    ``spec`` (as :func:`gqa_decode`'s) cuts the sequence, ``c_kv`` and
+    ``k_rope`` are this rank's slots and the softmax is split over the
+    blocks, ``o_lat`` combined before ``w_uv``."""
     m = cfg.mla
     B = x.shape[0]
     H = cfg.n_heads
@@ -446,11 +505,14 @@ def mla_decode(params: dict, x: torch.Tensor, cache: MLACache,
     q_nope, q_rope = _mla_q(params, x, pos[:, None], cfg)      # (B,1,H,·)
     c_kv_new, k_rope_new = _mla_kv_latent(params, x, pos[:, None], cfg)
 
-    S = cache.c_kv.shape[1]
-    at = (torch.arange(B, device=x.device),
-          torch.clamp_max(pos, S - 1).long())
-    c_kv = _put(cache.c_kv, at, c_kv_new[:, 0])
-    k_rope = _put(cache.k_rope, at, k_rope_new[:, 0])
+    S_loc = cache.c_kv.shape[1]
+    seq, n, i = mesh_ops.cache_cut(spec.c_kv[1] if spec else None)
+    S, start = S_loc * n, S_loc * i
+    slot, mine = _slot_block(torch.clamp_max(pos, S - 1).long(), S_loc,
+                             start, bool(seq))
+    at = (torch.arange(B, device=x.device), slot)
+    c_kv = _put(cache.c_kv, at, c_kv_new[:, 0], mine)
+    k_rope = _put(cache.k_rope, at, k_rope_new[:, 0], mine)
 
     wkv_b = params["wkv_b"].reshape(m.kv_lora, H, m.d_nope + m.d_v)
     w_uk, w_uv = wkv_b[..., :m.d_nope], wkv_b[..., m.d_nope:]
@@ -461,10 +523,10 @@ def mla_decode(params: dict, x: torch.Tensor, cache: MLACache,
     s = s + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
                          k_rope.float())
     s = s * (m.d_nope + m.d_rope) ** -0.5
-    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    valid = start + torch.arange(S_loc, device=x.device)[None, :] \
+        <= pos[:, None]
     s = torch.where(valid[:, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhs,bsl->bhl", p, c_kv.float())
+    o_lat = _softmax_v(s, c_kv.float(), "bhs,bsl->bhl", seq)
     o = torch.einsum("bhl,lhd->bhd", o_lat, w_uv.float())
     y = o.reshape(B, 1, H * m.d_v).to(x.dtype) @ params["wo"]
     return y, MLACache(c_kv, k_rope, pos + 1)

@@ -25,6 +25,7 @@ from repro_torch import xla_f32
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding import mesh_ops
 
 
 class MambaCache(NamedTuple):
@@ -79,10 +80,13 @@ def _conv_causal(xin: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b.to(xin.dtype))
 
 
-def _ssm_inputs(params: dict, xc: torch.Tensor, cfg: ModelConfig):
-    """Per-token SSM tensors.  xc: (B, L, d_inner) (post-conv)."""
+def _ssm_inputs(params: dict, xc: torch.Tensor, cfg: ModelConfig,
+                proj: torch.Tensor | None = None):
+    """Per-token SSM tensors.  xc: (B, L, d_inner) (post-conv); ``proj``:
+    ``xc @ x_proj`` where the caller computed it."""
     mc, _, dt_rank = _dims(cfg)
-    proj = xc @ params["x_proj"]
+    if proj is None:
+        proj = xc @ params["x_proj"]
     dt_r = proj[..., :dt_rank]
     Bs = proj[..., dt_rank:dt_rank + mc.d_state].float()
     Cs = proj[..., dt_rank + mc.d_state:].float()
@@ -144,20 +148,50 @@ def mamba_init_cache(cfg: ModelConfig, batch: int,
         pos=torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 
+def _channels(params: dict, ch: slice) -> dict:
+    """The leaves a block ``ch`` of the ``d_inner`` channels reads, cut to
+    it: the conv taps and bias, ``dt_proj``'s columns, ``dt_bias``,
+    ``A_log``, ``D`` and ``x_proj``'s rows."""
+    return {**params, "conv_w": params["conv_w"][:, ch],
+            "conv_b": params["conv_b"][ch], "x_proj": params["x_proj"][ch],
+            "dt_proj": params["dt_proj"][:, ch],
+            "dt_bias": params["dt_bias"][ch], "A_log": params["A_log"][ch],
+            "D": params["D"][ch]}
+
+
 def mamba_decode(params: dict, x: torch.Tensor, cache: MambaCache,
-                 cfg: ModelConfig) -> tuple[torch.Tensor, MambaCache]:
-    """One token.  x: (B, 1, d_model)."""
+                 cfg: ModelConfig, spec: MambaCache | None = None
+                 ) -> tuple[torch.Tensor, MambaCache]:
+    """One token.  x: (B, 1, d_model).
+
+    ``spec``: the cache's specs under ``rules.cache_specs`` (one layer's,
+    the stacked axis dropped) on the current mesh.  Where they cut the
+    ``d_inner`` channels over ``model``, ``h`` and ``conv`` are this
+    rank's channels: the convolution and the per-channel recurrence run
+    on them, ``x_proj``'s product (which reads every channel) is this
+    block's partial product in float32 summed over the axes, and ``y``'s
+    channels are gathered before ``out_proj``."""
     xz = x @ params["in_proj"]
     xin, z = torch.chunk(xz, 2, dim=-1)            # (B, 1, d_inner)
+    feat, _, i = mesh_ops.cache_cut(spec.h[1] if spec else None)
+    p, proj = params, None
+    if feat:
+        d_loc = cache.h.shape[1]
+        p = _channels(params, slice(i * d_loc, (i + 1) * d_loc))
+        xin = xin[..., i * d_loc:(i + 1) * d_loc]
 
     window = torch.cat([cache.conv.to(xin.dtype), xin], dim=1)  # (B, K, d)
-    w = params["conv_w"]
+    w = p["conv_w"]
     xc = F.silu((window * w.to(window.dtype)[None]).sum(1)
-                + params["conv_b"].to(window.dtype))[:, None]
-    decay, dBx, Cs = _ssm_inputs(params, xc, cfg)
+                + p["conv_b"].to(window.dtype))[:, None]
+    if feat:
+        proj = mesh_ops.reduce_plain(xc.float() @ p["x_proj"].float(), feat,
+                                     "context").to(xc.dtype)
+    decay, dBx, Cs = _ssm_inputs(p, xc, cfg, proj)
     h = decay[:, 0] * cache.h + dBx[:, 0]
     y = torch.einsum("bds,bs->bd", h, Cs[:, 0])
-    y = y + params["D"] * xc[:, 0].float()
+    y = y + p["D"] * xc[:, 0].float()
+    y = mesh_ops.gather_plain(y, 1, feat, "context")
     y = y[:, None].to(x.dtype) * F.silu(z)
     out = y @ params["out_proj"]
     return out, MambaCache(h=h, conv=window[:, 1:], pos=cache.pos + 1)

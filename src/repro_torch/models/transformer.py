@@ -121,21 +121,28 @@ def block_init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def block_decode(p: Params, x: torch.Tensor, cache: Cache, cfg: ModelConfig,
-                 spec: LayerSpec, window: int = 0
+                 spec: LayerSpec, window: int = 0, cache_spec: Any = None
                  ) -> tuple[torch.Tensor, Cache]:
+    """One layer's decode step; ``cache_spec``: the layer's cache specs
+    (``rules.cache_specs``, the stacked axis dropped) where ``cache`` is
+    this rank's block of them on the current mesh."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == "attn":
         if cfg.attn_kind == "mla":
-            h, cache = attention.mla_decode(p["mixer"], h, cache, cfg)
+            h, cache = attention.mla_decode(p["mixer"], h, cache, cfg,
+                                            spec=cache_spec)
         else:
             h, cache = attention.gqa_decode(p["mixer"], h, cache, cfg,
-                                            window=window)
+                                            window=window, spec=cache_spec)
     elif spec.mixer == "mamba":
-        h, cache = mamba.mamba_decode(p["mixer"], h, cache, cfg)
+        h, cache = mamba.mamba_decode(p["mixer"], h, cache, cfg,
+                                      spec=cache_spec)
     elif spec.mixer == "mlstm":
-        h, cache = xlstm.mlstm_decode(p["mixer"], h, cache, cfg)
+        h, cache = xlstm.mlstm_decode(p["mixer"], h, cache, cfg,
+                                      spec=cache_spec)
     elif spec.mixer == "slstm":
-        h, cache = xlstm.slstm_decode(p["mixer"], h, cache, cfg)
+        h, cache = xlstm.slstm_decode(p["mixer"], h, cache, cfg,
+                                      spec=cache_spec)
     x = x + h
     if spec.ffn == "dense":
         x = x + layers.mlp_apply(p["ffn"], rmsnorm(x, p["norm2"],
@@ -497,11 +504,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                caches: list, window: int = 0
+                caches: list, window: int = 0, cache_specs: Any = None
                 ) -> tuple[torch.Tensor, list]:
     """token: (B, 1) int → (logits (B, 1, V), updated caches).  On a mesh
-    each layer's leaves are gathered before it runs, the caches are this
-    rank's batch block and the logits its vocab columns."""
+    each layer's leaves are gathered before it runs and the logits are
+    this rank's vocab columns, and the caches are this rank's block of
+    ``cache_specs`` (``rules.cache_specs`` of the whole caches): the
+    batch over the FSDP axes, and the sequence, or the recurrent
+    features, over ``model`` where they cut them (context-parallel
+    decode)."""
     x = _embed(params, token, cfg)
     kept = _kept_on_model(cfg)
     new_caches = []
@@ -510,12 +521,15 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         lps = [_unstack(lp, repeat) for lp in seg_params]
         lcs = [_unstack(lc, repeat) for lc in seg_cache]
         specs = _layer_specs(cfg, si)
+        cspecs = [None] * len(pattern) if cache_specs is None else [
+            tree.map(lambda sp: sp[1:], c, is_leaf=mesh_ops.is_spec)
+            for c in cache_specs[si]]
         outs: list[list] = [[] for _ in pattern]
         for r in range(repeat):
             for pi, spec in enumerate(pattern):
                 x, cn = _gathered(block_decode, lps[pi][r],
                                   specs[pi] if specs else None, kept, x,
-                                  lcs[pi][r], cfg, spec, window)
+                                  lcs[pi][r], cfg, spec, window, cspecs[pi])
                 outs[pi].append(cn)
         new_caches.append(tuple(_restack(o) for o in outs))
     return _logits(params, x, cfg), new_caches

@@ -19,6 +19,7 @@ import os
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -28,6 +29,7 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init
 from repro_torch.models.mamba import _conv_causal
+from repro_torch.sharding import mesh_ops
 
 
 # ---------------------------------------------------------------------------
@@ -105,20 +107,35 @@ def _mlstm_qkvg(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v, i_t, f_t, xg, xu
 
 
-def _mlstm_step(state, qkvif):
-    """Stabilized mLSTM recurrence for one step (all heads)."""
+def _block(cut: tuple, n: int) -> slice:
+    """This rank's block of ``n`` along a ``dh`` axis cut as
+    :func:`repro_torch.sharding.mesh_ops.cache_cut` says (``cut``), of
+    ``n`` elements held; the whole axis where it is not cut."""
+    axes, _, i = cut
+    return slice(i * n, (i + 1) * n) if axes else slice(None)
+
+
+def _mlstm_step(state, qkvif, cut: tuple = ((), 1, 0)):
+    """Stabilized mLSTM recurrence for one step (all heads).  ``cut``
+    (:func:`repro_torch.sharding.mesh_ops.cache_cut`): where it cuts
+    ``dh``, ``C`` holds this rank's block of its ``v`` axis and ``n`` of
+    its ``k`` axis; ``n·q`` is summed over the axes and ``h``'s block
+    gathered."""
     C, n, m = state
     q, k, v, i_t, f_t = qkvif                        # (B,H,dh)·3, (B,H)·2
+    blk = _block(cut, n.shape[-1])
     m_new = torch.maximum(f_t + m, i_t)
     ip = torch.exp(i_t - m_new)[..., None]           # (B,H,1)
     fp = torch.exp(f_t + m - m_new)[..., None]
     C = fp[..., None] * C + ip[..., None] * torch.einsum("bhd,bhe->bhde",
-                                                         v, k)
-    n = fp * n + ip * k
+                                                         v[..., blk], k)
+    n = fp * n + ip * k[..., blk]
     num = torch.einsum("bhde,bhe->bhd", C, q.float())
-    den = torch.abs(torch.einsum("bhd,bhd->bh", n, q.float()))
+    den = torch.abs(mesh_ops.reduce_plain(
+        torch.einsum("bhd,bhd->bh", n, q[..., blk].float()), cut[0],
+        "context"))
     h = num / torch.maximum(den, torch.exp(-m_new))[..., None]
-    return (C, n, m_new), h
+    return (C, n, m_new), mesh_ops.gather_plain(h, 2, cut[0], "context")
 
 
 def _mlstm_chunkwise(q, k, v, i_t, f_t, chunk: int):
@@ -240,18 +257,32 @@ def mlstm_init_cache(cfg: ModelConfig, batch: int,
 
 
 def mlstm_decode(params: dict, x: torch.Tensor, cache: MLSTMCache,
-                 cfg: ModelConfig) -> tuple[torch.Tensor, MLSTMCache]:
+                 cfg: ModelConfig, spec: MLSTMCache | None = None
+                 ) -> tuple[torch.Tensor, MLSTMCache]:
+    """One token.  ``spec``: the cache's specs under
+    ``rules.cache_specs`` (one layer's, the stacked axis dropped) on the
+    current mesh.  Where they cut ``dh``, ``C`` and ``n`` are this rank's
+    block (:func:`_mlstm_step`), ``m`` whole; where they cut the conv
+    tail's ``d_inner``, the tail is gathered for the step and this
+    rank's channels kept."""
     B = x.shape[0]
     d_inner, dh = _mdims(cfg)
     H = cfg.n_heads
-    q, k, v, i_t, f_t, xg, xu_now = _mlstm_qkvg(params, x, cfg, cache.conv)
+    cut = mesh_ops.cache_cut(spec.C[2] if spec else None)
+    feat, _, i = mesh_ops.cache_cut(spec.conv[2] if spec else None)
+    tail = mesh_ops.gather_plain(cache.conv, 2, feat, "context")
+    q, k, v, i_t, f_t, xg, xu_now = _mlstm_qkvg(params, x, cfg, tail)
     state = (cache.C, cache.n, cache.m)
     state, h = _mlstm_step(state, (q[:, 0].float(), k[:, 0].float(),
-                                   v[:, 0].float(), i_t[:, 0], f_t[:, 0]))
+                                   v[:, 0].float(), i_t[:, 0], f_t[:, 0]),
+                           cut)
     h = h.reshape(B, 1, H * dh)
     h = rmsnorm(h.to(x.dtype), params["h_norm"], cfg.norm_eps)
     y = (h * F.silu(xg)) @ params["out_proj"]
-    conv = torch.cat([cache.conv.to(xu_now.dtype), xu_now], dim=1)[:, 1:]
+    conv = torch.cat([tail.to(xu_now.dtype), xu_now], dim=1)[:, 1:]
+    if feat:
+        d_loc = cache.conv.shape[2]
+        conv = conv[..., i * d_loc:(i + 1) * d_loc].contiguous()
     return y, MLSTMCache(C=state[0], n=state[1], m=state[2], conv=conv,
                          pos=cache.pos + 1)
 
@@ -288,25 +319,35 @@ def slstm_init(key: torch.Tensor, cfg: ModelConfig) -> dict:
     }
 
 
-def _slstm_step(params: dict, cfg: ModelConfig, state, wx_t):
-    """wx_t: (B, 4d) precomputed input pre-activations for one step."""
+def _slstm_step(params: dict, cfg: ModelConfig, state, wx_t,
+                cut: tuple = ((), 1, 0)):
+    """wx_t: (B, 4d) precomputed input pre-activations for one step;
+    ``h`` whole.  ``cut`` (:func:`repro_torch.sharding.mesh_ops.cache_cut`):
+    where it cuts ``dh``, ``c`` and ``n`` are this rank's block, the
+    gates are computed on it, the new ``h``'s blocks gathered and the
+    stabilizer's max taken over the axes."""
     c, n, h, m = state
     B = c.shape[0]
     H = cfg.n_heads
     dh = cfg.d_model // H
+    blk = _block(cut, c.shape[-1])
     hh = h.reshape(B, H, dh)
     rec = torch.einsum("ghde,bhd->gbhe", params["r"].float(), hh)
     pre = wx_t.float().reshape(B, 4, H, dh).transpose(0, 1) \
         + params["b"].reshape(4, 1, H, dh) + rec
-    i_t, f_t, z_t, o_t = pre[0], pre[1], pre[2], pre[3]
+    i_t, f_t, z_t, o_t = (pre[g][..., blk] for g in range(4))
     f_log = F.logsigmoid(f_t)
     m_new = torch.maximum(f_log + m[..., None], i_t)
     ip = torch.exp(i_t - m_new)
     fp = torch.exp(f_log + m[..., None] - m_new)
     c = fp * c + ip * torch.tanh(z_t)
     n = fp * n + ip
-    h_new = torch.sigmoid(o_t) * c / torch.clamp_min(n, 1e-6)
-    return (c, n, h_new.reshape(B, -1), m_new.amax(-1))
+    h_new = mesh_ops.gather_plain(
+        torch.sigmoid(o_t) * c / torch.clamp_min(n, 1e-6), 2, cut[0],
+        "context")
+    m_new = mesh_ops.reduce_plain(m_new.amax(-1), cut[0], "context",
+                                  dist.ReduceOp.MAX)
+    return (c, n, h_new.reshape(B, -1), m_new)
 
 
 def _slstm_scan_chunk(params, cfg, state, wxk):
@@ -359,9 +400,21 @@ def slstm_init_cache(cfg: ModelConfig, batch: int,
 
 
 def slstm_decode(params: dict, x: torch.Tensor, cache: SLSTMCache,
-                 cfg: ModelConfig) -> tuple[torch.Tensor, SLSTMCache]:
+                 cfg: ModelConfig, spec: SLSTMCache | None = None
+                 ) -> tuple[torch.Tensor, SLSTMCache]:
+    """One token.  ``spec`` as :func:`mlstm_decode`'s: where it cuts
+    ``dh``, ``c`` and ``n`` are this rank's block (:func:`_slstm_step`);
+    where it cuts ``h``'s ``d_model``, ``h`` is this rank's block, which
+    the recurrent product gathers whole (it needs each head's whole
+    ``h``)."""
     wx = (x @ params["wx"])[:, 0]
-    state = (cache.c, cache.n, cache.h, cache.m)
-    c, n, h, m = _slstm_step(params, cfg, state, wx)
+    hcut, _, i = mesh_ops.cache_cut(spec.h[1] if spec else None)
+    h = mesh_ops.gather_plain(cache.h, 1, hcut, "context")
+    state = (cache.c, cache.n, h, cache.m)
+    c, n, h, m = _slstm_step(params, cfg, state, wx, mesh_ops.cache_cut(
+        spec.c[2] if spec else None))
     y = _glu_out(params, h[:, None], x.dtype, cfg)
+    if hcut:
+        d_loc = cache.h.shape[1]
+        h = h[:, i * d_loc:(i + 1) * d_loc].contiguous()
     return y, SLSTMCache(c=c, n=n, h=h, m=m, pos=cache.pos + 1)

@@ -170,6 +170,28 @@ def cut(mesh: Any, t: torch.Tensor, dims) -> torch.Tensor:
     return t
 
 
+def _assemble(mesh: Any, blocks: torch.Tensor, shape, union: tuple,
+              mine: dict, todo: tuple, fixed: dict) -> torch.Tensor:
+    """One leaf from ``blocks`` (its block from every rank of ``union``,
+    a row each in their row-major order): the blocks concatenated along
+    the ``todo`` (dim, axes) pairs, along the other axes this rank's own
+    coordinates ``mine`` (a module-level function: a recursive closure
+    would be a reference cycle holding the gathered buffer until the
+    garbage collector runs)."""
+    if not todo:
+        k = int(np.ravel_multi_index(
+            [fixed.get(a, mine[a]) for a in union],
+            [mesh.shape[a] for a in union]))
+        return blocks[k].view(shape)
+    (dim, axes), rest = todo[0], todo[1:]
+    parts = []
+    for b in range(math.prod(mesh.shape[a] for a in axes)):
+        c = np.unravel_index(b, [mesh.shape[a] for a in axes])
+        parts.append(_assemble(mesh, blocks, shape, union, mine, rest,
+                               {**fixed, **dict(zip(axes, map(int, c)))}))
+    return torch.cat(parts, dim=dim)
+
+
 def _gather_leaves(mesh: Any, shards: list, plans: tuple,
                    label: str) -> list:
     """Each block in ``shards`` gathered along its plan's (dim, axes)
@@ -187,30 +209,14 @@ def _gather_leaves(mesh: Any, shards: list, plans: tuple,
     for idx in groups.values():
         union = tuple(a for a in mesh.axis_names
                       if any(a in axes for i in idx for _, axes in plans[i]))
-        sizes = [mesh.shape[a] for a in union]
         flat = torch.cat([shards[i].reshape(-1) for i in idx])
         every = gather_dim(mesh, flat[None], 0, union, label)
         off = 0
         for i in idx:
-            n, shape = shards[i].numel(), shards[i].shape
-            blocks = every[:, off:off + n]
+            n = shards[i].numel()
+            out[i] = _assemble(mesh, every[:, off:off + n], shards[i].shape,
+                               union, mine, plans[i], {})
             off += n
-
-            def assemble(fixed: dict, todo: tuple, blocks=blocks,
-                         shape=shape):
-                if not todo:
-                    k = int(np.ravel_multi_index(
-                        [fixed.get(a, mine[a]) for a in union], sizes))
-                    return blocks[k].view(shape)
-                (dim, axes), rest = todo[0], todo[1:]
-                parts = []
-                for b in range(math.prod(mesh.shape[a] for a in axes)):
-                    c = np.unravel_index(b, [mesh.shape[a] for a in axes])
-                    parts.append(assemble(
-                        {**fixed, **dict(zip(axes, map(int, c)))}, rest))
-                return torch.cat(parts, dim=dim)
-
-            out[i] = assemble({}, plans[i])
     return out
 
 
@@ -403,6 +409,44 @@ def gather_tree(t: Any, specs: Any, mesh: Any,
             x = gather_dim(mesh, x, dim, axes, label)
         return x if dims else x.clone()
     return tree.map(one, t, specs)
+
+
+# ---------------------------------------------------------------------------
+# Decode caches cut over ``model``
+# ---------------------------------------------------------------------------
+
+def cache_cut(entry: Any) -> tuple[tuple[str, ...], int, int]:
+    """How the current mesh cuts one dimension of a decode cache whose
+    spec entry under ``rules.cache_specs`` is ``entry``: (the axes of
+    size > 1, the number of blocks, this rank's block).  ``((), 1, 0)``
+    without a mesh or where the entry cuts nothing: the one-process
+    code."""
+    mesh = current_mesh()
+    if mesh is None or entry is None or not mesh.axes(entry):
+        return (), 1, 0
+    axes = mesh.axes(entry)
+    return (axes, *mesh.block(axes))
+
+
+def context_softmax(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                    axes: tuple[str, ...]) -> torch.Tensor:
+    """A softmax-weighted sum over a sequence cut over ``axes``, from each
+    rank's part over its slots: ``m`` the max of its scores, ``l`` the sum
+    of ``exp(s − m)``, ``o`` the unnormalized ``Σ exp(s − m)·v`` (one more
+    trailing dimension).  One ``all_reduce`` MAX of the maxima, then one
+    ``all_reduce`` SUM of ``l`` and ``o`` rescaled by ``exp(m − max)``,
+    packed into one buffer, both metered as ``"context"``; returns
+    ``o / l`` whole.  A block whose slots are all masked has ``m`` at the
+    mask value, and its rescale ``exp(m − max)`` is 0: its ``S_loc``
+    ones in ``l`` drop out."""
+    mesh = current_mesh()
+    g = all_reduce(mesh, m, axes, "context", dist.ReduceOp.MAX)
+    r = torch.exp(m - g)
+    lr, orr = l * r, o * r[..., None]
+    buf = all_reduce(mesh, torch.cat([lr.reshape(-1), orr.reshape(-1)]),
+                     axes, "context")
+    l, o = buf[:lr.numel()].view_as(lr), buf[lr.numel():].view_as(orr)
+    return o / l[..., None]
 
 
 # ---------------------------------------------------------------------------

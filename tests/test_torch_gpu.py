@@ -1087,13 +1087,16 @@ def test_gpu_train_cli_save_restore(cuda, tmp_path):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["yi_6b", "deepseek_v3_671b",
-                                  "jamba_1_5_large_398b"])
+                                  "jamba_1_5_large_398b", "xlstm_350m"])
 def test_model_mesh_on_the_card(cuda, arch):
     """The model mesh on 4 ``gloo`` ranks sharing the card (data 2, model
     2), ``REPRO_SHARDED_CE`` / ``REPRO_SHARD_MOE`` on: one train step,
-    the prefill logits and 4 greedy tokens against the one-process port
-    on the CPU, float32 parameters, within 1e-4 relative (the card's and
-    the CPU's products sum in other orders); the tokens equal."""
+    the prefill logits, and 4 greedy tokens decoded on caches held as
+    their ``rules.cache_specs`` blocks (each rank's bytes the dry run's)
+    with every decode step's logits, against the one-process port on the
+    CPU on whole caches, float32 parameters, within 1e-4 relative (the
+    card's and the CPU's products sum in other orders); the tokens
+    equal."""
     import dataclasses
     from repro_torch import tree
     from repro_torch.configs import registry as archs
@@ -1106,6 +1109,10 @@ def test_model_mesh_on_the_card(cuda, arch):
     if arch == "deepseek_v3_671b":
         cfg = dataclasses.replace(cfg, segments=((1, (
             mcfg.LayerSpec("attn", "dense"), mcfg.LayerSpec("attn", "moe"))),))
+    if arch == "xlstm_350m":
+        cfg = dataclasses.replace(cfg, segments=((1, (
+            mcfg.LayerSpec("mlstm", "none"),
+            mcfg.LayerSpec("slstm", "none"))),))
     params = tree.map(lambda a: a.float(), transformer.init(
         tr.PRNGKey(0, "cpu"), cfg))
     toks = tr.randint(tr.PRNGKey(1, "cpu"), (4, 8), 0, cfg.vocab).int()
@@ -1120,15 +1127,20 @@ def test_model_mesh_on_the_card(cuda, arch):
     got, = mesh_lib.spawn(model_mesh.run_steps, 4, [job], device="cuda",
                           shared_device=True)
     assert {r["device"] for r in got["ranks"]} == {"cuda:0"}
+    for r in got["ranks"]:
+        assert r["cache_bytes"]["held"] == r["cache_bytes"]["dryrun"]
+        assert r["meter"]["decode"]["bytes"]["context"] > 0
     with model_mesh._environ(env):
         pre = steps.make_prefill_step(cfg)(params, {"tokens": toks})
         caches = tree.map(lambda a: a.float() if a.is_floating_point()
                           else a, transformer.init_cache(cfg, 4, 6,
                                                          device="cpu"))
-        fed, tokens = toks[:, :1], []
+        fed, tokens, logits = toks[:, :1], [], []
         for t in range(6):
             with torch.no_grad():
-                _, nxt, caches = steps.serve_logits(cfg, params, fed, caches)
+                lg, nxt, caches = steps.serve_logits(cfg, params, fed,
+                                                     caches)
+            logits.append(lg[:, 0])
             fed = toks[:, t + 1:t + 2] if t + 1 < 2 else nxt
             if t + 1 >= 2:
                 tokens.append(nxt)
@@ -1142,6 +1154,7 @@ def test_model_mesh_on_the_card(cuda, arch):
         return float((a - b).abs()[keep].max() / b.abs()[keep].max())
 
     assert rel(got["prefill"], pre) <= 1e-4
+    assert rel(got["decode_logits"], torch.stack(logits, 1)) <= 1e-4
     assert torch.equal(got["tokens"].cpu().long(), torch.cat(tokens, 1).long())
     assert abs(got["metrics"][0]["loss"] - float(m["loss"])) \
         <= 1e-4 * float(m["loss"])

@@ -1,21 +1,31 @@
 """The model scaffold on a ``torch.distributed`` mesh
 (``repro_torch.launch.model_mesh``): parameters held as their rules'
-shards, vocab-parallel logits and cross entropy, expert-parallel MoE.
+shards, vocab-parallel logits and cross entropy, expert-parallel MoE,
+decode caches held as their ``rules.cache_specs`` blocks
+(context-parallel decode).
 
 One 4-rank ``gloo`` world on the CPU runs every job
 (``model_mesh.run_steps``): the reduced yi-6b (dense), granite-moe
 (``"tp"``), deepseek-v3 (``"ep"``, MLA, a shared expert; one dense and
-one MoE layer) and jamba (``"ep"``, Mamba), with float32 parameters, on
-a (data 2, model 2) grid, ``REPRO_SHARDED_CE`` / ``REPRO_SHARD_MOE`` off
-and on, with the MoE dispatcher the model's layers call
-(``"capacity"``); a tied-embedding yi and two (pod 2, data 1, model 2)
-grids (FSDP over a tuple of axes); 1 × 1 grids on rank 0 alone; a
-bfloat16 granite.  The other dispatcher, ``"capacity_global"``, which
-no layer calls, is held by ``moe_apply`` itself on both grids, its
-output and gradients against the one-process call.  The JAX reference
-runs the same train steps on a forced 4-device (2, 2) CPU mesh in a
-subprocess started first, so this module imports no jax (the spawned
-ranks import it).
+one MoE layer), jamba (``"ep"``, Mamba) and xlstm-350m (one mLSTM and
+one sLSTM layer), with float32 parameters, on a (data 2, model 2) grid,
+``REPRO_SHARDED_CE`` / ``REPRO_SHARD_MOE`` off and on, with the MoE
+dispatcher the model's layers call (``"capacity"``); a tied-embedding yi
+and (pod 2, data 1, model 2) grids (FSDP over a tuple of axes); 1 × 1
+grids on rank 0 alone; a bfloat16 granite; decode alone on both grids
+for yi's int8 cache (``REPRO_QUANT_KV=1``), yi's window ring (window 4:
+it wraps across the blocks) and, on the pod grid, jamba and xlstm.
+Every decode runs ``PROMPT + DECODE`` = 6 slots, 3 a block where the
+sequence is cut: the higher block holds no valid slot at first, and
+the run crosses into it; the JAX decode cases' cache blocks are held
+to ``init_cache`` and their first step to one process's.  The other
+dispatcher, ``"capacity_global"``,
+which no layer calls, is held by ``moe_apply`` itself on both grids,
+its output and gradients against the one-process call.  The JAX
+reference runs the same train steps, and ``decode_step`` with its
+caches placed by its ``rules.cache_specs``, under ``jax.jit`` on a
+forced 4-device (2, 2) CPU mesh in two subprocesses started first, so
+this module imports no jax (the spawned ranks import it).
 
 Tolerances: the mesh against one process within 1e-5 relative: the
 loss, each gradient leaf (max |Δ| over max |reference|), the prefill and
@@ -31,10 +41,15 @@ nothing).  Against the JAX reference on its mesh: the first step's loss
 within ``test_torch_models.py``'s float32 loss bound (``loss32``,
 1.9e-6), the second's within ``LOSS32_STEP2``, and the parameters after
 the first by leaf within its gradient bound (``grad32``, 1.9e-5, here on
-the relative norm, for the reason above).  The bfloat16 granite within
-``test_torch_models.py``'s bfloat16 loss and logits bounds.
+the relative norm, for the reason above); the decode logits and the
+gathered caches within its float32 decode bound (``decode32``, 6e-5,
+max |Δ|), int8 codes at most one step apart (as
+``test_torch_models.py`` holds them), the tokens equal.  The bfloat16
+granite within ``test_torch_models.py``'s bfloat16 loss and logits
+bounds.
 """
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -62,7 +77,7 @@ from test_torch_gpu import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("yi_6b", "granite_moe_3b_a800m", "deepseek_v3_671b",
-         "jamba_1_5_large_398b")
+         "jamba_1_5_large_398b", "xlstm_350m")
 B, T, PROMPT, DECODE, STEPS = 4, 8, 2, 4, 2
 GRID = (("data", "model"), (2, 2))
 POD = (("pod", "data", "model"), (2, 1, 2))
@@ -72,6 +87,7 @@ KNOBS = {0: {"REPRO_SHARDED_CE": None, "REPRO_SHARD_MOE": None},
 REL = 1e-5
 MEASURE = os.environ.get("REPRO_MEASURE_TOL") == "1"
 LOSS32, GRAD32 = 1.9e-6, 1.9e-5          # test_torch_models.TOL
+DECODE32 = 6e-5                          # test_torch_models.TOL
 # measured, bounds at 4x: jamba's conv_b after 2 steps (1.47e-5, Adam's
 # normalized step on gradients at the noise, see above); the JAX
 # reference's second step loss, at parameters one Adam step has moved
@@ -82,11 +98,16 @@ BF16 = {"logits": 0.6, "loss": 0.022}    # test_torch_models.TOL
 
 def _cfg(arch: str, tied: bool = False) -> mcfg.ModelConfig:
     """The reduced config; deepseek-v3 keeps its first dense and its first
-    MoE layer (its first three are dense)."""
+    MoE layer (its first three are dense), xlstm-350m an mLSTM and its
+    sLSTM layer (its first two are mLSTM)."""
     cfg = mcfg.reduced(registry.get(arch))
     if arch == "deepseek_v3_671b":
         cfg = dataclasses.replace(cfg, segments=((1, (
             mcfg.LayerSpec("attn", "dense"), mcfg.LayerSpec("attn", "moe"))),))
+    if arch == "xlstm_350m":
+        cfg = dataclasses.replace(cfg, segments=((1, (
+            mcfg.LayerSpec("mlstm", "none"),
+            mcfg.LayerSpec("slstm", "none"))),))
     return dataclasses.replace(cfg, tie_embeddings=True) if tied else cfg
 
 
@@ -98,6 +119,12 @@ class Case:
     mesh: tuple = GRID
     f32: bool = True
     tied: bool = False
+    decode_only: bool = False
+    quant: bool = False          # REPRO_QUANT_KV=1: the int8 KV cache
+    window: int = 0
+
+
+INT8 = {"REPRO_QUANT_KV": "1"}
 
 
 def _cases() -> list[Case]:
@@ -111,7 +138,20 @@ def _cases() -> list[Case]:
             Case("yi_6b-1x1", "yi_6b", 1, mesh=ONE),
             Case("deepseek-1x1", "deepseek_v3_671b", 1, mesh=ONE),
             Case("granite-bf16", "granite_moe_3b_a800m", 0, f32=False)]
+    for grid, suffix in ((GRID, ""), (POD, "-pod")):
+        out += [Case(f"yi_6b-int8{suffix}", "yi_6b", mesh=grid,
+                     decode_only=True, quant=True),
+                Case(f"yi_6b-window{suffix}", "yi_6b", mesh=grid,
+                     decode_only=True, window=4)]
+    out += [Case("jamba-pod", "jamba_1_5_large_398b", 1, mesh=POD,
+                 decode_only=True),
+            Case("xlstm-pod", "xlstm_350m", 1, mesh=POD, decode_only=True)]
     return out
+
+
+def _env(case: Case) -> dict:
+    return {**KNOBS[case.knobs], "REPRO_QUANT_KV": "1" if case.quant
+            else None}
 
 
 CASES = _cases()
@@ -138,14 +178,15 @@ def _inputs(case: Case):
 
 def _job(case: Case) -> dict:
     cfg, params, toks, labels = _inputs(case)
-    return dict(mesh=case.mesh, cfg=cfg, params=params,
-                dtype=torch.float32 if case.f32 else None,
-                env=KNOBS[case.knobs],
-                grads={"tokens": toks, "labels": labels},
-                prefill=toks,
-                decode={"prompt": toks[:, :PROMPT], "steps": DECODE},
-                train={"tokens": toks, "labels": labels, "steps": STEPS},
-                gather_params=True)
+    job = dict(mesh=case.mesh, cfg=cfg, params=params,
+               dtype=torch.float32 if case.f32 else None, env=_env(case),
+               decode={"prompt": toks[:, :PROMPT], "steps": DECODE,
+                       "window": case.window, "gather_caches": True})
+    if not case.decode_only:
+        job.update(grads={"tokens": toks, "labels": labels}, prefill=toks,
+                   train={"tokens": toks, "labels": labels, "steps": STEPS},
+                   gather_params=True)
+    return job
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +239,7 @@ def _grad_checks(mesh) -> dict:
     return out
 
 
-MOE_ARCHS = ARCHS[1:]
+MOE_ARCHS = ARCHS[1:4]
 BANKS = ("gate", "up", "down")
 
 
@@ -253,12 +294,79 @@ def _global_dispatch(mesh) -> dict:
     return out
 
 
+def _cyclic_garbage(mesh) -> dict:
+    """The objects only a reference cycle keeps alive after a layer's
+    leaves are gathered and dropped (with and without a gradient) and
+    after decode steps of the reduced yi-6b on caches cut over
+    ``model``, counted by the garbage collector (off meanwhile): a
+    cycle holding a gathered buffer keeps it on the device until the
+    collector happens to run."""
+    out = {}
+    w = torch.randn(8, 8, generator=torch.Generator().manual_seed(1))
+    specs = {"w": ("data", "model"), "b": ("model",)}
+    shards = mesh_ops.cut_tree({"w": w, "b": w[0]}, specs, mesh)
+    cfg = _cfg("yi_6b")
+    params = model_mesh.shard_params(
+        transformer.init(tr.PRNGKey(0, "cpu"), cfg), mesh)
+    caches, cspecs = steps.cache_blocks(cfg, mesh, B, PROMPT + DECODE)
+    tok = torch.zeros(B, 1, dtype=torch.int32)
+    for grad in (False, True):
+        with mesh_ops.use_mesh(mesh), torch.set_grad_enabled(grad):
+            gc.collect()
+            gc.disable()
+            try:
+                for _ in range(3):
+                    mesh_ops.gathered(shards, specs, lambda p, leaf: False)
+                out[f"gather grad={grad}"] = gc.collect()
+            finally:
+                gc.enable()
+    step = steps.make_serve_step(cfg, mesh=mesh, cache_specs=cspecs)
+    gc.collect()
+    gc.disable()
+    try:
+        for _ in range(3):
+            _, caches = step(params, tok, caches)
+        out["decode"] = gc.collect()
+    finally:
+        gc.enable()
+    return out
+
+
+def _first_step(mesh) -> dict:
+    """For each case of ``JAX_DECODE`` on the (2, 2) grid: this rank's
+    cache blocks as ``steps.cache_blocks`` makes them, gathered whole
+    before any step, and, after one decode step of the prompt's first
+    token in float32, the caches gathered whole and the logits."""
+    out = {}
+    for name in JAX_DECODE:
+        case = BY_NAME[name]
+        cfg, params, toks, _ = _inputs(case)
+        with model_mesh._environ(_env(case)), torch.no_grad():
+            caches, specs = steps.cache_blocks(cfg, mesh, B, PROMPT + DECODE,
+                                               case.window)
+            init = mesh_ops.gather_tree(caches, specs, mesh, "result")
+            lg, _, caches = steps.serve_logits(
+                cfg, model_mesh.shard_params(params, mesh,
+                                             cfg.moe.sharding if cfg.moe
+                                             else "ep"),
+                toks[:, :1], _f32(caches), case.window, mesh, specs)
+            out[name] = dict(
+                init=init,
+                caches=mesh_ops.gather_tree(caches, specs, mesh, "result"),
+                logits=model_mesh._whole_logits(mesh, cfg, lg[:, 0], B))
+    return out
+
+
 def _rank(world, jobs):
     """Rank worker: every job, then the gradient checks on a (2, 2)
-    grid and the global-capacity dispatch on it and on the pod grid."""
+    grid, the first decode step of the JAX decode cases on it, the
+    cyclic garbage of a gather and a decode step on it, and the
+    global-capacity dispatch on it and on the pod grid."""
     results = model_mesh.run_steps(world, jobs)
     grid = model_mesh.make_model_mesh(*GRID, world.device)
     checks = _grad_checks(grid)
+    checks["first"] = _first_step(grid)
+    checks["cycles"] = _cyclic_garbage(grid)
     checks["global"] = {"grid": _global_dispatch(grid)}
     pod = model_mesh.make_model_mesh(*POD, world.device)
     checks["global"]["pod"] = _global_dispatch(pod)
@@ -281,28 +389,60 @@ from repro.models import transformer
 from repro.optim import adamw
 from repro.sharding import compat, rules
 
-B, T, STEPS = {B}, {T}, {STEPS}
+B, T, STEPS, PROMPT, DECODE = {B}, {T}, {STEPS}, {PROMPT}, {DECODE}
 mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
 out, meta = {{}}, {{}}
-for arch in sys.argv[2:]:
+work = json.loads(sys.argv[2])
+
+
+def config(arch):
     cfg = mcfg.reduced(registry.get(arch))
     if arch == "deepseek_v3_671b":
         cfg = dataclasses.replace(cfg, segments=((1, (
             mcfg.LayerSpec("attn", "dense"), mcfg.LayerSpec("attn", "moe"))),))
+    if arch == "xlstm_350m":
+        cfg = dataclasses.replace(cfg, segments=((1, (
+            mcfg.LayerSpec("mlstm", "none"),
+            mcfg.LayerSpec("slstm", "none"))),))
+    return cfg
+
+
+def f32(tree):
+    return jax.tree.map(lambda a: a.astype(jnp.float32)
+                        if jnp.issubdtype(a.dtype, jnp.floating) else a, tree)
+
+
+def key(path):
+    return "/".join(f".{{q.name}}" if hasattr(q, "name")
+                    else str(getattr(q, "key", getattr(q, "idx", q)))
+                    for q in path)
+
+
+def knobs_env(knobs, quant=0):
+    for k in ("REPRO_SHARDED_CE", "REPRO_SHARD_MOE", "REPRO_QUANT_KV"):
+        os.environ.pop(k, None)
+    for k in ("REPRO_SHARDED_CE", "REPRO_SHARD_MOE")[:2 * knobs]:
+        os.environ[k] = "1"
+    if quant:
+        os.environ["REPRO_QUANT_KV"] = "1"
+
+
+def placed_params(cfg):
+    p = f32(transformer.init(jax.random.PRNGKey(0), cfg))
+    return jax.device_put(p, rules.shardings(
+        p, mesh, cfg.moe.sharding if cfg.moe else "ep"))
+
+
+for arch in work["train"]:
+    cfg = config(arch)
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (B, T))
     toks = toks.astype(np.int32)
     bs = NamedSharding(mesh, P(*rules.batch_spec(mesh, B)))
     batch = {{"tokens": jax.device_put(toks, bs),
               "labels": jax.device_put(np.roll(toks, -1, 1), bs)}}
     for knobs in (0, 1):
-        for k in ("REPRO_SHARDED_CE", "REPRO_SHARD_MOE"):
-            os.environ.pop(k, None)
-            if knobs:
-                os.environ[k] = "1"
-        p = jax.tree.map(lambda a: a.astype(jnp.float32), transformer.init(
-            jax.random.PRNGKey(0), cfg))
-        p = jax.device_put(p, rules.shardings(
-            p, mesh, cfg.moe.sharding if cfg.moe else "ep"))
+        knobs_env(knobs)
+        p = placed_params(cfg)
         opt = adamw.init(p)
         losses, first = [], None
         with compat.set_mesh(mesh):
@@ -313,30 +453,69 @@ for arch in sys.argv[2:]:
                 first = p if first is None else first
         meta[f"{{arch}}-{{knobs}}"] = losses
         for path, x in jax.tree_util.tree_flatten_with_path(first)[0]:
-            key = "/".join(str(getattr(q, "key", getattr(q, "idx", q)))
-                           for q in path)
-            out[f"{{arch}}-{{knobs}}|{{key}}"] = np.asarray(x)
+            out[f"{{arch}}-{{knobs}}|{{key(path)}}"] = np.asarray(x)
+
+# decode_step on caches placed by cache_specs: the prompt fed a token a
+# step, then greedy steps
+for name, arch, knobs, quant, window in work["decode"]:
+    knobs_env(knobs, quant)
+    cfg = config(arch)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (B, T))
+    toks = toks.astype(np.int32)
+    p = placed_params(cfg)
+    c = f32(transformer.init_cache(cfg, B, PROMPT + DECODE, window))
+    c = jax.tree.map(lambda a, sp: jax.device_put(a, NamedSharding(mesh, sp)),
+                     c, rules.cache_specs(c, mesh))
+    meta[f"dec|{{name}}"] = [x.sharding.shard_shape(x.shape)
+                             for x in jax.tree.leaves(c)]
+    bs = NamedSharding(mesh, P(*rules.batch_spec(mesh, B)))
+    fed, logits, tokens = toks[:, :1], [], []
+    with compat.set_mesh(mesh):
+        step = jax.jit(lambda p, t, c: transformer.decode_step(
+            p, cfg, t, c, window=window))
+        for t in range(PROMPT + DECODE):
+            lg, c = step(p, jax.device_put(fed, bs), c)
+            logits.append(np.asarray(lg[:, 0]))
+            if t + 1 < PROMPT:
+                fed = toks[:, t + 1:t + 2]
+            else:
+                fed = np.asarray(jnp.argmax(lg, -1).astype(jnp.int32))
+                tokens.append(fed)
+    out[f"dec|{{name}}|logits"] = np.stack(logits, 1)
+    out[f"dec|{{name}}|tokens"] = np.concatenate(tokens, 1)
+    for path, x in jax.tree_util.tree_flatten_with_path(c)[0]:
+        out[f"dec|{{name}}|cache|{{key(path)}}"] = np.asarray(x)
 np.savez(sys.argv[1], **out)
 print("JAX_META " + json.dumps(meta))
 """
 
+# the decode cases held against the reference on its (2, 2) mesh
+JAX_DECODE = ("yi_6b-0", "yi_6b-int8", "yi_6b-window",
+              "deepseek_v3_671b-0", "jamba_1_5_large_398b-0", "xlstm_350m-0")
+
 
 @pytest.fixture(scope="module")
 def jax_side(tmp_path_factory):
-    """The reference's train steps on its own (2, 2) mesh, in a subprocess
-    started first so it runs beside the torch world."""
+    """The reference's train steps and decode on its own (2, 2) mesh, in
+    two subprocesses started first so they run beside the torch
+    world."""
     d = tmp_path_factory.mktemp("jax_mesh")
-    code = JAX_CODE.format(B=B, T=T, STEPS=STEPS)
+    code = JAX_CODE.format(B=B, T=T, STEPS=STEPS, PROMPT=PROMPT,
+                           DECODE=DECODE)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=str(ROOT / "src"), TMPDIR=str(d))
-    for k in KNOBS[1]:
+    for k in _env(Case("", "", 1, quant=True)):
         env.pop(k, None)
-    # two processes of two architectures each: the compiles dominate
+    decode = [[n, BY_NAME[n].arch, BY_NAME[n].knobs, int(BY_NAME[n].quant),
+               BY_NAME[n].window] for n in JAX_DECODE]
+    # two processes: the compiles dominate
+    work = ({"train": ARCHS[0::2], "decode": []},
+            {"train": ARCHS[1::2], "decode": decode})
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(d / f"out{i}.npz"), *archs],
+        [sys.executable, "-c", code, str(d / f"out{i}.npz"), json.dumps(w)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for i, archs in enumerate((ARCHS[0::2], ARCHS[1::2]))]
+        for i, w in enumerate(work)]
 
     def result():
         out, meta = {}, {}
@@ -387,20 +566,16 @@ def _one_process(name: str) -> dict:
     case = BY_NAME[name]
     cfg, params, toks, labels = _inputs(case)
     out = {}
-    with model_mesh._environ(KNOBS[case.knobs]):
-        loss, _, grads = steps.value_and_grad(
-            lambda p: transformer.lm_loss(p, cfg, toks, labels), params)
-        out["grad_loss"], out["grads"] = float(loss), grads
-        out["prefill"] = steps.make_prefill_step(cfg)(params,
-                                                      {"tokens": toks})
+    with model_mesh._environ(_env(case)):
         caches = transformer.init_cache(cfg, B, PROMPT + DECODE,
-                                        device="cpu")
+                                        case.window, device="cpu")
         if case.f32:
             caches = _f32(caches)
         fed, logits, tokens = toks[:, :1], [], []
         for t in range(PROMPT + DECODE):
             with torch.no_grad():
-                lg, nxt, caches = steps.serve_logits(cfg, params, fed, caches)
+                lg, nxt, caches = steps.serve_logits(cfg, params, fed, caches,
+                                                     case.window)
             logits.append(lg[:, 0])
             if t + 1 < PROMPT:
                 fed = toks[:, t + 1:t + 2]
@@ -409,6 +584,14 @@ def _one_process(name: str) -> dict:
                 tokens.append(nxt)
         out["decode_logits"] = torch.stack(logits, 1)
         out["tokens"] = torch.cat(tokens, 1)
+        out["caches"] = caches
+        if case.decode_only:
+            return out
+        loss, _, grads = steps.value_and_grad(
+            lambda p: transformer.lm_loss(p, cfg, toks, labels), params)
+        out["grad_loss"], out["grads"] = float(loss), grads
+        out["prefill"] = steps.make_prefill_step(cfg)(params,
+                                                      {"tokens": toks})
         p, opt = tree.map(torch.clone, params), adamw.init(params)
         step = steps.make_train_step(cfg)
         out["metrics"], out["params"] = [], []
@@ -434,6 +617,15 @@ def _rel(got, want) -> float:
     return float(d / want.abs()[keep].max().clamp_min(1e-30))
 
 
+def _absdiff(got, want) -> float:
+    """max |got − want| (the finite logits)."""
+    got, want = got.double(), want.double()
+    keep = want > -1e29
+    assert torch.equal(got > -1e29, keep)
+    return float((got - want).abs()[keep].max()) if bool(keep.any()) \
+        else 0.0
+
+
 def _relnorm(got, want) -> float:
     got, want = got.double(), want.double()
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
@@ -449,7 +641,9 @@ def _adam_moves(case: Case) -> float:
     return 2 * adamw.AdamWConfig().lr * STEPS
 
 
-MESH_CASES = [c.name for c in CASES if c.mesh != ONE and c.f32]
+MESH_CASES = [c.name for c in CASES
+              if c.mesh != ONE and c.f32 and not c.decode_only]
+DECODE_CASES = [c.name for c in CASES if c.decode_only]
 
 
 @pytest.mark.parametrize("name", MESH_CASES)
@@ -482,6 +676,90 @@ def test_mesh_equals_one_process(world, name):
     _check(f"{name} decode", _rel(got["decode_logits"],
                                   want["decode_logits"]), REL)
     assert torch.equal(got["tokens"].long(), want["tokens"].long())
+
+
+def _caches_close(what, got, want, bound, measure) -> None:
+    """Two cache trees, leaf by leaf by key: int8 codes at most one step
+    apart, ``pos`` equal, the float leaves within ``bound`` by
+    ``measure``."""
+    assert list(got) == list(want), what
+    for k, w in want.items():
+        g = got[k]
+        assert tuple(g.shape) == tuple(w.shape), (what, k)
+        if k.endswith(".pos"):
+            assert torch.equal(g, w), (what, k)
+        elif w.dtype == torch.int8:
+            assert int((g.int() - w.int()).abs().max()) <= 1, (what, k)
+        else:
+            _check(f"{what} {k}", measure(g, w), bound)
+
+
+@pytest.mark.parametrize("name", DECODE_CASES)
+def test_context_parallel_decode_equals_one_process(world, name):
+    """Decode on caches held as their ``rules.cache_specs`` blocks (the
+    int8 cache and the window ring on both grids; jamba's Mamba and
+    xlstm's mLSTM and sLSTM state on the pod grid): the logits within
+    1e-5 relative of the one-process port's on the whole caches, the
+    greedy tokens equal, and the last caches, gathered whole, within
+    1e-5 relative (int8 codes one step apart)."""
+    got, want = world[0][name], _one_process(name)
+    _check(f"{name} decode", _rel(got["decode_logits"],
+                                  want["decode_logits"]), REL)
+    assert torch.equal(got["tokens"].long(), want["tokens"].long())
+    _caches_close(name, _flat(got["caches"]), _flat(want["caches"]), REL,
+                  _rel)
+
+
+@pytest.mark.parametrize("name", JAX_DECODE)
+def test_cache_blocks_and_first_step_equal_one_process(world, name):
+    """``steps.cache_blocks`` on the (2, 2) grid, gathered whole, is
+    ``transformer.init_cache`` bit for bit, every leaf and dtype (the
+    xLSTM stabilizers ``m`` too: the stacked init is zeros); after one
+    decode step the caches gathered whole, ``m`` included, are within
+    1e-5 relative of the one-process port's (int8 codes one step
+    apart), and so are the logits."""
+    got = world[1]["first"][name]
+    case = BY_NAME[name]
+    cfg, params, toks, _ = _inputs(case)
+    with model_mesh._environ(_env(case)), torch.no_grad():
+        init = transformer.init_cache(cfg, B, PROMPT + DECODE, case.window,
+                                      device="cpu")
+        gi, wi = _flat(got["init"]), _flat(init)
+        assert list(gi) == list(wi)
+        for k, w in wi.items():
+            assert gi[k].dtype == w.dtype and torch.equal(gi[k], w), k
+        lg, _, caches = steps.serve_logits(cfg, params, toks[:, :1],
+                                           _f32(init), case.window)
+    _check(f"{name} first step", _rel(got["logits"], lg[:, 0]), REL)
+    _caches_close(f"{name} first step", _flat(got["caches"]),
+                  _flat(caches), REL, _rel)
+
+
+@pytest.mark.parametrize("name", JAX_DECODE)
+def test_decode_equals_the_jax_reference_on_a_mesh(world, jax_side, name):
+    """The port's context-parallel decode on the (2, 2) grid against the
+    reference's ``jax.jit(decode_step)`` on a forced (2, 2) CPU mesh,
+    its caches placed by its ``rules.cache_specs`` (yi-6b's full, int8
+    and windowed KV cache, deepseek-v3's MLA latents, jamba's Mamba and
+    xlstm-350m's mLSTM and sLSTM state): each rank's block the shard
+    shape of the reference's placed caches; every step's logits and the
+    last caches
+    within ``decode32`` (max |Δ|), int8 codes one step apart; the greedy
+    tokens equal."""
+    jout, meta = jax_side()
+    got = world[0][name]
+    pre = f"dec|{name}|"
+    _check(f"jax {name} decode", _absdiff(
+        got["decode_logits"], torch.from_numpy(jout[pre + "logits"])),
+        DECODE32)
+    assert torch.equal(got["tokens"].long(),
+                       torch.from_numpy(jout[pre + "tokens"]).long())
+    want = {k[len(pre) + 6:]: torch.from_numpy(v) for k, v in jout.items()
+            if k.startswith(pre + "cache|")}
+    _caches_close(f"jax {name}", _flat(got["caches"]), want, DECODE32,
+                  _absdiff)
+    for r in got["ranks"]:
+        assert r["cache_shapes"] == [tuple(x) for x in meta[f"dec|{name}"]]
 
 
 @pytest.mark.parametrize("name", ["yi_6b-1x1", "deepseek-1x1"])
@@ -518,25 +796,30 @@ def test_shard_shapes_and_bytes(world, name):
     """Each rank's blocks have ``steps.abstract_params``' shard shapes on
     the same grid; with bfloat16 parameters the bytes it holds
     (parameters, AdamW state, its batch block) are
-    ``dryrun.argument_bytes``, exactly.  Its decode caches are the dry
-    run's blocks with the sequence not cut over ``model`` (no branch of
-    the model code attends over a cut sequence)."""
+    ``dryrun.argument_bytes``, exactly.  Its decode caches, as the last
+    decode step left them, are the dry run's blocks
+    (``steps.abstract_cache``' shard shapes: the sequence and the
+    recurrent features cut over ``model`` where it divides them), and
+    their bytes the dry run's at the held dtypes."""
     case = BY_NAME[name]
     cfg = _cfg(case.arch, case.tied)
     grid = mesh_lib.MeshShape(*case.mesh)
-    with model_mesh._environ(KNOBS[case.knobs]):
+    with model_mesh._environ(_env(case)):
         want = [a.shard_shape for a in tree.leaves(
             steps.abstract_params(cfg, grid), is_leaf=steps.is_abstract)]
+        cache = [a.shard_shape for a in tree.leaves(steps.abstract_cache(
+            cfg, grid, B, PROMPT + DECODE, case.window),
+            is_leaf=steps.is_abstract)]
     ranks = world[0][name]["ranks"]
     assert len(ranks) == grid.size
     for r in ranks:
         assert r["shard_shapes"] == want
+        assert r["cache_shapes"] == cache
         c = r["cache_bytes"]
-        assert c["held"] == c["dryrun_no_model"]
+        assert c["held"] == c["dryrun"]
         if not case.f32:
             b = r["bytes"]
             assert b["params"] + b["opt"] + b["batch"] == b["dryrun"]
-            assert c["dryrun"] < c["held"]  # the dry run cuts the sequence
 
 
 def test_bf16_shard_bytes_are_the_dry_runs(world):
@@ -549,6 +832,16 @@ def test_bf16_shard_bytes_are_the_dry_runs(world):
     assert {r["bytes"]["dryrun"] for r in ranks} \
         == {ana["memory"]["argument_bytes"]}
     assert all(r["analytic_collectives"]["all-gather"] > 0 for r in ranks)
+
+
+def test_gathered_leaves_and_decode_leave_no_reference_cycle(world):
+    """A layer's leaves gathered on use and dropped, and decode steps on
+    cut caches, leave nothing that only the garbage collector frees: a
+    reference cycle holding a gathered buffer would keep every layer's
+    gathered parameters on the card until the collector happens to
+    run."""
+    assert world[1]["cycles"] == {"gather grad=False": 0,
+                                  "gather grad=True": 0, "decode": 0}
 
 
 def test_vocab_parallel_ce_gradient(world):
@@ -641,6 +934,17 @@ def test_mesh_equals_the_jax_reference_on_a_mesh(world, jax_side, arch,
     for k, v in want.items():
         _check(f"jax {arch}-{knobs} params {k}",
                _relnorm(params[k], torch.from_numpy(v)), GRAD32)
+
+
+def test_decode_on_a_mesh_needs_the_cache_specs():
+    """A mesh decode holds the caches as ``rules.cache_specs``' blocks
+    only: without the specs the serve step refuses before it runs."""
+    cfg = _cfg("yi_6b")
+    tok = torch.zeros(B, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="cache_blocks"):
+        steps.serve_logits(cfg, None, tok, None, mesh=object())
+    with pytest.raises(ValueError, match="cache_blocks"):
+        steps.make_serve_step(cfg, mesh=object())(None, tok, None)
 
 
 def test_no_mesh_by_default():

@@ -250,7 +250,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 11. profile one more full-width round of the training path, one of
    path (B), one of path (C), one of path (D), one IFCA round of path
    (E), one async round of path (F) and one FEMNIST round of path (G)
-   (device busy share, top ops;
+   (device busy share, top ops, idle time and device operations by
+   span;
    path (B)'s round also without the profiler), then print the kernel
    times as one JSON line.
 
@@ -618,32 +619,43 @@ class Capture:
 
 
 def profile_round(engine, state, key, label: str) -> None:
-    """Run one round under torch.profiler and print the device's busy
-    share of the round's wall time and the ops with the most device
-    time.  The profiler's own overhead lengthens the wall time, so the
-    busy share is a lower bound."""
+    """Run one round under torch.profiler, the engine's spans and the
+    spans below them named to it, and print what the benchmark's reducer
+    (``bench/attribution.py`` over ``bench/trace.py``) makes of it: the
+    device's busy time as a union over the round's wall, the device
+    operations with the most time, and the idle time, the device
+    operations and their device time by the span that was open.  The
+    profiler's own overhead lengthens the wall time, so the busy share
+    is a lower bound."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        engine.run_round(state, key)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    # kernels are the device-side events; the ops that launched them
-    # carry the same device time, so only one of the two is summed
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    kernels = [e for e in events if e.device_type != DeviceType.CPU]
-    ops = [e for e in events if e.device_type == DeviceType.CPU]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"profiled {label}: wall {wall_us / 1e3:.1f} ms, device busy "
-          f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f} %) in "
-          f"{sum(e.count for e in kernels)} kernel launches", flush=True)
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<6d} "
-              f"{e.key[:70]}", flush=True)
+    from torch.profiler import ProfilerActivity, profile, record_function
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from bench import attribution, trace
+    spans, obs0 = trace.Spans(fenced=False), engine.obs
+    engine.obs = spans
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            with record_function(trace.CYCLE):
+                engine.run_round(state, key)
+                torch.cuda.synchronize()
+    finally:
+        engine.obs = obs0
+    p = attribution.reduce_profile(prof, set(spans.totals))
+    by, dev_s = p["launches_by_span"], p["device_s_by_span"]
+    print(f"profiled {label}: wall {1e3 * p['window_s']:.1f} ms, device "
+          f"busy {1e3 * p['busy_s']:.1f} ms "
+          f"({100 * p['busy_s'] / p['window_s']:.1f} %) in "
+          f"{sum(by.values())} device operations", flush=True)
+    for name, t in p["device_ops"][:8]:
+        print(f"  {1e3 * t:9.2f} ms  {name[:70]}", flush=True)
+    print("  idle by span (ms): " + ", ".join(
+        f"{n} {1e3 * t:.2f}" for n, t in p["idle_gaps"]), flush=True)
+    print("  device operations (device ms) by span: " + ", ".join(
+        f"{n} {c} ({1e3 * dev_s[n]:.2f})"
+        for n, c in sorted(by.items(), key=lambda kv: -kv[1])), flush=True)
 
 
 def path_e(dev, x, y):

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import random as rnd
+from repro_torch.fl.obs import tracer
 from repro_torch.kernels import draws, ops, ref
 
 
@@ -192,22 +193,28 @@ def _epoch(ta: torch.Tensor, w: torch.Tensor, xs: torch.Tensor,
     """One local epoch of N stacked clients under epoch keys (N, 2): one
     key chain (:func:`draws.epoch_keys`), then one fused-epoch launch, or
     the per-sample scan for the unit-weight TM."""
-    lits = literals(xs).contiguous()                            # (N, S, L)
+    obs = tracer.current()
     n_samples = ys.shape[1]
-    offs, role_keys = draws.epoch_keys(key, n_samples, cfg.n_classes)
-    ys32 = ys.to(torch.int32)
-    cls2 = torch.stack([ys32, (ys32 + offs) % cfg.n_classes],
-                       dim=-1).contiguous()                     # (N, S, 2)
-    if not cfg.weighted:
-        params = TMParams(ta.clone(), w)   # the scan updates this copy
-        for s in range(n_samples):
-            _train_one_sample(params, lits[:, s], cls2[:, s],
-                              role_keys[:, s], cfg)
-        return params
-    p_inc, p_dec = _feedback_probs(cfg)
-    return ops.train_epoch_fused(ta, w, lits, cls2, role_keys,
-                                 n_states=cfg.n_states, T=cfg.T, p_inc=p_inc,
-                                 p_dec=p_dec)
+    # the literals go first, so their device copy overlaps the host's work
+    # on the key chain
+    with obs.span(tracer.TRAIN_EPOCH):
+        lits = literals(xs).contiguous()                        # (N, S, L)
+    with obs.span(tracer.KEY_CHAIN):
+        offs, role_keys = draws.epoch_keys(key, n_samples, cfg.n_classes)
+        ys32 = ys.to(torch.int32)
+        cls2 = torch.stack([ys32, (ys32 + offs) % cfg.n_classes],
+                           dim=-1).contiguous()                 # (N, S, 2)
+    with obs.span(tracer.TRAIN_EPOCH):
+        if not cfg.weighted:
+            params = TMParams(ta.clone(), w)   # the scan updates this copy
+            for s in range(n_samples):
+                _train_one_sample(params, lits[:, s], cls2[:, s],
+                                  role_keys[:, s], cfg)
+            return params
+        p_inc, p_dec = _feedback_probs(cfg)
+        return ops.train_epoch_fused(ta, w, lits, cls2, role_keys,
+                                     n_states=cfg.n_states, T=cfg.T,
+                                     p_inc=p_inc, p_dec=p_dec)
 
 
 def train_epoch(params: TMParams, xs: torch.Tensor, ys: torch.Tensor,
@@ -242,7 +249,8 @@ def train_batched(params: TMParams, xs: torch.Tensor, ys: torch.Tensor,
     launch for all N clients, which draws the randomness from them; the
     unit-weight TM runs the per-sample scan from the same keys (see
     :func:`_train_one_sample`)."""
-    ekeys = rnd.split(keys, epochs)                     # (N, epochs, 2)
+    with tracer.current().span(tracer.KEY_CHAIN):
+        ekeys = rnd.split(keys, epochs)                 # (N, epochs, 2)
     ta, w = params.ta_state, params.weights
     for e in range(epochs):
         ta, w = _epoch(ta, w, xs, ys, ekeys[:, e], cfg)

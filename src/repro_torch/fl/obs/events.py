@@ -23,7 +23,8 @@ math:
   the uploads that arrived; ``None`` in process, where nothing crosses
   a wire;
 * ``phases``: the round's phase-span wall times, the transport's
-  ``wire_tx`` / ``wire_rx`` spans included.
+  ``wire_tx`` / ``wire_rx`` spans and the spans inside the stages
+  (``tracer.SUBSPANS``) included.
 
 :func:`to_jsonable` coerces numpy and torch scalars and arrays, paths and
 non-finite floats into plain JSON values before anything is written.

@@ -11,7 +11,9 @@ views:
   direction, participation, async buffer counters, per round;
 * the **phase breakdown** — median wall time per round stage and its
   share of the round, the where-does-round-time-go view every perf PR
-  reports against;
+  reports against, then the spans inside the stages (``SUBSPANS``:
+  key chain, epoch, confidence, top class, eval scatter and votes)
+  apart, left out of ``Σ stages``;
 * the **client-accuracy deciles** of the final round — the
   distributional (worst-k) personalization metric, not just the mean.
 
@@ -28,6 +30,7 @@ import numpy as np
 
 from repro_torch.fl.obs import manifest as mf
 from repro_torch.fl.obs.events import read_events
+from repro_torch.fl.obs.tracer import SUBSPANS
 
 
 def _fmt_bytes(n: int | None) -> str:
@@ -101,21 +104,31 @@ def phase_medians(events: list[dict]) -> dict[str, float]:
 
 
 def _phase_table(events: list[dict]) -> list[str]:
+    """The stages by median time, then the spans inside them
+    (``SUBSPANS``) apart, so ``Σ stages`` counts each moment once."""
     med = phase_medians(events)
     if not med:
         return ["(no phase spans recorded)"]
-    total = med.get("round") or sum(
-        v for k, v in med.items() if k != "round")
+    stages = {k: v for k, v in med.items()
+              if k != "round" and k not in SUBSPANS}
+    inner = {k: v for k, v in med.items() if k in SUBSPANS}
+    total = med.get("round") or sum(stages.values())
     lines = [f"{'phase':<18} {'median_s':>10} {'share':>7}",
              "-" * 37]
-    stages = {k: v for k, v in med.items() if k != "round"}
-    for name, dt in sorted(stages.items(), key=lambda kv: -kv[1]):
-        share = f"{100.0 * dt / total:>6.1f}%" if total else "      -"
-        lines.append(f"{name:<18} {dt:>10.4f} {share}")
+
+    def rows(spans, indent=""):
+        for name, dt in sorted(spans.items(), key=lambda kv: -kv[1]):
+            share = f"{100.0 * dt / total:>6.1f}%" if total else "      -"
+            lines.append(f"{indent + name:<18} {dt:>10.4f} {share}")
+
+    rows(stages)
     lines.append("-" * 37)
     lines.append(f"{'Σ stages':<18} {sum(stages.values()):>10.4f}")
     if "round" in med:
         lines.append(f"{'round total':<18} {med['round']:>10.4f}")
+    if inner:
+        lines.append("inside the stages:")
+        rows(inner, "  ")
     return lines
 
 

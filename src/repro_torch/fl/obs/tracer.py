@@ -9,12 +9,26 @@ telemetry off, a :class:`NullTracer`'s hooks do nothing.  Tracing only
 reads: it never feeds a value back, so traced and untraced runs compute
 the same results.
 
+Code below the engine (``core/``, the strategies) opens its spans on
+:func:`current`, the tracer of the round that is running: the engine's
+``run_round`` installs its telemetry there for the round (a context
+variable, so threads that run no round see :data:`NULL`).  Those spans
+are :data:`SUBSPANS`, named once here; they lie inside the engine's
+stages and open no fence, so the next launch never waits for them.
+
+While a ``torch.profiler`` capture records, each :class:`PhaseTracer`
+span also opens a ``record_function`` of its name, so the Chrome trace
+puts the device's work and gaps under the program's spans.  Without a
+capture it opens none: a ``record_function`` costs about 15 µs of host
+time even when nothing records.
+
 :func:`profile_trace` wraps a run in a ``torch.profiler`` capture and
 writes its Chrome trace (``trace.json``) into ``--profile-dir``.
 """
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import pathlib
 import time
 
@@ -49,20 +63,27 @@ class NullTracer:
 
 
 class _Span:
-    """One live span: records ``perf_counter`` deltas into the tracer."""
+    """One live span: records ``perf_counter`` deltas into the tracer,
+    and names itself to the profiler while a capture records."""
 
-    __slots__ = ("_tracer", "_name", "_t0")
+    __slots__ = ("_tracer", "_name", "_t0", "_rf")
 
     def __init__(self, tracer: "PhaseTracer", name: str):
         self._tracer = tracer
         self._name = name
 
     def __enter__(self):
+        self._rf = None
+        if torch.autograd._profiler_enabled():
+            self._rf = torch.profiler.record_function(self._name)
+            self._rf.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self._tracer._record(self._name, time.perf_counter() - self._t0)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         return False
 
 
@@ -106,6 +127,35 @@ class PhaseTracer:
 
 
 NULL = NullTracer()
+
+# The spans below the engine's stages: the epoch key chain and the rest
+# of a local epoch (``core/tm.py``), the confidence votes and the
+# top-class pick (``TPFLStrategy.fused_client_step``), and the
+# population eval's scatter of the cohort's rows and its votes.
+SUBSPANS = ("key_chain", "train_epoch", "confidence", "top_class",
+            "eval_scatter", "eval_votes")
+KEY_CHAIN, TRAIN_EPOCH, CONFIDENCE, TOP_CLASS, EVAL_SCATTER, EVAL_VOTES = \
+    SUBSPANS
+
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_tracer", default=NULL)
+
+
+def current():
+    """The tracer of the round running in this context (:data:`NULL`
+    outside a round)."""
+    return _CURRENT.get()
+
+
+@contextlib.contextmanager
+def running(tracer):
+    """Make ``tracer`` :func:`current` inside the block; the previous
+    one comes back on exit, also when the block raises."""
+    token = _CURRENT.set(tracer)
+    try:
+        yield tracer
+    finally:
+        _CURRENT.reset(token)
 
 
 @contextlib.contextmanager

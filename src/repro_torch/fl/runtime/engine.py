@@ -144,6 +144,7 @@ from repro_torch import tree
 from repro_torch.data.partition import ClientData
 from repro_torch.fl import masked_collectives
 from repro_torch.fl.obs.recorder import NULL as NULL_TELEMETRY
+from repro_torch.fl.obs import tracer
 from repro_torch.fl.runtime import checkpointing
 from repro_torch.fl.runtime.codec import CodecConfig, decode, ef_encode, encode
 from repro_torch.fl.runtime import executors
@@ -535,6 +536,13 @@ class Engine:
 
     def run_round(self, state: EngineState, round_key: torch.Tensor
                   ) -> tuple[EngineState, RoundReport]:
+        """One round; the code below the engine opens its spans on this
+        engine's telemetry (``tracer.current()``) while it runs."""
+        with tracer.running(self.obs):
+            return self._round(state, round_key)
+
+    def _round(self, state: EngineState, round_key: torch.Tensor
+               ) -> tuple[EngineState, RoundReport]:
         obs = self.obs            # telemetry spans/fences — no-ops when off
         r = int(state.round_idx)
         sync = self.cfg.aggregation == "sync"
@@ -675,13 +683,15 @@ class Engine:
                 if in_order:
                     cs, assignment = merged, applied
                 else:
-                    cs = tree.map(lambda a, m: a.index_put((idx,), m),
-                                  state.client_state, merged)
-                    assignment = self._scatter_assignment(idx, applied)
+                    with obs.span(tracer.EVAL_SCATTER):
+                        cs = tree.map(lambda a, m: a.index_put((idx,), m),
+                                      state.client_state, merged)
+                        assignment = self._scatter_assignment(idx, applied)
                 if fused is None:
-                    acc = self.executor.evaluate(self.strategy, cs,
-                                                 self.data.x_test,
-                                                 self.data.y_test)
+                    with obs.span(tracer.EVAL_VOTES):
+                        acc = self.executor.evaluate(self.strategy, cs,
+                                                     self.data.x_test,
+                                                     self.data.y_test)
             # on a mesh the accuracies were gathered into one tensor on
             # this rank's device, so their mean is the in-process mean
             obs.fence(acc)

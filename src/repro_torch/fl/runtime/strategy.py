@@ -35,6 +35,7 @@ from repro_torch import random as rnd
 from repro_torch import tree
 from repro_torch.core import mlp, tm
 from repro_torch.data.partition import ClientData
+from repro_torch.fl.obs import tracer
 
 DOWNLOADS = ("assigned", "all_slots")
 
@@ -159,19 +160,25 @@ class TPFLStrategy:
         upload of the ``top_classes`` most confident weight vectors."""
         del slots            # TPFL clients train from their own state
         cfg = self.tm_cfg
+        obs = tracer.current()
         params = tm.train_batched(cs, d.x_train, d.y_train, keys, cfg,
                                   epochs=self.local_epochs)
-        conf = tm.confidence_scores_batched(
-            params, d.x_conf, cfg, weighted=self.weighted_confidence)
-        # stable descending sort = lax.top_k's order: ties to the lower id
-        vals, c_top = torch.sort(conf, dim=-1, descending=True, stable=True)
-        vals, c_top = vals[:, :self.top_classes], c_top[:, :self.top_classes]
-        if self.conf_threshold is not None:
-            c_top = torch.where(vals >= self.conf_threshold, c_top, -1)
-        rows = torch.arange(c_top.shape[0], device=c_top.device)[:, None]
-        vecs = params.weights[rows, c_top.clamp(min=0)].to(torch.float32)
-        # slot −1 ships a zero row, never class 0's weights
-        vecs = torch.where((c_top >= 0)[..., None], vecs, 0.0)
+        with obs.span(tracer.CONFIDENCE):
+            conf = tm.confidence_scores_batched(
+                params, d.x_conf, cfg, weighted=self.weighted_confidence)
+        with obs.span(tracer.TOP_CLASS):
+            # stable descending sort = lax.top_k's order: ties to the
+            # lower id
+            vals, c_top = torch.sort(conf, dim=-1, descending=True,
+                                     stable=True)
+            vals = vals[:, :self.top_classes]
+            c_top = c_top[:, :self.top_classes]
+            if self.conf_threshold is not None:
+                c_top = torch.where(vals >= self.conf_threshold, c_top, -1)
+            rows = torch.arange(c_top.shape[0], device=c_top.device)[:, None]
+            vecs = params.weights[rows, c_top.clamp(min=0)].to(torch.float32)
+            # slot −1 ships a zero row, never class 0's weights
+            vecs = torch.where((c_top >= 0)[..., None], vecs, 0.0)
         return params, Upload(vecs, c_top.to(torch.int32))
 
     @staticmethod

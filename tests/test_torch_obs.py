@@ -3,11 +3,15 @@ package's: the recorder never changes what a round computes (on == off
 bit for bit), its events carry the reference's non-timing fields for the
 same run, the manifest the reference's keys (torch and CUDA versions
 where the reference records jax's), ``summarize`` renders a run, and a
-telemetry run's manifest rides along with its checkpoints."""
+telemetry run's manifest rides along with its checkpoints.  The spans
+below the engine's stages (``tracer.SUBSPANS``) open on the round's
+tracer, nest inside their stages on the profiler's timeline, and cost
+nothing with telemetry off."""
 import json
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import jax
@@ -18,6 +22,7 @@ import torch
 from repro.fl import obs as jobs
 from repro_torch import convert
 from repro_torch.fl import obs
+from repro_torch.fl.obs import tracer
 from repro_torch.fl.obs.summarize import main as summarize_main
 from repro_torch.fl.runtime import Engine
 from repro_torch.launch import fed_train
@@ -28,6 +33,12 @@ ROOT = Path(__file__).resolve().parents[1]
 SPANS = {"round", "schedule", "gather", "broadcast_encode", "client_step",
          "uplink_codec", "aggregate", "server_update", "downlink",
          "apply_merge", "ref_track", "eval"}
+# the spans each client step and eval opens below the stages: every TM
+# strategy trains (key chain, epoch) and evaluates its votes; TPFL picks
+# by confidence; a cohort's rows are scattered into the population
+TRAINS = {"key_chain", "train_epoch", "eval_votes"}
+SUBSPANS = {"tpfl": TRAINS | {"confidence", "top_class"}, "fedtm": TRAINS}
+COHORT = {"eval_scatter"}
 WIRE = dict(name="int8", sparse=True, index_coding="vrle",
             error_feedback=True)
 SCHED = dict(participation=0.5, dropout=0.2, straggler=0.3)
@@ -53,7 +64,7 @@ def test_telemetry_on_equals_off_bit_for_bit(strategy, tmp_path):
     events = obs.read_events(tmp_path / "events.jsonl")
     assert [e["round"] for e in events] == [0, 1]
     for e in events:
-        assert set(e["phases"]) == SPANS
+        assert set(e["phases"]) == SPANS | SUBSPANS[strategy] | COHORT
         assert all(v >= 0.0 for v in e["phases"].values())
 
 
@@ -145,7 +156,13 @@ def test_fed_train_telemetry_summarize_and_checkpoint_manifest(tmp_path,
     assert "rounds: 2" in shown and "uplink_codec" in shown
     assert "client accuracy deciles (round 1)" in shown
     medians = obs.phase_medians(events)
-    assert set(medians) == SPANS
+    assert set(medians) == SPANS | SUBSPANS["tpfl"]
+    # the spans inside the stages are shown apart, after the stages' sum
+    table = shown[shown.index("per-phase wall time"):]
+    inside = table.index("inside the stages:")
+    assert table.index("Σ stages") < inside
+    for name in SUBSPANS["tpfl"]:
+        assert table.index(f"  {name} ") > inside
 
 
 def test_summarize_refuses_a_directory_without_events(tmp_path):
@@ -159,3 +176,113 @@ def test_profile_dir_writes_a_trace(tmp_path):
                     "--profile-dir", str(tmp_path)])
     trace = json.loads((tmp_path / "trace.json").read_text())
     assert trace["traceEvents"]
+
+
+def test_phase_table_counts_the_subspans_apart():
+    """``Σ stages`` sums the stages alone: a moment inside a sub-span is
+    already inside its stage."""
+    from repro_torch.fl.obs.summarize import _phase_table
+    events = [{"phases": {"client_step": 2.0, "eval": 1.0, "round": 3.5,
+                          "key_chain": 0.5, "eval_votes": 0.25}}]
+    lines = _phase_table(events)
+    total = next(ln for ln in lines if ln.startswith("Σ stages"))
+    assert float(total.split()[-1]) == 3.0
+    inside = lines.index("inside the stages:")
+    assert [ln.split()[0] for ln in lines[inside + 1:]] == ["key_chain",
+                                                           "eval_votes"]
+    assert lines[inside + 1].startswith("  key_chain")
+
+
+def _ranges(trace_events, name):
+    return [(e["ts"], e["ts"] + e["dur"]) for e in trace_events
+            if e.get("ph") == "X" and e.get("name") == name
+            and e.get("cat") == "user_annotation"]
+
+
+def _inside(inner, outer) -> bool:
+    s, e = inner
+    return any(s0 <= s and e <= e0 for s0, e0 in outer)
+
+
+@pytest.mark.parametrize("strategy", ["tpfl", "fedtm"])
+def test_subspans_nest_in_their_stages_on_the_profilers_clock(strategy,
+                                                              tmp_path):
+    """A ``RunRecorder`` round under its own ``torch.profiler`` capture
+    (``profile_dir``): the Chrome trace names every span of the round,
+    and each span below a stage lies inside that stage's range."""
+    _, teng = _engines(rounds=1, strategy=strategy, sched=SCHED)
+    rec = obs.RunRecorder(profile_dir=tmp_path).start()
+    try:
+        _run(teng, rec)
+    finally:
+        rec.close()
+    trace = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    names = SPANS | SUBSPANS[strategy] | COHORT
+    assert all(_ranges(trace, n) for n in names)
+    stage = {"key_chain": "client_step", "train_epoch": "client_step",
+             "confidence": "client_step", "top_class": "client_step",
+             "eval_scatter": "eval", "eval_votes": "eval"}
+    for name in SUBSPANS[strategy] | COHORT:
+        outer = _ranges(trace, stage[name])
+        for r in _ranges(trace, name):
+            assert _inside(r, outer), (name, r, outer)
+    # two epochs, each with its key chain between the literals and the
+    # epoch's launch, plus the split into epochs
+    assert len(_ranges(trace, "train_epoch")) == 4
+    assert len(_ranges(trace, "key_chain")) == 3
+
+
+@pytest.mark.parametrize("telemetry", ["null", "recorder"])
+def test_no_capture_opens_no_record_function(telemetry, monkeypatch):
+    """Without a profiler capture a round opens no ``record_function``;
+    with telemetry off it also makes no span object."""
+    import torch.autograd.profiler as autograd_profiler
+    calls = {"record_function": 0, "span": 0}
+    real_rf, real_init = autograd_profiler.record_function, \
+        tracer._Span.__init__
+
+    def counted_rf(*a, **kw):
+        calls["record_function"] += 1
+        return real_rf(*a, **kw)
+
+    def counted_init(self, *a):
+        calls["span"] += 1
+        real_init(self, *a)
+
+    for mod in (torch.profiler, autograd_profiler):
+        monkeypatch.setattr(mod, "record_function", counted_rf)
+    monkeypatch.setattr(tracer._Span, "__init__", counted_init)
+    _, teng = _engines(rounds=1, sched=SCHED)
+    _run(teng, obs.RunRecorder() if telemetry == "recorder" else None)
+    assert calls["record_function"] == 0
+    if telemetry == "null":
+        assert calls["span"] == 0
+    else:
+        assert calls["span"] > len(SPANS | SUBSPANS["tpfl"] | COHORT)
+
+
+def test_current_is_the_rounds_tracer_and_restored_when_it_raises(
+        monkeypatch):
+    """Inside a round, code below the engine sees the engine's telemetry
+    (a thread it starts sees ``NULL``); after the round, also one that
+    raised, ``current()`` is ``NULL`` again."""
+    from repro_torch.core import tm as ttm
+    _, teng = _engines(rounds=1)
+    rec = obs.RunRecorder()
+    seen = {}
+
+    def boom(*a, **kw):
+        seen["round"] = tracer.current()
+        t = threading.Thread(target=lambda: seen.setdefault(
+            "thread", tracer.current()))
+        t.start()
+        t.join(timeout=30)
+        assert not t.is_alive()
+        raise RuntimeError("injected")
+
+    monkeypatch.setattr(ttm, "confidence_scores_batched", boom)
+    assert tracer.current() is tracer.NULL
+    with pytest.raises(RuntimeError, match="injected"):
+        _run(teng, rec)
+    assert seen["round"] is rec and seen["thread"] is tracer.NULL
+    assert tracer.current() is tracer.NULL

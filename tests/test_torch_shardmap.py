@@ -64,6 +64,7 @@ from repro_torch.core import federation
 from repro_torch.core import tm as ttm
 from repro_torch.data import partition, synthetic
 from repro_torch.fl.masked_collectives import collective_payload_bytes
+from repro_torch.fl.obs.tracer import SUBSPANS
 from repro_torch.fl.store import client_store
 from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
                                     RuntimeConfig, SchedulerConfig,
@@ -438,13 +439,16 @@ def test_span_names_are_the_references(world, jax_mesh, name):
     its order: ``fused_round`` on the identity wire (against the JAX
     shard-mapped run), the staged spans with ``assign`` for FLIS-DC, the
     async round's (the reference's staged and async rounds are one code
-    path for both backends: against its in-process run)."""
+    path for both backends: against its in-process run).  The spans the
+    port opens below the stages (``SUBSPANS``), which the reference has
+    not, are left out of the comparison."""
     if name == "tpfl-float32-full":
         want = jax_mesh()["phases"][name]
         assert all("fused_round" in p for p in want)
     else:
         want = _jax_in_process(name)[2]
-    got = [list(e["phases"]) for e in world()[name]["events"]]
+    got = [[n for n in e["phases"] if n not in SUBSPANS]
+           for e in world()[name]["events"]]
     assert got == want
 
 

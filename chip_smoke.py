@@ -38,7 +38,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    counters set to 0 just before, printing its round lines, and check
    its output;
 6. require every kernel of that path to have launched (the fused epoch
-   once per local epoch);
+   once per local epoch, the key chain with it);
 7. path (A), serving: ``fed_serve`` publishes the newest checkpoint,
    serves 8 mixed-cluster batches of 32 and checks all 20 clients
    against ``tm.predict`` (counters zeroed just before: 8 + 1 batched
@@ -246,7 +246,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (1f), the batched fused votes at path (G)'s 62 classes (2g), the
    fused epoch at path (I)'s worker block of 5 clients (1w) and at path
    (J2)'s rank block of 3 (1j, exact against its plain version), each
-   by events, alone, against its plain version and its bound;
+   by events, alone, against its plain version and its bound; the
+   epoch's key chain (``key_chain_times``) at the training path's
+   (N, S, C), exact against its plain version, the same numbers;
 11. profile one more full-width round of the training path, one of
    path (B), one of path (C), one of path (D), one IFCA round of path
    (E), one async round of path (F) and one FEMNIST round of path (G)
@@ -436,6 +438,36 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms}
+
+
+# int32 instructions a threefry-2x32 hash: about kernel 1's coin (61.75 on
+# the ALU pipe from its SASS, a hash and a compare)
+HASH_INT32_OPS = 62
+# hashes a (client, sample) of the key chain (threefry.h sample_chain)
+KEY_CHAIN_HASHES = 15
+
+
+def key_chain_times(keys, ys, C: int, err: dict) -> dict:
+    """The key chain's kernel at keys (N, 2) and labels (N, S) on the
+    card, as train_batched launches it (epoch 1 of the clients' keys):
+    exact against its plain version, then median ms by events, device
+    ms alone (profiler), the plain version's ms, and its bound's bytes
+    (keys and labels read, cls2 and role keys written) and int32
+    operations."""
+    from repro_torch.kernels import key_chain, ops
+    N, S = ys.shape
+    got = ops.key_chain(keys, ys, C, 1)
+    want = key_chain.key_chain_plain(keys, ys, C, 1)
+    what = f"(N, S, C)=({N}, {S}, {C})"
+    exact("key_chain", got[0], want[0], what + " cls2", err)
+    exact("key_chain", got[1], want[1], what + " role keys", err)
+    run = lambda: ops.key_chain(keys, ys, C, 1)  # noqa: E731
+    return {"ms": cuda_ms(run, reps=50),
+            "alone_ms": device_ms(run, 50, "key_chain_kernel"),
+            "plain_ms": cuda_ms(lambda: key_chain.key_chain_plain(
+                keys, ys, C, 1), reps=3),
+            "bytes": 16 * N + ys.element_size() * N * S + (8 + 96) * N * S,
+            "ops": HASH_INT32_OPS * KEY_CHAIN_HASHES * N * S}
 
 
 def vote_inputs(gen, N, C, m, L, B, device, wmax=7):
@@ -2319,6 +2351,7 @@ def path_k(dev) -> dict:
 # path (L): the legacy federation loop, the round constructors, the federated
 # dry run's sections and the examples
 L_TPFL_LAUNCHES = {"train_epoch_fused": 2 * 2 * 2 + 2 + 2,
+                   "key_chain": 2 * 2 * 2 + 2 + 2,
                    "fused_votes_batched": 2 * 2 * 2 + 2 + 1}
 L2_SMALL_TM = dict(n_classes=10, n_clauses=16, n_features=144, n_states=63,
                    s=5.0, T=40)
@@ -3277,12 +3310,13 @@ def main(argv: list[str]) -> int:
           f"{peak / 2**30:.2f} GiB, launches {launches}", flush=True)
 
     # 6. the path went through its kernels, and its output is sane
-    for name in ("fused_votes_batched", "train_epoch_fused"):
+    for name in ("fused_votes_batched", "train_epoch_fused", "key_chain"):
         if launches[name] <= 0:
             raise SystemExit(f"{name} never launched on the training path")
-    if launches["train_epoch_fused"] != 2 * 2:
-        raise SystemExit("the fused epoch did not launch once per local "
-                         "epoch (2 rounds x 2)")
+    if launches["train_epoch_fused"] != 2 * 2 \
+            or launches["key_chain"] != 2 * 2:
+        raise SystemExit("the fused epoch and its key chain did not launch "
+                         "once per local epoch (2 rounds x 2)")
     state = result["state"]
     for rep in result["reports"]:
         acc = rep.per_client_accuracy
@@ -3710,6 +3744,13 @@ def main(argv: list[str]) -> int:
     draws.role_draws(role_keys, m, L, 0.8, 0.2)
     torch.cuda.synchronize()
     draws_ms = (time.perf_counter() - t) * 1e3
+    kc = key_chain_times(rnd.split(rnd.PRNGKey(1, dev), N), data.y_train, C,
+                         err)
+    print(f"key_chain at (N, S, C)=({N}, {S}, {C}): {kc['ms']:.4f} ms by "
+          f"events, {kc['alone_ms']:.4f} ms alone, plain {kc['plain_ms']:.2f}"
+          f" ms; bound {kc['bytes'] / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes) "
+          f"/ {kc['ops'] / INT32_OPS_PER_S * 1e3:.5f} ms (operations)",
+          flush=True)
     ys = data.y_train.to(torch.int32)
     epoch = (state.client_state.ta_state, state.client_state.weights,
              tm.literals(data.x_train).contiguous(),
@@ -4113,6 +4154,11 @@ def main(argv: list[str]) -> int:
                      "src/repro/kernels/ta_update.py:48",
                      launches_b["ta_update"], err, k5_ms, k5_plain, None,
                      k5_bytes, k5_ops, INT32_OPS_PER_S),
+        kernel_entry("key_chain", "key_chain.cu",
+                     "none (XLA's key splits in epoch_draws)",
+                     launches["key_chain"] + launches_l["key_chain"], err,
+                     kc["ms"], kc["plain_ms"], None, kc["bytes"], kc["ops"],
+                     INT32_OPS_PER_S),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

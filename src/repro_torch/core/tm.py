@@ -37,7 +37,7 @@ import torch
 
 from repro_torch import random as rnd
 from repro_torch.fl.obs import tracer
-from repro_torch.kernels import draws, ops, ref
+from repro_torch.kernels import ops, ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,7 +174,7 @@ def _train_one_sample(params: TMParams, lit: torch.Tensor,
                       cfg: TMConfig) -> None:
     """One sample step of every client, updating ``params.ta_state``
     (N, C, m, L) in place: lit (N, L), cls2 (N, 2) [target, negative],
-    role_keys (N, 2, 3, 2) the step's slice of ``draws.epoch_keys``.  The
+    role_keys (N, 2, 3, 2) the step's slice of the epoch's chain.  The
     target class takes Type I feedback on its positive clauses and Type II
     on its negative ones, the negative class the mirror image; both use
     the clause outputs and votes from before either update, in one
@@ -188,11 +188,12 @@ def _train_one_sample(params: TMParams, lit: torch.Tensor,
 
 
 def _epoch(ta: torch.Tensor, w: torch.Tensor, xs: torch.Tensor,
-           ys: torch.Tensor, key: torch.Tensor, cfg: TMConfig
-           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One local epoch of N stacked clients under epoch keys (N, 2): one
-    key chain (:func:`draws.epoch_keys`), then one fused-epoch launch, or
-    the per-sample scan for the unit-weight TM."""
+           ys: torch.Tensor, key: torch.Tensor, cfg: TMConfig,
+           epoch: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One local epoch of N stacked clients under epoch keys (N, 2), or
+    under the clients' keys (N, 2) split into epochs at ``epoch``: one key
+    chain (:func:`ops.key_chain`), then one fused-epoch launch, or the
+    per-sample scan for the unit-weight TM."""
     obs = tracer.current()
     n_samples = ys.shape[1]
     # the literals go first, so their device copy overlaps the host's work
@@ -200,10 +201,7 @@ def _epoch(ta: torch.Tensor, w: torch.Tensor, xs: torch.Tensor,
     with obs.span(tracer.TRAIN_EPOCH):
         lits = literals(xs).contiguous()                        # (N, S, L)
     with obs.span(tracer.KEY_CHAIN):
-        offs, role_keys = draws.epoch_keys(key, n_samples, cfg.n_classes)
-        ys32 = ys.to(torch.int32)
-        cls2 = torch.stack([ys32, (ys32 + offs) % cfg.n_classes],
-                           dim=-1).contiguous()                 # (N, S, 2)
+        cls2, role_keys = ops.key_chain(key, ys, cfg.n_classes, epoch)
     with obs.span(tracer.TRAIN_EPOCH):
         if not cfg.weighted:
             params = TMParams(ta.clone(), w)   # the scan updates this copy
@@ -244,16 +242,15 @@ def train_batched(params: TMParams, xs: torch.Tensor, ys: torch.Tensor,
     """params (N, ...); xs (N,S,o); ys (N,S); keys (N,2) → trained params.
 
     Per client ``split(key, epochs)`` gives the epoch keys, as
-    ``vmap(train)`` does in the reference.  The weighted TM derives each
-    epoch's keys with :func:`draws.epoch_keys` and runs one fused-epoch
-    launch for all N clients, which draws the randomness from them; the
-    unit-weight TM runs the per-sample scan from the same keys (see
-    :func:`_train_one_sample`)."""
-    with tracer.current().span(tracer.KEY_CHAIN):
-        ekeys = rnd.split(keys, epochs)                 # (N, epochs, 2)
+    ``vmap(train)`` does in the reference.  Each epoch's key chain
+    (:func:`ops.key_chain`, one launch on the card) takes the clients'
+    keys and the epoch index, splits out the epoch key and gives the role
+    keys; the weighted TM runs one fused-epoch launch for all N clients,
+    which draws the randomness from them; the unit-weight TM runs the
+    per-sample scan from the same keys (see :func:`_train_one_sample`)."""
     ta, w = params.ta_state, params.weights
     for e in range(epochs):
-        ta, w = _epoch(ta, w, xs, ys, ekeys[:, e], cfg)
+        ta, w = _epoch(ta, w, xs, ys, keys, cfg, epoch=e)
     return TMParams(ta_state=ta, weights=w)
 
 

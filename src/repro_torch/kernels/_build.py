@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("clause_eval", "ta_update", "train_epoch")
+SOURCES = ("clause_eval", "key_chain", "ta_update", "train_epoch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +42,10 @@ _SIGNATURES = {
     # outputs, inputs, keys, include buffer; shape, n_states, T,
     # thresholds, forced global plan; stream
     "train_epoch_fused": ("train_epoch", [_P] * 8 + [_I] * 10 + [_P]),
+    # outputs, keys, key strides, labels, their width and strides; N, S,
+    # C, epoch; stream
+    "key_chain": ("key_chain", [_P] * 3 + [_LL] * 2 + [_P, _I]
+                  + [_LL] * 2 + [_I] * 4 + [_P]),
 }
 # entry points that launch nothing (not counted)
 _QUERIES = {

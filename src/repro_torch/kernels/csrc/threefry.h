@@ -11,7 +11,9 @@
 // * uniform(b): jax.random.uniform's float32 from those bits, the top 23
 //   bits as the mantissa of a float in [1, 2), minus 1;
 // * coin(...): one Type I coin of the fused epoch, the bit of its coin
-//   plane (repro/kernels/draws.py) that the update reads, from one hash.
+//   plane (repro/kernels/draws.py) that the update reads, from one hash;
+// * sample_chain(...): one sample's share of an epoch's key chain, its
+//   class pair and role keys (csrc/key_chain.cu runs it a thread).
 #pragma once
 
 #include <cstdint>
@@ -111,6 +113,67 @@ THREEFRY_HD bool coin(const Key& k_s1, const Key& k_s2, uint32_t t_inc,
                       uint32_t t_dec, uint32_t counter, bool hit) {
   const Key k = hit ? k_s1 : k_s2;
   return mantissa(bits(k, counter)) < (hit ? t_inc : t_dec);
+}
+
+// jax.random.split(key, n)[i], which is also fold_in(key, i): the hash of
+// the counter (0, i) under the key, both words kept.
+THREEFRY_HD Key split_at(const Key& k, uint32_t i) {
+  uint32_t x0 = 0u, x1 = i;
+  hash(k, x0, x1);
+  return make_key(x0, x1);
+}
+
+// jax.random.randint(key, (), lo, lo + span) - lo, for 1 <= span <= 2**31:
+// a word from each half of split(key), folded into the span by jax's
+// modular recipe in wrapping uint32 arithmetic.
+THREEFRY_HD uint32_t randint_offset(const Key& k, uint32_t span) {
+  const uint32_t higher = bits(split_at(k, 0u), 0u);
+  const uint32_t lower = bits(split_at(k, 1u), 0u);
+  uint32_t mult = 65536u % span;
+  mult = mult * mult % span;
+  return ((higher % span) * mult + lower % span) % span;
+}
+
+// One sample's share of a local epoch's key chain (repro/core/tm.py, one
+// epoch of train_batched: the keys of repro/kernels/draws.py epoch_draws
+// and the class pair), from one client's key (k0, k1):
+//   epoch key   split(client key, epochs)[epoch], or the client key itself
+//               where epoch < 0 (the caller holds the epoch key);
+//   sample key  split(epoch key, S)[i];
+//   k_neg, k_t, k_n = split(sample key, 3);
+//   cls         [y, (y + randint(k_neg, (), 1, C)) % C], y taken as int32
+//               and the sum wrapping, the remainder's sign the divisor's
+//               (torch's int32 "%");
+//   role[r]     [k_act, k_s1, k_s2] = split(k_t, 3) for r = 0 (target),
+//               split(k_n, 3) for r = 1 (negative).
+// 15 hashes (14 where epoch < 0).  C >= 1; C = 1 takes randint's empty
+// span, an offset of 1.
+struct SampleChain {
+  int32_t cls[2];
+  uint32_t role[2][3][2];  // role, [k_act, k_s1, k_s2], the key's words
+};
+
+THREEFRY_HD SampleChain sample_chain(uint32_t k0, uint32_t k1, int epoch,
+                                     uint32_t i, int32_t y, int32_t C) {
+  Key k = make_key(k0, k1);
+  if (epoch >= 0) k = split_at(k, (uint32_t)epoch);
+  const Key sample = split_at(k, i);
+  const uint32_t span = C > 1 ? (uint32_t)(C - 1) : 1u;
+  const uint32_t offset = 1u + randint_offset(split_at(sample, 0u), span);
+  int32_t neg = (int32_t)((uint32_t)y + offset) % C;
+  if (neg < 0) neg += C;
+  SampleChain out;
+  out.cls[0] = y;
+  out.cls[1] = neg;
+  for (int r = 0; r < 2; ++r) {
+    const Key role = split_at(sample, 1u + (uint32_t)r);
+    for (int j = 0; j < 3; ++j) {
+      const Key kj = split_at(role, (uint32_t)j);
+      out.role[r][j][0] = kj.k0;
+      out.role[r][j][1] = kj.k1;
+    }
+  }
+  return out;
 }
 
 }  // namespace threefry

@@ -25,7 +25,10 @@ The key chain (:func:`epoch_keys`) and the draws from the role keys
 the TA-transition kernel of the unit-weight scan, take the role keys
 and hash only the draws they read, in the kernel
 (``csrc/threefry.h``); the plain versions, and the CPU, draw the whole
-planes (:func:`role_draws`, or ``random.uniform`` per sample step).
+planes (:func:`role_draws`, or ``random.uniform`` per sample step).  On
+the GPU the chain itself runs in one launch an epoch
+(:mod:`repro_torch.kernels.key_chain`), whose plain version calls
+:func:`epoch_keys`.
 """
 from __future__ import annotations
 

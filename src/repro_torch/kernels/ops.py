@@ -4,7 +4,8 @@ Counterpart of ``repro/kernels/ops.py``.  A CUDA tensor goes to the
 hand-written kernel, which raises on what it cannot take; a CPU tensor
 goes to the plain version (:mod:`repro_torch.kernels.ref`; for the
 fused epoch ``train_epoch.train_epoch_plain``, for the TA transition
-``ta_update.ta_update_plain``).  There is
+``ta_update.ta_update_plain``, for the epoch's key chain
+``key_chain.key_chain_plain``).  There is
 no fallback between the two.  ``LAUNCHES`` counts each kernel's launches
 (plain-version calls are not counted).
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import clause_eval, ref, train_epoch
+from repro_torch.kernels import key_chain as _kc
 from repro_torch.kernels import ta_update as _ta
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401
 
@@ -67,3 +69,14 @@ def train_epoch_fused(ta: torch.Tensor, w: torch.Tensor, lits: torch.Tensor,
         return train_epoch.train_epoch_fused(ta, w, lits, cls2, role_keys,
                                              **kw)
     return train_epoch.train_epoch_plain(ta, w, lits, cls2, role_keys, **kw)
+
+
+def key_chain(keys: torch.Tensor, ys: torch.Tensor, n_classes: int,
+              epoch: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One epoch's class pairs (N,S,2) and role keys (N,S,2,3,2) from keys
+    (N,2) and labels ys (N,S): the epoch keys, or with ``epoch`` the
+    clients' keys; see key_chain.key_chain_plain."""
+    if keys.is_cuda:
+        return _kc.key_chain(keys, ys, n_classes, epoch)
+    return _kc.key_chain_plain(keys, ys, n_classes, epoch)

@@ -1,8 +1,8 @@
 """The fused epoch's in-kernel draws and launch plan on the CPU.
 
 ``csrc/threefry.h`` and ``csrc/epoch_plan.h`` are plain C++ that the CUDA
-kernel includes; here the host compiler builds them alone, and they are
-held against ``jax.random`` and the JAX package's coin plane
+kernels include; here the host compiler builds them alone, and they are
+held against ``jax.random`` and the JAX package's coin plane and key chain
 (``repro.kernels.draws.epoch_draws``) bit for bit, and the plan against
 the card's limits.  The keyed epoch (``draws.epoch_keys`` and the keyed
 ``ops.train_epoch_fused``) is held against the JAX key chain and the
@@ -55,6 +55,20 @@ extern "C" void tf_coins(const uint32_t* k, uint32_t t_inc, uint32_t t_dec,
       for (int l = 0; l < L; ++l)
         *out++ = threefry::coin(k1, k2, t_inc, t_dec,
                                 threefry::coin_counter(j, l, L), hit);
+}
+// one client's epoch chain over S samples: cls2 (S, 2), role (S, 2, 3, 2)
+extern "C" void kc_chain(uint32_t k0, uint32_t k1, int epoch, int S,
+                         const int32_t* ys, int C, int32_t* cls2,
+                         uint32_t* role) {
+  for (int i = 0; i < S; ++i) {
+    const threefry::SampleChain c =
+        threefry::sample_chain(k0, k1, epoch, (uint32_t)i, ys[i], C);
+    *cls2++ = c.cls[0];
+    *cls2++ = c.cls[1];
+    for (int r = 0; r < 2; ++r)
+      for (int j = 0; j < 3; ++j)
+        for (int w = 0; w < 2; ++w) *role++ = c.role[r][j][w];
+  }
 }
 extern "C" int tf_counters_fit(long long m, long long L) {
   return threefry::counters_fit(m, L);
@@ -122,6 +136,7 @@ def host(tmp_path_factory):
             ("tf_below", [u32, u32], i32),
             ("tf_coins", [ptr, u32, u32, i32, i32, ptr], None),
             ("tf_counters_fit", [ctypes.c_longlong] * 2, i32),
+            ("kc_chain", [u32, u32, i32, i32, ptr, i32, ptr, ptr], None),
             ("ep_plan", [i32] * 5 + [ptr, ptr], i32),
             ("ep_clause_begin", [i32] * 3, i32),
             ("ep_smem", [i32] * 4, ctypes.c_longlong),
@@ -262,6 +277,64 @@ def test_epoch_keys_equal_jax_key_chain(seed, S, C):
             k, S, 4, 8, C, 0.8, 0.2)[0])(jks)))
     np.testing.assert_array_equal(
         rk.numpy(), np.stack([_jax_role_keys(k, S) for k in jks]))
+
+
+def _chain(host, key, epoch, ys, C):
+    """threefry::sample_chain over one client's samples: (cls2 (S, 2),
+    role keys (S, 2, 3, 2) uint32)."""
+    ys = np.ascontiguousarray(ys, dtype=np.int32)
+    cls2 = np.empty((ys.size, 2), np.int32)
+    role = np.empty((ys.size, 2, 3, 2), np.uint32)
+    host.kc_chain(int(key[0]), int(key[1]), epoch, ys.size, _p(ys), C,
+                  _p(cls2), _p(role))
+    return cls2, role
+
+
+# JAX epoch_draws compiled once a shape: eager, each call takes about 1 s
+_jax_epoch_draws = jax.jit(jdraws.epoch_draws, static_argnums=range(1, 7))
+
+
+@pytest.mark.parametrize("seed", [0, 2 ** 31 - 1])
+@pytest.mark.parametrize("S", [1, 17, 80])
+@pytest.mark.parametrize("C", [2, 10, 62])
+@pytest.mark.parametrize("epochs", [1, 2, 3])
+def test_sample_chain_equals_jax_key_chain(host, seed, S, C, epochs):
+    """The header's per-sample chain (what csrc/key_chain.cu runs a
+    thread), from a client's key and the epoch index e: the epoch key is
+    jax.random.split(key, epochs)[e], the offsets JAX epoch_draws', the
+    role keys the split chain's, cls2 the labels' pairs; given the epoch
+    key itself (epoch < 0) the same."""
+    jk = jax.random.PRNGKey(seed)
+    ys = np.random.default_rng([seed, S, C]).integers(0, C, S)
+    for e, ek in enumerate(jax.random.split(jk, epochs)):
+        offs = np.asarray(_jax_epoch_draws(ek, S, 1, 2, C, 0.8, 0.2)[0])
+        want_cls2 = np.stack([ys, (ys + offs) % C], -1)
+        want_role = _jax_role_keys(ek, S)
+        for key, epoch in ((np.asarray(jk), e), (np.asarray(ek), -1)):
+            cls2, role = _chain(host, key, epoch, ys, C)
+            np.testing.assert_array_equal(cls2, want_cls2)
+            np.testing.assert_array_equal(role, want_role)
+
+
+@pytest.mark.parametrize("C", [1, 3, 62])
+@pytest.mark.parametrize("epoch", [None, 0, 2])
+def test_sample_chain_equals_plain_chain_at_any_label(host, C, epoch):
+    """At labels outside [0, C) too (negative, C and above, the int32
+    sum wrapping) and at C = 1, the header's chain is the port's plain
+    chain (``key_chain.key_chain_plain``): the card's class pairs are the
+    CPU's, so ``train_epoch_fused`` refuses the same labels on both."""
+    from repro_torch.kernels import key_chain
+    keys = tr.split(tr.PRNGKey(11, "cpu"), 3)
+    ys = np.array([[0, C - 1, -1, -C - 2, C, 3 * C + 1, 2 ** 31 - 1,
+                    -2 ** 31]] * 3, np.int32)
+    ys[1] = np.arange(8) % C
+    cls2, role = key_chain.key_chain_plain(keys, torch.as_tensor(ys), C,
+                                           epoch)
+    for n in range(3):
+        got = _chain(host, keys[n].numpy(), -1 if epoch is None else epoch,
+                     ys[n], C)
+        np.testing.assert_array_equal(got[0], cls2[n].numpy())
+        np.testing.assert_array_equal(got[1], role[n].numpy())
 
 
 @pytest.mark.parametrize("epochs", [1, 2])

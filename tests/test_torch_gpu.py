@@ -26,7 +26,7 @@ from repro_torch.fl.runtime import (CodecConfig, Engine, FedTMStrategy,
                                     RuntimeConfig, Scheduler,
                                     SchedulerConfig, TPFLStrategy,
                                     build_baseline_strategy)
-from repro_torch.kernels import draws, ops, ref
+from repro_torch.kernels import draws, key_chain, ops, ref
 from repro_torch.launch import fed_serve, fed_train
 
 VOTE_SHAPES = [  # (N, C, m, L, B): test_kernels.py's, and C·m = 99, L = 130
@@ -289,6 +289,94 @@ def test_epoch_draws_same_on_gpu_and_cpu(cuda):
     b = draws.epoch_draws(keys.to(cuda), 6, 33, 130, 10, 0.8, 0.2)
     for x, y in zip(a, b):
         assert torch.equal(x, y.cpu())
+
+
+# (S, C) of the benchmark's cells: silo20, cohort20of150, cohort100of1000
+KEY_CHAIN_SHAPES = [(2400, 10), (180, 62), (80, 10)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 20, 100])
+@pytest.mark.parametrize("S,C", KEY_CHAIN_SHAPES)
+def test_key_chain_kernel_matches_plain_on_gpu(cuda, N, S, C):
+    """One launch gives the epoch's class pairs and role keys of the CPU
+    plain chain bit for bit: from the clients' keys at epochs 0 and 1, and
+    from the epoch keys themselves."""
+    rng = np.random.default_rng([N, S, C])
+    keys = tr.split(tr.PRNGKey(S * C + N, "cpu"), N)
+    ys = torch.as_tensor(rng.integers(0, C, (N, S)).astype(np.int32))
+    for epoch in (0, 1, None):
+        want = key_chain.key_chain_plain(keys, ys, C, epoch)
+        n = ops.LAUNCHES["key_chain"]
+        got = ops.key_chain(keys.to(cuda), ys.to(cuda), C, epoch)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["key_chain"] == n + 1
+        assert got[0].shape == (N, S, 2) and got[1].shape == (N, S, 2, 3, 2)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_key_chain_kernel_reads_labels_and_keys_as_held(cuda):
+    """int64 labels, labels and keys at other strides are read where they
+    lie: the same chain, from one device kernel a call and nothing
+    else."""
+    keys = tr.split(tr.PRNGKey(4, cuda), 6)
+    ys = torch.randint(0, 10, (6, 50), device=cuda)                # int64
+    want = key_chain.key_chain_plain(keys.cpu(), ys.cpu(), 10, 1)
+    spaced = torch.stack([keys[:, 0], keys[:, 0], keys[:, 1], keys[:, 1]],
+                         -1)[:, ::2]                           # strides (4, 2)
+    by_column = ys.to(torch.int32).t().contiguous().t()        # strides (1, 6)
+    for k, y in ((keys, ys), (keys, by_column), (spaced, ys)):
+        got = ops.key_chain(k, y, 10, 1)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+    names = _device_ops_per_call(lambda: ops.key_chain(spaced, by_column, 10,
+                                                       1))
+    assert len(names) == 1 and "key_chain_kernel" in names[0], names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [True, False])
+def test_gpu_train_batched_one_key_chain_launch_an_epoch(cuda, weighted):
+    """train_batched on the card launches the key chain once an epoch, on
+    the clients' keys (no split of its own), and its two epochs equal the
+    CPU's bit for bit, where nothing is launched."""
+    cfg = ttm.TMConfig(**TM, weighted=weighted)
+    N, S = 4, 12
+    rng = np.random.default_rng(12)
+    xs = (rng.random((N, S, cfg.n_features)) < 0.4).astype(np.int32)
+    ys = rng.integers(0, cfg.n_classes, (N, S)).astype(np.int32)
+    runs = []
+    for dev in ("cpu", cuda):
+        params = ttm.init_params(cfg, tr.split(tr.PRNGKey(2, dev), N))
+        keys = tr.split(tr.PRNGKey(3, dev), N)
+        n = ops.LAUNCHES["key_chain"]
+        out = ttm.train_batched(params, *_t(xs, ys, device=dev), keys, cfg,
+                                epochs=2)
+        runs.append((out, ops.LAUNCHES["key_chain"] - n))
+    (a, n_cpu), (b, n_gpu) = runs
+    assert (n_cpu, n_gpu) == (0, 2)
+    assert torch.equal(a.ta_state, b.ta_state.cpu())
+    assert torch.equal(a.weights, b.weights.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [-1, 10, 2 ** 31 - 1])
+def test_train_epoch_fused_refuses_labels_outside_classes(cuda, bad):
+    """A label outside [0, C) reaches train_epoch_fused's class-id check
+    through the key chain's class pairs: ValueError, no epoch launched."""
+    cfg = ttm.TMConfig(**TM)
+    N, S = 3, 8
+    params = ttm.init_params(cfg, tr.split(tr.PRNGKey(2, cuda), N))
+    xs = torch.zeros((N, S, cfg.n_features), dtype=torch.int32, device=cuda)
+    ys = torch.zeros((N, S), dtype=torch.int32, device=cuda)
+    ys[1, 5] = bad
+    n = ops.LAUNCHES["train_epoch_fused"]
+    with pytest.raises(ValueError, match="class ids outside"):
+        ttm.train_batched(params, xs, ys, tr.split(tr.PRNGKey(3, cuda), N),
+                          cfg, epochs=2)
+    assert ops.LAUNCHES["train_epoch_fused"] == n
 
 
 @pytest.mark.gpu

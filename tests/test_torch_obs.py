@@ -226,10 +226,10 @@ def test_subspans_nest_in_their_stages_on_the_profilers_clock(strategy,
         outer = _ranges(trace, stage[name])
         for r in _ranges(trace, name):
             assert _inside(r, outer), (name, r, outer)
-    # two epochs, each with its key chain between the literals and the
-    # epoch's launch, plus the split into epochs
+    # two epochs, each with its key chain (which splits the epoch's key
+    # out of the clients' keys) between the literals and the epoch's launch
     assert len(_ranges(trace, "train_epoch")) == 4
-    assert len(_ranges(trace, "key_chain")) == 3
+    assert len(_ranges(trace, "key_chain")) == 2
 
 
 @pytest.mark.parametrize("telemetry", ["null", "recorder"])

@@ -1,0 +1,10 @@
+"""``aggregate.launches``: the device operations launched inside the
+engine's ``aggregate`` span in the profiled cycle (``bench/attribution.py``,
+by correlation id), over the cycle's rounds."""
+
+
+def read(ctx):
+    counts = ctx["profile"].get("launches_by_span")
+    if not counts:
+        return None
+    return counts.get("aggregate", 0) / ctx["cycle_rounds"]

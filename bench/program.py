@@ -1,4 +1,9 @@
-"""The system under test: ``repro_torch``'s round engine, driven in cycles.
+"""The TPFL kind: ``repro_torch``'s round engine, driven in cycles.
+
+A configuration without a ``program`` key runs here; ``bench/run.py``
+takes from this module what every kind gives: ``make_inputs``,
+``Program`` (``steps``, ``samples``, ``obs``, ``cycle``, ``outcome``,
+``close``), ``capture`` and ``check``.  A step is a round.
 
 The window drives ``Engine.run_round`` with ``TPFLStrategy`` and the
 in-process executor: sync aggregation, the float32 identity wire,
@@ -15,9 +20,13 @@ fresh int32 population: one device copy a cycle, part of the window.
 """
 from __future__ import annotations
 
+import importlib
+
 import torch
 
-from bench import threefry
+from bench import threefry, traffic
+
+make_inputs = traffic.make
 
 
 class Program:
@@ -32,7 +41,12 @@ class Program:
         if t["n_states"] >= 64:
             raise ValueError("the int8 copy of set-up's state needs "
                              "n_states < 64")
-        self.rounds = workload["rounds_per_cycle"]
+        self.steps = workload["rounds_per_cycle"]
+        # client training samples a cycle: cohort x local samples x epochs
+        # of every round
+        self.samples = (self.steps * workload["cohort"]
+                        * workload["per_client"]["train"]
+                        * t["local_epochs"])
         tm_cfg = tm.TMConfig(n_classes=t["n_classes"],
                              n_clauses=t["n_clauses"],
                              n_features=t["n_features"],
@@ -43,7 +57,7 @@ class Program:
         n, k = workload["population"], workload["cohort"]
         sched = SchedulerConfig(participation=k / n)
         self.engine = Engine(strategy, data,
-                             RuntimeConfig(rounds=self.rounds,
+                             RuntimeConfig(rounds=self.steps,
                                            scheduler=sched))
         if self.engine.scheduler.k != k:
             raise ValueError(f"the scheduler samples "
@@ -57,7 +71,16 @@ class Program:
         self._state0 = state0._replace(client_state=state0.client_state
                                        ._replace(ta_state=ta[:0]))
         del state0, ta
-        self.keys = [rnd.fold_in(k_rounds, r) for r in range(self.rounds)]
+        self.keys = [rnd.fold_in(k_rounds, r) for r in range(self.steps)]
+
+    @property
+    def obs(self):
+        """The engine's telemetry, where the window's spans go."""
+        return self.engine.obs
+
+    @obs.setter
+    def obs(self, telemetry):
+        self.engine.obs = telemetry
 
     def start(self):
         """A fresh copy of set-up's state."""
@@ -65,25 +88,35 @@ class Program:
         return self._state0._replace(client_state=cs._replace(
             ta_state=self._ta8.to(torch.int32)))
 
-    def cycle(self, on_round=None):
-        """One cycle from set-up's state; ``on_round(r, state, report)``
+    def cycle(self, on_step=None):
+        """One cycle from set-up's state; ``on_step(r, state, report)``
         sees each round's output.  Returns the last report."""
         state = self.start()
         rep = None
         for r, key in enumerate(self.keys):
             state, rep = self.engine.run_round(state, key)
-            if on_round is not None:
-                on_round(r, state, rep)
+            if on_step is not None:
+                on_step(r, state, rep)
         return rep
+
+    @staticmethod
+    def outcome(rep) -> tuple:
+        """A round's accuracies and cluster counts, copied to the host:
+        every cycle repeats the same work, so its last round's must
+        repeat bit for bit."""
+        return rep.per_client_accuracy.cpu(), rep.cluster_counts.cpu()
 
     def close(self):
         self.engine = self._state0 = self._ta8 = None
 
 
-def capture(state, rep) -> dict:
-    """What the check compares of one round, read off the program's
+def capture(workload: dict, r: int, state, rep) -> dict | None:
+    """What the check compares of round ``r``, read off the program's
     output state and report and copied to the host, so later rounds
-    cannot touch it and the card holds none of it."""
+    cannot touch it and the card holds none of it; ``None`` for a round
+    past the workload's ``reference_rounds``."""
+    if r >= workload["reference_rounds"]:
+        return None
     cs = state.client_state
     idx = rep.participation.idx.to(torch.int64)
     return {
@@ -106,3 +139,23 @@ def row_sums(ta: torch.Tensor) -> torch.Tensor:
     population: int32 sums over the literals first (at most 2L · 127)."""
     return ta.sum(-1, dtype=torch.int32).flatten(1).sum(-1,
                                                        dtype=torch.int64)
+
+
+def check(config: dict, workload: dict, inputs: dict, seed: int, device,
+          captured: list, cycles_differing: int) -> dict:
+    """The plain reference (the configuration's ``reference`` module,
+    float32 with TF32 off) follows the checked cycle's first
+    ``reference_rounds`` rounds from the same inputs and key;
+    ``bench/check.py``'s numbers, summed over them, every limit 0."""
+    from bench.check import add, compare
+    ref = importlib.import_module(f"bench.{config['reference']}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tm = ref.TM.of(config)
+    key = threefry.key(seed, device)
+    st = ref.init_state(tm, key, workload["population"])
+    numbers = None
+    for r in range(workload["reference_rounds"]):
+        st, want = ref.run_round(tm, st, inputs, key, r, workload["cohort"])
+        numbers = add(numbers, compare(captured[r], want,
+                                       cycles_differing if r == 0 else 0))
+    return numbers

@@ -6,25 +6,37 @@
 From the root of a checkout, on a machine with the card(s) the cell
 asks for.  The cell's files are found by name: ``BENCHMARK.json`` at the
 root lists it, ``bench/workloads/<cell>.json`` is its traffic,
-``bench/configs/<config>.json`` its configuration, whose ``reference``
-names the plain reference module in ``bench/``; each per-layer metric is
-read by ``bench/metrics/<metric>.py``.
+``bench/configs/<config>.json`` its configuration, whose ``program``
+names the module in ``bench/`` that runs it (``program`` where the key
+is absent: the TPFL round) and whose ``reference`` names the plain
+reference module; each per-layer metric is read by
+``bench/metrics/<metric>.py``.
+
+The program module gives ``make_inputs(config, workload, seed,
+device)``; ``Program(config, workload, inputs, seed, device)`` with
+``steps`` (a cycle's steps), ``samples`` (the training samples a cycle
+trains), ``obs`` (the telemetry slot the spans go into),
+``cycle(on_step=None)`` (returns the cycle's last output),
+``outcome(out)`` (what must repeat from cycle to cycle; ``None``: the
+kind's cycles need not repeat bit for bit) and ``close()``;
+``capture(workload, step, *outputs)`` (a step's copy for the check, or
+``None`` for a step the check does not read); and ``check(config,
+workload, inputs, seed, device, captured, cycles_differing)``, the
+numbers that decide ``correct``, each ``{"value", "limit"}``.
 
 Set-up (``setup_s``, from the top of this file): imports, the inputs
-made from ``--seed`` on the card, ``Engine.init``, and one warm-up
-cycle, which loads (the first run in a checkout: builds) the kernel
-libraries under ``build/kernels``.  The window repeats whole cycles
-(``bench/program.py``) and closes at the first cycle boundary after
-``--seconds``.  With ``--trace 1`` the window's rounds run with the
-engine's spans fenced, then one more cycle runs under
-``torch.profiler``; the line then carries the per-layer metrics and
-``breakdown``.  The window keeps nothing of the check on the card: each
-cycle's last round is compared with the first cycle's on the host, and
-``device_peak_gib`` is read as the window closes.  Only then one more
-cycle runs, whose rounds are copied to the host for the check; the
-program is freed and the plain reference follows that cycle's first
-``reference_rounds`` rounds from the same inputs and key
-(``bench/check.py`` decides ``correct``).
+made from ``--seed`` on the card, the program's construction, and one
+warm-up cycle, which loads (the first run in a checkout: builds) the
+kernel libraries under ``build/kernels``.  The window repeats whole
+cycles and closes at the first cycle boundary after ``--seconds``.
+With ``--trace 1`` the window's steps run with the spans fenced, then
+one more cycle runs under ``torch.profiler``; the line then carries the
+per-layer metrics and ``breakdown``.  The window keeps nothing of the
+check on the card: each cycle's outcome is compared with the first
+cycle's on the host, and ``device_peak_gib`` is read as the window
+closes.  Only then one more cycle runs, whose steps the module copies
+to the host for the check; the program is freed and the module's
+``check`` holds the copies against its plain reference.
 
 The last line of standard output is one JSON object; the compared
 numbers and their limits are the last lines of standard error and the
@@ -95,6 +107,13 @@ def metric_reader(name: str):
     return mod.read
 
 
+def program_of(config: dict):
+    """The module ``bench/<program>.py`` that runs ``config``: its
+    ``program`` key, ``program`` (the TPFL round) where it has none."""
+    return importlib.import_module(
+        f"bench.{config.get('program', 'program')}")
+
+
 def forbidden_modules(names=None) -> list[str]:
     """The forbidden top-level names among ``names`` (default: the
     modules loaded in this process), each compared whole."""
@@ -140,13 +159,10 @@ def host_speed() -> float:
     return best
 
 
-def outcome(rep) -> tuple:
-    """A round's accuracies and cluster counts, copied to the host."""
-    return rep.per_client_accuracy.cpu(), rep.cluster_counts.cpu()
-
-
-def same(a: tuple, b: tuple) -> bool:
+def same(a: tuple | None, b: tuple | None) -> bool:
     import torch
+    if a is None or b is None:
+        return a is b
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -166,7 +182,8 @@ def main(argv=None, device: str | None = None, isolation: bool = True,
     import torch
     t_torch = time.perf_counter()
 
-    from bench import check, program, trace, traffic
+    from bench import attribution, check, trace
+    program = program_of(config)
     if device is None:
         if not torch.cuda.is_available() \
                 or torch.cuda.device_count() < entry["chips"]:
@@ -184,7 +201,7 @@ def main(argv=None, device: str | None = None, isolation: bool = True,
 
     # -- set-up --------------------------------------------------------
     marks = [time.perf_counter()]
-    inputs = traffic.make(config, workload, args.seed, dev)
+    inputs = program.make_inputs(config, workload, args.seed, dev)
     sync()
     marks.append(time.perf_counter())
     prog = program.Program(config, workload, inputs, args.seed, dev)
@@ -199,19 +216,19 @@ def main(argv=None, device: str | None = None, isolation: bool = True,
 
     # -- the window: whole cycles ---------------------------------------
     spans = trace.Spans(fenced=True) if args.trace else None
-    obs0 = prog.engine.obs
+    obs0 = prog.obs
     if spans is not None:
-        prog.engine.obs = spans
+        prog.obs = spans
     first, differing, ends = None, 0, []
     collector = GcTimer()
     gc.callbacks.append(collector)
     t0 = time.perf_counter()
     while not ends or ends[-1] - t0 < args.seconds:
-        rep = prog.cycle()
+        out = prog.cycle()
         sync()
-        last = outcome(rep)
+        last = prog.outcome(out)
         ends.append(time.perf_counter())
-        if first is None:
+        if len(ends) == 1:
             first = last
         else:
             differing += not same(last, first)
@@ -220,60 +237,51 @@ def main(argv=None, device: str | None = None, isolation: bool = True,
     host_loop = host_speed()
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     card = card_state() if cuda else dev.type
-    rounds = cycles * prog.rounds
+    cycle_steps, samples = prog.steps, prog.samples
+    steps = cycles * cycle_steps
     profile = {}
     if args.trace:
         from torch.profiler import ProfilerActivity, profile as torch_profile
         tracer = trace.Spans(fenced=False)
-        prog.engine.obs = tracer
+        prog.obs = tracer
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
                                          else [])
         with torch_profile(activities=acts) as prof:
             with torch.profiler.record_function(trace.CYCLE):
                 prog.cycle()
                 sync()
-        profile = trace.reduce_profile(prof, set(tracer.totals))
+        profile = attribution.reduce_profile(prof, set(tracer.totals))
         del prof
 
-    # -- the checked cycle: its rounds copied to the host ---------------
-    n_check = workload["reference_rounds"]
-    captured: list[dict] = []
+    # -- the checked cycle: its steps copied to the host ----------------
+    captured: list = []
 
-    def on_round(r, state, rep):
-        if r < n_check:
-            captured.append(program.capture(state, rep))
+    def on_step(r, *outputs):
+        got = program.capture(workload, r, *outputs)
+        if got is not None:
+            captured.append(got)
 
-    prog.engine.obs = obs0
-    rep = prog.cycle(on_round)
+    prog.obs = obs0
+    final = prog.cycle(on_step)
     sync()
-    differing += not same(outcome(rep), first)
+    differing += not same(prog.outcome(final), first)
     prog.close()
-    del prog, rep
+    del prog, final
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
 
     # -- the check ------------------------------------------------------
     ref_t0 = time.perf_counter()
-    ref = importlib.import_module(f"bench.{config['reference']}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    tm = ref.TM.of(config)
-    key = program.threefry.key(args.seed, dev)
-    st = ref.init_state(tm, key, workload["population"])
-    numbers = None
-    for r in range(n_check):
-        st, want = ref.run_round(tm, st, inputs, key, r, workload["cohort"])
-        numbers = check.add(numbers, check.compare(
-            captured[r], want, differing if r == 0 else 0))
-    del st, want, captured
+    numbers = program.check(config, workload, inputs, args.seed, dev,
+                         captured, differing)
+    del captured
     marks.append(time.perf_counter())
     correct = check.passed(numbers)
 
     # -- the line -------------------------------------------------------
     kind = torch.cuda.get_device_name(dev) if cuda else dev.type
-    samples = (rounds * workload["cohort"] * workload["per_client"]["train"]
-               * config["tm"]["local_epochs"])
-    e2e = {"train_samples_per_s": samples / window_s,
+    e2e = {"train_samples_per_s": cycles * samples / window_s,
            "device_peak_gib": peak / GIB, "setup_s": setup_s}
     metrics = {}
     if not args.trace:
@@ -284,10 +292,10 @@ def main(argv=None, device: str | None = None, isolation: bool = True,
     else:
         chip_peaks = json.loads((BENCH / "peaks.json").read_text())
         ctx = {"config": config, "workload": workload, "profile": profile,
-               "spans_ms": {k: 1e3 * v / rounds
+               "spans_ms": {k: 1e3 * v / steps
                             for k, v in spans.totals.items()},
-               "round_s": window_s / rounds,
-               "cycle_rounds": workload["rounds_per_cycle"],
+               "round_s": window_s / steps,
+               "cycle_rounds": cycle_steps,
                "peak": chip_peaks.get(kind)}
         for m in bench["per_layer"]:
             if args.workload not in m.get("workloads", [args.workload]):
@@ -295,7 +303,7 @@ def main(argv=None, device: str | None = None, isolation: bool = True,
             value = metric_reader(m["name"])(ctx)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    out = {"correct": correct, "attempted": rounds, "failed": 0,
+    out = {"correct": correct, "attempted": steps, "failed": 0,
            "metrics": metrics,
            "device": {"platform": "gpu" if cuda else dev.type,
                       "kind": kind, "count": entry["chips"], "memory_peak_bytes": peak}}
@@ -312,7 +320,7 @@ def main(argv=None, device: str | None = None, isolation: bool = True,
     print("device peak: %d B after init, %d B after the warm-up cycle, "
           "%d B at the window's end" % (*peaks, peak), file=sys.stderr)
     took = sorted(b - a for a, b in zip([t0] + ends, ends))
-    print(f"cycles {cycles}, rounds {rounds}, window {window_s:.3f} s; a "
+    print(f"cycles {cycles}, steps {steps}, window {window_s:.3f} s; a "
           f"cycle {took[0]:.4f} / {took[len(took) // 2]:.4f} / "
           f"{took[-1]:.4f} s (least / median / most)", file=sys.stderr)
     print("timing: imports %.2f s (torch %.2f s, the card's query %.2f "

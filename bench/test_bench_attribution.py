@@ -124,12 +124,9 @@ def test_key_chain_ms_reads_its_span(spans_ms, want):
 
 def test_a_traced_run_reports_key_chain_ms():
     """The harness reads the program's ``key_chain`` span in a traced
-    run (the tiny cell on the CPU, listed for the metric here)."""
+    run (the tiny cell on the CPU, which reads the TM cells' metrics)."""
     from bench import tiny
     bench, entry, workload, config = tiny.cell(rounds_checked=1)
-    for m in bench["per_layer"]:
-        if m["name"] == "key_chain_ms":
-            m["workloads"].append(entry["name"])
     out = run.main(["--workload", "tiny", "--seed", "11", "--seconds", "0.1",
                     "--trace", "1"], device="cpu", isolation=False,
                    cell=(bench, entry, workload, config))
@@ -137,3 +134,35 @@ def test_a_traced_run_reports_key_chain_ms():
     got = out["metrics"]["key_chain_ms"]
     assert got["unit"] == "ms"
     assert 0 < got["value"] < out["metrics"]["client_step_ms"]["value"]
+
+
+def _with_aggregate():
+    """The hand-built capture and an ``aggregate`` span [920, 980] that
+    launches two kernels."""
+    return _capture() + [
+        _ev("aggregate", 920, 980),
+        _ev("cudaLaunchKernel", 925, 926, cid=20),
+        _ev("k_add", 930, 934, dev=True, cid=20),
+        _ev("cudaLaunchKernel", 935, 936, cid=21),
+        _ev("k_add", 936, 939, dev=True, cid=21)]
+
+
+@pytest.mark.parametrize("metric, want", [
+    ("launches_per_round", 11 / 2),
+    ("key_chain.launches", 2 / 2),
+    ("aggregate.launches", 2 / 2),
+    ("eval_scatter.device_ms", 60e-3 / 2)])
+def test_the_launch_readers_read_the_capture_by_span(metric, want):
+    """Each launch reader on the capture over a cycle of two rounds;
+    nothing where the profile counted no device operation (a CPU run)
+    or holds no cycle."""
+    read = run.metric_reader(metric)
+    prof = attribution.reduce_profile(_Prof(_with_aggregate()),
+                                      SPANS | {"aggregate"})
+    assert math.isclose(read({"profile": prof, "cycle_rounds": 2}), want,
+                        rel_tol=1e-12)
+    cpu = [e for e in _with_aggregate() if not trace._is_device(e)]
+    empty = attribution.reduce_profile(_Prof(cpu), SPANS | {"aggregate"})
+    assert empty["launches_by_span"] == {}
+    for profile in (empty, {}):
+        assert read({"profile": profile, "cycle_rounds": 2}) is None

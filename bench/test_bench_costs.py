@@ -16,6 +16,7 @@ PEAK = json.loads((run.BENCH / "peaks.json").read_text())[
 def test_peaks_are_the_h100_data_sheet():
     assert PEAK["hbm_bytes_per_s"] == 3.35e12
     assert PEAK["int8_tensor_ops_per_s"] == 1.979e15
+    assert PEAK["bf16_tensor_flops_per_s"] == 9.894e14
 
 
 def test_state_bits():

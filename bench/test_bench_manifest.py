@@ -68,9 +68,23 @@ def test_every_cell_names_its_files():
         assert cf["name"] == c["name"] and cf["source"] == c["source"]
         assert cf["reduced"] == c["reduced"]
         assert (run.BENCH / f"{cf['reference']}.py").is_file()
+        assert (run.BENCH / f"{cf.get('program', 'program')}.py").is_file()
         assert c["file"].startswith("bench/")
         used.add(w["config"])
     assert used == set(configs)
+
+
+@pytest.mark.parametrize("config", [c["file"] for c in B["configs"]])
+def test_a_config_without_program_runs_the_tm_round(config):
+    """Neither TM configuration names a program: both run
+    ``bench/program.py``, the round engine."""
+    cf = json.loads((run.ROOT / config).read_text())
+    assert "program" not in cf
+    mod = run.program_of(cf)
+    assert mod.__file__ == str(run.BENCH / "program.py")
+    assert mod.make_inputs.__module__ == "bench.traffic"
+    assert {"obs", "cycle", "outcome", "close"} <= set(dir(mod.Program))
+    assert callable(mod.capture) and callable(mod.check)
 
 
 def _reports(metric, cell):

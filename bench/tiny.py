@@ -26,6 +26,10 @@ def cell(n_classes: int = 10, population: int = 6, cohort: int = 3,
     entry = {"name": "tiny", "config": "tiny", "traffic": "tiny",
              "chips": 1}
     bench["workloads"].append(entry)
+    # the tiny cell reads what the silo cell, all clients training, reads
+    for m in bench["per_layer"]:
+        if "tm-mnist-c10.silo20" in m.get("workloads", []):
+            m["workloads"].append(entry["name"])
     return bench, entry, workload, config
 
 
